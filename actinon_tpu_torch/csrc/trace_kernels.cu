@@ -1,0 +1,507 @@
+// Trace kernels of the main render path, hand-written for Hopper (sm_90a).
+//
+// Three __global__ entry points over shared __device__ code:
+//
+//   nee_kernel         (K1) replaces actinon_tpu/render/pallas_kernels.py
+//                      build_nee_kernel: the whole per-light NEE loop of a
+//                      lane — counter-RNG cap sample in the con_z frame,
+//                      true light-geometry hit, trig-free Oren-Nayar,
+//                      inline matter shadow any-hit, 2*cyl/ns estimator.
+//   shadow_kernel      (K2) replaces build_shadow_kernel: any matter hit
+//                      within (., limit] over the single-leaf objects
+//                      (envelope-gated) and the analytic composites.
+//   object_hit_kernel  (K3) replaces build_object_hit_kernel: the
+//                      eps-backed first hit of ONE object, INF on a miss.
+//
+// Design.  The Pallas kernels were generated per scene, with every leaf
+// baked in as an immediate.  Here ONE source serves every scene: the
+// geometry is a read-only table (leaf records, composite records with
+// their CSG tree as postfix byte-code, light records) built by
+// render/kernels.py.  Every thread of a warp reads the same table entry
+// at the same time, so the read-only cache serves each read as one
+// broadcast.  One thread handles one ray (K2, K3) or one NEE lane (K1);
+// K1 loops over its lane's own sample count ns at run time (the Pallas
+// kernel's masked samples add exactly 0, so the sums agree).  A
+// composite's crossing walk keeps up to 64 crossing columns per thread in
+// a local array and is O(NC^2), as in pallas_kernels.py:258-302.
+//
+// What bounds it on this card.  K1 and the walk are FP32-ALU bound:
+// about 72 bytes of I/O per lane against thousands of flops (per sample:
+// the RNG, sinf/cosf, the light hit and a shadow test over every matter
+// object).  K2 and K3 move 24-32 bytes per ray against a few hundred to a
+// few thousand flops.  The design does nothing about that yet: no tensor
+// cores, no shared-memory staging of the table, no early exit, no
+// sorting of the crossings.  Those are later work.
+//
+// Numerics: f32, no fast-math; sinf, cosf, sqrtf and 1.0f/sqrtf, as the
+// Pallas kernels compute in exact f32.
+//
+// Interface: plain C functions, loaded with ctypes.  Each launches on the
+// stream it is given and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+// ---- table layout (must match render/kernels.py) ----
+enum {
+    H_NLEAF = 0, H_NCOMP = 1, H_NSS = 2, H_NSC = 3, H_LEAF_F = 4,
+    H_COMP_F = 5, H_LEAF_I = 6, H_COMP_I = 7, H_ROWS = 8, H_PROG = 9,
+    H_SS = 10, H_SC = 11
+};
+enum {
+    LF_M = 0, LF_M0 = 9, LF_C2 = 12, LF_C1 = 15, LF_RR = 18, LF_EC = 19,
+    LF_ER = 22, LF_ER2 = 23, LF_SIZE = 24
+};
+enum { LI_KIND = 0, LI_LIN = 1, LI_ENV = 2, LI_SIZE = 4 };
+enum { CF_EC = 0, CF_ER = 3, CF_ER2 = 4, CF_SIZE = 8 };
+enum { CI_ROWS = 0, CI_N = 1, CI_PROG = 2, CI_PLEN = 3, CI_SIZE = 4 };
+enum {
+    LT_PN = 0, LT_CONE = 3, LT_POS = 6, LT_R2 = 9, LT_RAD = 10,
+    LT_COLOR = 11, LT_SIZE = 16
+};
+enum { LTI_FOV = 0, LTI_HKIND = 1, LTI_HIDX = 2, LTI_SIZE = 4 };
+enum { OP_AND = -1, OP_OR = -2, OP_NOT = -3 };
+enum { PLANE = 0, SPHERE = 1, QUADRIC = 2 };
+constexpr int MAX_COLS = 64;
+
+struct Scene {
+    const float* __restrict__ f;
+    const int* __restrict__ i;
+};
+
+__device__ __forceinline__ float finf() { return __int_as_float(0x7f800000); }
+
+// false for +-INF and NaN, as jnp.isfinite
+__device__ __forceinline__ bool is_finite(float x) { return fabsf(x) < finf(); }
+
+struct Ray {
+    float px, py, pz, dx, dy, dz;
+};
+
+// ---- per-leaf generalized-quadric math (pallas_kernels.py:63-194) ----
+
+// (A, B, C) of the leaf's quadratic along the ray; side(p) = C.
+__device__ __forceinline__ void leaf_quads(const float* __restrict__ L,
+                                           const Ray& r, float& A, float& B,
+                                           float& C) {
+    float pl[3], dl[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        const float* m = L + LF_M + 3 * k;
+        pl[k] = L[LF_M0 + k] + ((m[0] * r.px + m[1] * r.py) + m[2] * r.pz);
+        dl[k] = (m[0] * r.dx + m[1] * r.dy) + m[2] * r.dz;
+    }
+    const float* c2 = L + LF_C2;
+    const float* c1 = L + LF_C1;
+    A = (c2[0] * (dl[0] * dl[0]) + c2[1] * (dl[1] * dl[1]))
+        + c2[2] * (dl[2] * dl[2]);
+    B = 2.0f * ((c2[0] * (dl[0] * pl[0]) + c2[1] * (dl[1] * pl[1]))
+                + c2[2] * (dl[2] * pl[2]))
+        + ((c1[0] * dl[0] + c1[1] * dl[1]) + c1[2] * dl[2]);
+    C = ((c2[0] * (pl[0] * pl[0]) + c2[1] * (pl[1] * pl[1]))
+         + c2[2] * (pl[2] * pl[2]))
+        + ((c1[0] * pl[0] + c1[1] * pl[1]) + c1[2] * pl[2]) + L[LF_RR];
+}
+
+// Both roots, cancellation-stable (tracer._roots / _stable_roots).
+__device__ __forceinline__ void stable_roots(float A, float B, float C,
+                                             float& t0, float& t1, float& s,
+                                             float& q, bool& ok) {
+    const float safe_A = A != 0.0f ? A : 1.0f;
+    s = (B * 0.5f) / safe_A;
+    q = C / safe_A;
+    const float disc = s * s - q;
+    ok = (A != 0.0f) && (disc >= 0.0f);
+    const bool pos = ok && (disc > 0.0f);
+    const float root = pos ? sqrtf(disc) : 0.0f;
+    const float ta = -s - root;
+    const float tb = -s + root;
+    float r0 = ta, r1 = tb;
+    if (s < 0.0f) r0 = fabsf(tb) > 0.0f ? q / tb : ta;
+    if (s > 0.0f) r1 = fabsf(ta) > 0.0f ? q / ta : tb;
+    t0 = ok ? r0 : finf();
+    t1 = ok ? r1 : finf();
+}
+
+__device__ __forceinline__ float lin_root(float B, float C) {
+    return B != 0.0f ? -C / B : finf();
+}
+
+// Family root policy (tracer._policy), eps-backed.
+__device__ float leaf_first_hit(const float* __restrict__ L, int kind,
+                                bool lin, const Ray& r, float eps) {
+    float A, B, C;
+    leaf_quads(L, r, A, B, C);
+    if (kind == PLANE) {
+        const float t = lin_root(B, C);
+        return t > 0.0f ? t - eps : finf();
+    }
+    float t0, t1, s, q;
+    bool ok;
+    stable_roots(A, B, C, t0, t1, s, q, ok);
+    if (kind == SPHERE) {
+        const bool entering = (s < 0.0f) && (q > 0.0f);
+        const bool exiting = (s < 0.0f) || (q < 0.0f);
+        const float a = entering ? t0 : (exiting ? t1 : finf());
+        return ok ? a - eps : finf();
+    }
+    if (lin || A == 0.0f) {   // runtime-degenerate quadric: linear root
+        t0 = lin_root(B, C);
+        t1 = finf();
+    }
+    const float a = t0 >= 0.0f ? t0 : (t1 >= 0.0f ? t1 : finf());
+    return is_finite(a) ? a - eps : finf();
+}
+
+// Envelope-sphere hit-exists test (envelope_s_ray_hits).
+__device__ __forceinline__ bool env_gate(const float* __restrict__ c,
+                                         float r2, const Ray& r) {
+    const float ex = r.px - c[0], ey = r.py - c[1], ez = r.pz - c[2];
+    const float s = (ex * r.dx + ey * r.dy) + ez * r.dz;
+    const float q = ((ex * ex + ey * ey) + ez * ez) - r2;
+    return (s * s - q >= 0.0f) && ((s < 0.0f) || (q < 0.0f));
+}
+
+// First hit of a single-leaf object, its envelope gate applied.
+__device__ float single_hit(const Scene& S, int row, const Ray& r,
+                            float eps) {
+    const float* L = S.f + S.i[H_LEAF_F] + row * LF_SIZE;
+    const int* LI = S.i + S.i[H_LEAF_I] + row * LI_SIZE;
+    float a = leaf_first_hit(L, LI[LI_KIND], LI[LI_LIN] != 0, r, eps);
+    if (LI[LI_ENV] && !env_gate(L + LF_EC, L[LF_ER2], r)) a = finf();
+    return a;
+}
+
+// Postfix CSG program on two inside-bit sets at once.
+__device__ __forceinline__ void tree_eval2(const int* __restrict__ prog,
+                                           int n, uint32_t ba, uint32_t bb,
+                                           bool& va, bool& vb) {
+    uint64_t sa = 0, sb = 0;   // bit stacks, top at bit 0
+    for (int k = 0; k < n; ++k) {
+        const int op = prog[k];
+        if (op >= 0) {
+            sa = (sa << 1) | ((ba >> op) & 1u);
+            sb = (sb << 1) | ((bb >> op) & 1u);
+        } else if (op == OP_NOT) {
+            sa ^= 1u;
+            sb ^= 1u;
+        } else {
+            const uint64_t a0 = sa & 1u, a1 = (sa >> 1) & 1u;
+            const uint64_t b0 = sb & 1u, b1 = (sb >> 1) & 1u;
+            const uint64_t ra = op == OP_AND ? (a0 & a1) : (a0 | a1);
+            const uint64_t rb = op == OP_AND ? (b0 & b1) : (b0 | b1);
+            sa = ((sa >> 2) << 1) | ra;
+            sb = ((sb >> 2) << 1) | rb;
+        }
+    }
+    va = (sa & 1u) != 0;
+    vb = (sb & 1u) != 0;
+}
+
+// Nearest boundary flip of one composite: crossing-parity walk over its
+// leaves' crossings (pallas_kernels._comp_boundary), envelope-gated.
+// Returns the un-backed crossing offset, INF when there is none.
+__device__ float comp_boundary(const Scene& S, int ci, const Ray& r) {
+    const float* CF = S.f + S.i[H_COMP_F] + ci * CF_SIZE;
+    const int* CI = S.i + S.i[H_COMP_I] + ci * CI_SIZE;
+    const int* rows = S.i + S.i[H_ROWS] + CI[CI_ROWS];
+    const int nl = CI[CI_N];
+    const int nc = 2 * nl;
+    const float inf = finf();
+    float cross[MAX_COLS];
+    uint32_t inside = 0;
+    for (int l = 0; l < nl; ++l) {
+        const int row = rows[l];
+        const float* L = S.f + S.i[H_LEAF_F] + row * LF_SIZE;
+        const bool lin = S.i[S.i[H_LEAF_I] + row * LI_SIZE + LI_LIN] != 0;
+        float A, B, C;
+        leaf_quads(L, r, A, B, C);
+        if (C <= 0.0f) inside |= 1u << l;
+        float c0, c1;
+        if (lin) {
+            c0 = lin_root(B, C);
+            c1 = inf;
+        } else {
+            float s, q;
+            bool ok;
+            stable_roots(A, B, C, c0, c1, s, q, ok);
+            if (A == 0.0f) {
+                c0 = lin_root(B, C);
+                c1 = inf;
+            }
+        }
+        cross[2 * l] = c0 > 0.0f ? c0 : inf;
+        cross[2 * l + 1] = c1 > 0.0f ? c1 : inf;
+    }
+    const int* prog = S.i + S.i[H_PROG] + CI[CI_PROG];
+    const int plen = CI[CI_PLEN];
+    float best = inf;
+    for (int j = 0; j < nc; ++j) {
+        const float tj = cross[j];
+        if (!is_finite(tj)) continue;
+        // per-leaf parity at-or-before / strictly-before t_j
+        uint32_t pa = 0, pb = 0;
+        for (int c = 0; c < nc; ++c) {
+            const float tc = cross[c];
+            if (!is_finite(tc)) continue;
+            const uint32_t bit = 1u << (c >> 1);
+            if (tc <= tj) pa ^= bit;
+            if (tc < tj) pb ^= bit;
+        }
+        bool va, vb;
+        tree_eval2(prog, plen, inside ^ pa, inside ^ pb, va, vb);
+        if (va != vb && tj < best) best = tj;
+    }
+    if (CF[CF_ER] > 0.0f && !env_gate(CF + CF_EC, CF[CF_ER2], r)) best = inf;
+    return best;
+}
+
+// Any covered matter hit within (., lim].
+__device__ bool shadow_blocked(const Scene& S, const Ray& r, float lim,
+                               float eps) {
+    bool blocked = false;
+    const int nss = S.i[H_NSS], nsc = S.i[H_NSC];
+    const int* ss = S.i + S.i[H_SS];
+    const int* sc = S.i + S.i[H_SC];
+    for (int k = 0; k < nss; ++k)
+        blocked |= single_hit(S, ss[k], r, eps) <= lim;
+    for (int k = 0; k < nsc; ++k) {
+        const float t = comp_boundary(S, sc[k], r);
+        blocked |= is_finite(t) && (t - eps <= lim);
+    }
+    return blocked;
+}
+
+// First hit of a leaf (kind 0) or composite (kind 1) object, eps-backed.
+__device__ __forceinline__ float object_first_hit(const Scene& S, int kind,
+                                                  int idx, const Ray& r,
+                                                  float eps) {
+    if (kind == 0) return single_hit(S, idx, r, eps);
+    const float t = comp_boundary(S, idx, r);
+    return is_finite(t) ? t - eps : finf();
+}
+
+// ---- counter RNG (rng.py: murmur3 finalizer) ----
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+    h ^= h >> 16;
+    h *= 0x85EBCA6Bu;
+    h ^= h >> 13;
+    h *= 0xC2B2AE35u;
+    h ^= h >> 16;
+    return h;
+}
+
+__device__ __forceinline__ float uniform(uint32_t rv, uint32_t ctr) {
+    const uint32_t c = fmix32(ctr * 0x9E3779B9u + 1u);
+    const uint32_t bits = fmix32(rv ^ c);
+    return (float)(bits >> 8) * (1.0f / 16777216.0f);
+}
+
+__device__ __forceinline__ void norm3(float& x, float& y, float& z) {
+    const float ln2 = (x * x + y * y) + z * z;
+    const float inv = ln2 > 0.0f ? 1.0f / sqrtf(ln2) : 1.0f;
+    x *= inv;
+    y *= inv;
+    z *= inv;
+}
+
+// ---- kernels ----
+
+__global__ void shadow_kernel(Scene S, const float* __restrict__ p,
+                              const float* __restrict__ d,
+                              const float* __restrict__ lim,
+                              uint8_t* __restrict__ out, int n, float eps) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const Ray r{p[3 * i], p[3 * i + 1], p[3 * i + 2],
+                d[3 * i], d[3 * i + 1], d[3 * i + 2]};
+    // a limit that is not finite reads as 3e38, as in the Pallas kernel:
+    // a miss (INF) never blocks
+    const float l = lim[i];
+    out[i] = shadow_blocked(S, r, is_finite(l) ? l : 3e38f, eps) ? 1 : 0;
+}
+
+__global__ void object_hit_kernel(Scene S, int kind, int idx,
+                                  const float* __restrict__ p,
+                                  const float* __restrict__ d,
+                                  float* __restrict__ out, int n,
+                                  float eps) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const Ray r{p[3 * i], p[3 * i + 1], p[3 * i + 2],
+                d[3 * i], d[3 * i + 1], d[3 * i + 2]};
+    const float a = object_first_hit(S, kind, idx, r, eps);
+    out[i] = is_finite(a) ? a : finf();
+}
+
+__global__ void nee_kernel(Scene S, const float* __restrict__ LF,
+                           const int* __restrict__ LI, int n_lights,
+                           int cap, const float* __restrict__ pos,
+                           const float* __restrict__ surf_d,
+                           const float* __restrict__ di_in,
+                           const float* __restrict__ cos_ti_in,
+                           const float* __restrict__ on_a_in,
+                           const float* __restrict__ on_b_in,
+                           const float* __restrict__ ray_prj,
+                           const uint32_t* __restrict__ rv_in,
+                           const int* __restrict__ ns_in,
+                           float* __restrict__ out, int n, float eps) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    float lum[3] = {0.0f, 0.0f, 0.0f};
+    const float di = di_in[i];
+    if (di > 0.0f) {
+        const float px = pos[3 * i], py = pos[3 * i + 1], pz = pos[3 * i + 2];
+        const float sx = surf_d[3 * i], sy = surf_d[3 * i + 1],
+                    sz = surf_d[3 * i + 2];
+        const float qx = ray_prj[3 * i], qy = ray_prj[3 * i + 1],
+                    qz = ray_prj[3 * i + 2];
+        const float cos_ti = cos_ti_in[i];
+        const float on_a = on_a_in[i], on_b = on_b_in[i];
+        const bool has_ob = on_b > 0.0f;
+        const uint32_t rv = rv_in[i];
+        const int ns = ns_in[i];
+        const float ns_f = (float)ns;
+        const float two_pi = 6.283185307179586f;
+        for (int li = 0; li < n_lights; ++li) {
+            const float* lt = LF + li * LT_SIZE;
+            const int* lti = LI + li * LTI_SIZE;
+            // fov cone: sphere / envelope cone, or plane half-space
+            float fx, fy, fz, cos_rs;
+            if (lti[LTI_FOV] == 1) {
+                const float* nn = lt + LT_PN;
+                fx = -nn[0];
+                fy = -nn[1];
+                fz = -nn[2];
+                const float dside = ((lt[LT_POS] - px) * (-nn[0])
+                                     + (lt[LT_POS + 1] - py) * (-nn[1]))
+                                    + (lt[LT_POS + 2] - pz) * (-nn[2]);
+                cos_rs = dside > 0.0f ? 0.0f : 1.0f;
+            } else {
+                fx = lt[LT_CONE] - px;
+                fy = lt[LT_CONE + 1] - py;
+                fz = lt[LT_CONE + 2] - pz;
+                const float dist2 = (fx * fx + fy * fy) + fz * fz;
+                norm3(fx, fy, fz);
+                const float r2 = lt[LT_R2];
+                const float q = 1.0f - r2 / (dist2 > 0.0f ? dist2 : 1.0f);
+                cos_rs = dist2 > r2 ? sqrtf(q > 0.0f ? q : 0.0f) : -1.0f;
+            }
+            const float cyl = 1.0f - cos_rs;
+            // transposed(con_z(fov_d)) frame: columns mx, my, mz = fov_d
+            const float xx = fx * fx, yy = fy * fy, zz = fz * fz;
+            const float exm = (xx <= yy && xx <= zz) ? 1.0f : 0.0f;
+            const float eym = (yy <= xx && yy <= zz) ? 1.0f - exm : 0.0f;
+            const float ezm = fmaxf(1.0f - exm - eym, 0.0f);
+            const float cdot = (exm * fx + eym * fy) + ezm * fz;
+            float mxx = exm - fx * cdot, mxy = eym - fy * cdot,
+                  mxz = ezm - fz * cdot;
+            norm3(mxx, mxy, mxz);
+            const float myx = fy * mxz - fz * mxy;
+            const float myy = fz * mxx - fx * mxz;
+            const float myz = fx * mxy - fy * mxx;
+            const int hkind = lti[LTI_HKIND], hidx = lti[LTI_HIDX];
+            const float lpx = lt[LT_POS], lpy = lt[LT_POS + 1],
+                        lpz = lt[LT_POS + 2];
+            const float rad = lt[LT_RAD];
+            float acc = 0.0f;
+            for (int j = 0; j < ns; ++j) {
+                const uint32_t ctr = 4u * (uint32_t)(li * cap + j);
+                const float u1 = uniform(rv, ctr);
+                const float u2 = uniform(rv, ctr + 1u);
+                const float phi = two_pi * u1;
+                const float z = 1.0f - u2 * cyl;
+                const float sc2 = 1.0f - z * z;
+                const float sc = sqrtf(sc2 > 0.0f ? sc2 : 0.0f);
+                const float lx = sinf(phi) * sc;
+                const float ly = cosf(phi) * sc;
+                Ray r;
+                r.px = px;
+                r.py = py;
+                r.pz = pz;
+                r.dx = (mxx * lx + myx * ly) + fx * z;
+                r.dy = (mxy * lx + myy * ly) + fy * z;
+                r.dz = (mxz * lx + myz * ly) + fz * z;
+                float w = (r.dx * sx + r.dy * sy) + r.dz * sz;
+                const float a = object_first_hit(S, hkind, hidx, r, eps);
+                const bool fin = is_finite(a);
+                bool ok = (w > 0.0f) && fin;
+                if (has_ob) {
+                    // Oren-Nayar, trig-free: sin(max(ti, tr)) and
+                    // tan(min(ti, tr)) from the cosines
+                    const float wc = fminf(fmaxf(w, -1.0f), 1.0f);
+                    float prx = r.dx - sx * w, pry = r.dy - sy * w,
+                          prz = r.dz - sz * w;
+                    norm3(prx, pry, prz);
+                    const float cos_phi = -((prx * qx + pry * qy) + prz * qz);
+                    const float cmin = fminf(cos_ti, wc);
+                    const float sin_max = sqrtf(fmaxf(1.0f - cmin * cmin,
+                                                      0.0f));
+                    const float cmax = fmaxf(fmaxf(cos_ti, wc), 1e-6f);
+                    const float tan_min =
+                        sqrtf(fmaxf(1.0f - cmax * cmax, 0.0f)) / cmax;
+                    w = w * (on_a + ((on_b * fmaxf(cos_phi, 0.0f)) * sin_max)
+                                        * tan_min);
+                }
+                const float lim = fin ? a : 0.0f;
+                ok = ok && !shadow_blocked(S, r, lim, eps);
+                const float a_safe = fin ? a : 0.0f;
+                const float hx = px + r.dx * a_safe - lpx;
+                const float hy = py + r.dy * a_safe - lpy;
+                const float hz = pz + r.dz * a_safe - lpz;
+                const float dsq = (hx * hx + hy * hy) + hz * hz;
+                const float loc = dsq > 0.0f ? rad / dsq : 1e30f;
+                acc += ok ? (loc * w) * di : 0.0f;
+            }
+            const float fac = 2.0f * cyl / ns_f;
+#pragma unroll
+            for (int ch = 0; ch < 3; ++ch)
+                lum[ch] += acc * (lt[LT_COLOR + ch] * fac);
+        }
+    }
+    out[3 * i] = lum[0];
+    out[3 * i + 1] = lum[1];
+    out[3 * i + 2] = lum[2];
+}
+
+constexpr int kBlock = 128;
+
+inline int grid_of(int n) { return (n + kBlock - 1) / kBlock; }
+
+}  // namespace
+
+extern "C" {
+
+int actinon_shadow(const float* sf, const int* si, const float* p,
+                   const float* d, const float* lim, uint8_t* out, int n,
+                   float eps, void* stream) {
+    shadow_kernel<<<grid_of(n), kBlock, 0, (cudaStream_t)stream>>>(
+        Scene{sf, si}, p, d, lim, out, n, eps);
+    return (int)cudaGetLastError();
+}
+
+int actinon_object_hit(const float* sf, const int* si, int kind, int idx,
+                       const float* p, const float* d, float* out, int n,
+                       float eps, void* stream) {
+    object_hit_kernel<<<grid_of(n), kBlock, 0, (cudaStream_t)stream>>>(
+        Scene{sf, si}, kind, idx, p, d, out, n, eps);
+    return (int)cudaGetLastError();
+}
+
+int actinon_nee(const float* sf, const int* si, const float* lf,
+                const int* li, int n_lights, int cap, const float* pos,
+                const float* surf_d, const float* di, const float* cos_ti,
+                const float* on_a, const float* on_b, const float* ray_prj,
+                const uint32_t* rv, const int* ns, float* out, int n,
+                float eps, void* stream) {
+    nee_kernel<<<grid_of(n), kBlock, 0, (cudaStream_t)stream>>>(
+        Scene{sf, si}, lf, li, n_lights, cap, pos, surf_d, di, cos_ti, on_a,
+        on_b, ray_prj, rv, ns, out, n, eps);
+    return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,896 @@
+"""Wavefront light-transport integrator (forward rendering).
+
+PyTorch counterpart of the JAX package's `render/integrator.py`.  The
+reference integrator scene_s_lum (reference src/scene.c:420-667) is a
+recursion; here it is flattened into a wavefront: rays are queue entries
+carrying (p, d, intensity, tint_rgb, depth, sample_id), and one *step*
+processes a batch — trace, classify, accumulate local contributions
+(emitter / background / NEE direct light), emit child rays for the
+specular branches and path samples.  The drain is a Python loop over
+steps; the queue, the child compaction and the accumulator stay on the
+device.  Path configs run the mixed drain: path-spawn parents live in
+the same queue and expand in place.
+
+All reference semantics are those of the JAX package: the depth budget
+(specular and refraction cost 1, path costs 10 and is gated on depth >
+10), intensity-scaled sample counts, the 2*cap_height/n and 2/n
+estimators, the exit-transition override, Beer-Lambert absorption,
+Oren-Nayar weighting, and position-seeded counter RNG streams.
+
+On a CUDA device in f32 the NEE of a position-seeded render runs as the
+hand-written NEE kernel (`render/kernels.py`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import numpy as np
+import torch
+
+from actinon_tpu_torch import math3d as m3
+from actinon_tpu_torch import rng as argn
+from actinon_tpu_torch.render import kernels
+from actinon_tpu_torch.render.tracer import (CHUNK, Tracer, _dot, _norm3,
+                                             _sphere_first_hit, safe_acos,
+                                             safe_sqrt)
+from actinon_tpu_torch.scene import ir as sir
+
+F3_MAG = 1e30
+# runaway-wavefront backstop: a pathological scene that keeps spawning
+# children exits the drain loop here — run_device warns when it fires
+DRAIN_TRIP_CAP = 100000
+# path children emitted per parent lane per drain trip: a parent
+# descriptor with ns samples re-enqueues itself ns/PATH_EXPAND times
+PATH_EXPAND = 16
+
+_MAT_NAMES = ["m_color", "m_radiance", "m_rix", "m_fresnel", "m_chromatic",
+              "m_diffuse", "m_sigma", "m_transp", "m_pos", "m_tex1",
+              "m_tex2", "l_pos", "l_rad", "l_radius", "l_color",
+              "background"]
+
+
+def _frame_apply(frame, vecs):
+    """frame [..., 3, 3] applied to vecs [..., K, 3]:
+    out[..., k, i] = sum_j frame[..., i, j] * vecs[..., k, j]."""
+    f = frame[..., None, :, :]        # [..., 1, 3, 3]
+    return torch.stack(
+        [f[..., i, 0] * vecs[..., 0] + f[..., i, 1] * vecs[..., 1]
+         + f[..., i, 2] * vecs[..., 2] for i in range(3)], dim=-1)
+
+
+def _dotk(vecs, v):
+    """vecs [..., K, 3] . v [..., 3] -> [..., K] (v broadcast over K)."""
+    return (vecs * v[..., None, :]).sum(-1)
+
+
+def _scatter_add(acc, idx, val):
+    """acc[idx] += val with a fixed summation order.  On CUDA,
+    `index_put_(accumulate=True)` sorts the indices and sums each run of
+    duplicates serially (deterministic, unlike the float atomics of
+    `index_add_`); on the CPU `index_add_` walks the indices in order."""
+    if acc.device.type == "cuda":
+        acc.index_put_((idx,), val, accumulate=True)
+    else:
+        acc.index_add_(0, idx, val)
+
+
+class Integrator:
+    def __init__(self, tracer: Tracer, batch: int = 1 << 14):
+        self.tr = tracer
+        self.ir = tracer.ir
+        self.cfg = tracer.ir.cfg
+        self.dtype = tracer.dtype
+        self.tdtype = tracer.tdtype
+        self.device = tracer.device
+        self.batch = batch
+        # "position": RNG streams from the hit position (reference
+        # src/scene.c:537); "counter": from (sample_id, depth), frozen
+        # randomness whose samples do not move with the scene
+        self.seed_mode = "position"
+        self._kernel_cache = {}
+
+        ir = self.ir
+        dt = self.dtype
+        g = lambda f: np.array([getattr(o, f) for o in ir.objects], dt)
+        g3 = lambda f: np.stack([np.asarray(getattr(o, f), dt)
+                                 for o in ir.objects])
+        self.m_color = g3("color")
+        self.m_radiance = g("radiance")
+        self.m_rix = g("refractive_index")
+        self.m_fresnel = g("fresnel")
+        self.m_chromatic = g("chromatic")
+        self.m_diffuse = g("diffuse")
+        self.m_sigma = g("sigma")
+        self.m_transp = g3("transparency")
+        self.m_pos = g3("pos")
+        self.m_texk = np.array([o.tex_kind for o in ir.objects], np.int32)
+        self.m_tex1 = np.stack([
+            np.asarray(o.tex_c1, dt) if o.tex_c1 is not None
+            else np.zeros(3, dt) for o in ir.objects])
+        self.m_tex2 = np.stack([
+            np.asarray(o.tex_c2, dt) if o.tex_c2 is not None
+            else np.zeros(3, dt) for o in ir.objects])
+        self.m_texs = g("tex_scale")
+        self.m_projk = np.array([o.proj_kind for o in ir.objects], np.int32)
+        self.m_projp = np.stack([
+            np.asarray(o.proj_pos, dt) if o.proj_pos is not None
+            else np.zeros(3, dt) for o in ir.objects])
+        self.m_projr = np.stack([
+            np.asarray(o.proj_rax, dt) if o.proj_rax is not None
+            else np.eye(3, dtype=dt) for o in ir.objects])
+
+        # light tables [L]
+        L = len(ir.lights)
+        self.n_lights = L
+        lo = [ir.objects[i] for i in ir.lights]
+        self.l_pos = np.stack([np.asarray(o.pos, dt) for o in lo]) \
+            if L else np.zeros((0, 3), dt)
+        self.l_rad = np.array([o.radiance for o in lo], dt)
+        self.l_radius = np.array([o.light_radius for o in lo], dt)
+        # light color at its own center (obj_color(light, prp.pos),
+        # reference src/scene.c:552)
+        self.l_color = np.stack([
+            np.asarray(o.tex_c1 if o.tex_kind == sir.TEX_PLAIN else o.color,
+                       dt) for o in lo]) if L else np.zeros((0, 3), dt)
+        # per-light fov cone kind (obj_fov, reference src/objects.c:520,
+        # 619,1037) and whether the NEE intersection is the exact sphere
+        # formula or a hit of the true object geometry (obj_ray_hit(
+        # light_src), reference src/scene.c:564)
+        self.l_fov = [o.light_fov for o in lo]
+        self.l_plane_n = [None if o.light_plane_n is None
+                          else np.asarray(o.light_plane_n, dt) for o in lo]
+        self.l_cone_pos = np.stack([
+            np.asarray(o.light_cone_pos if o.light_cone_pos is not None
+                       else o.pos, dt) for o in lo]) \
+            if L else np.zeros((0, 3), dt)
+        self.l_sphere_exact = [
+            o.single_leaf and o.leaves[0].family == sir.SPHERE for o in lo]
+        self.l_oid = list(ir.lights)
+
+        self.rays_traced = 0
+        self.direct_cap = max(int(self.cfg.direct_samples), 1)
+        # THE query accounting definition of the JAX package, shared with
+        # its bench: one live non-parent lane costs 1 transition trace + 1
+        # coincident-surface pass + n_lights*direct_cap NEE traversals
+        self.per_lane_queries = 2 + len(ir.lights) * self.direct_cap
+        self.path_cap = max(int(self.cfg.path_samples), 0)
+        self.tmi = float(dt.type(self.cfg.trace_min_intensity))
+        self.background = np.asarray(ir.background, dt)
+        self.max_path_length = float(dt.type(self.cfg.max_path_length))
+        self._upload()
+
+    # ------------------------------------------------------------------
+
+    def _upload(self):
+        """Material and light tables to the device (after construction
+        and after set_mat)."""
+        dev, dt = self.device, self.tdtype
+        self._dev = {n: torch.as_tensor(np.asarray(getattr(self, n)),
+                                        dtype=dt, device=dev)
+                     for n in _MAT_NAMES}
+        O = len(self.ir.objects)
+        f = lambda a: torch.as_tensor(np.asarray(a, self.dtype), device=dev)
+        self._P = torch.cat([
+            self._dev["m_color"],                      # 0:3
+            self._dev["m_radiance"][:, None],          # 3
+            self._dev["m_rix"][:, None],               # 4
+            self._dev["m_fresnel"][:, None],           # 5
+            self._dev["m_chromatic"][:, None],         # 6
+            self._dev["m_diffuse"][:, None],           # 7
+            self._dev["m_sigma"][:, None],             # 8
+            self._dev["m_transp"],                     # 9:12
+            self._dev["m_pos"],                        # 12:15
+            self._dev["m_tex1"],                       # 15:18
+            self._dev["m_tex2"],                       # 18:21
+            f(self.m_texs)[:, None],                   # 21
+            f(self.m_texk)[:, None],                   # 22
+            f(self.m_projk)[:, None],                  # 23
+            f(self.m_projp),                           # 24:27
+            f(self.m_projr).reshape(O, 9),             # 27:36
+        ], dim=1)
+        self._kernel_cache.clear()
+
+    def mat_params(self):
+        """The material and light tables as a dict of numpy arrays, with
+        the keys of the JAX integrator's `mat_params`."""
+        return {n: np.asarray(getattr(self, n)) for n in _MAT_NAMES
+                if getattr(self, n) is not None
+                and np.size(getattr(self, n)) > 0}
+
+    def set_mat(self, params: Dict[str, np.ndarray]):
+        """Take material and light tables (keys of mat_params) in place of
+        the scene's own."""
+        for k, v in params.items():
+            if k not in _MAT_NAMES:
+                raise KeyError(k)
+            setattr(self, k, np.asarray(v, self.dtype))
+        self._upload()
+
+    def _as(self, x):
+        return torch.as_tensor(x, dtype=self.tdtype, device=self.device)
+
+    def _mat_lookup(self, oid_s):
+        """ALL per-object material fields for a lane batch: one row gather
+        from the packed [O, 36] table."""
+        Pw = self._P[oid_s]
+        return dict(
+            color=Pw[:, 0:3], radiance=Pw[:, 3], rix=Pw[:, 4],
+            fresnel=Pw[:, 5], chromatic=Pw[:, 6], diffuse=Pw[:, 7],
+            sigma=Pw[:, 8], transp=Pw[:, 9:12], pos=Pw[:, 12:15],
+            tex1=Pw[:, 15:18], tex2=Pw[:, 18:21], texs=Pw[:, 21],
+            texk=torch.round(Pw[:, 22]).to(torch.int64),
+            projk=torch.round(Pw[:, 23]).to(torch.int64),
+            projp=Pw[:, 24:27],
+            projr=Pw[:, 27:36].reshape(-1, 3, 3))
+
+    def _albedo(self, oid, pos, mat=None):
+        """obj_color with texture dispatch (reference
+        src/objects.c:411-422, src/textures.c)."""
+        if mat is None:
+            mat = self._mat_lookup(torch.clamp(oid, min=0))
+        base, texk = mat["color"], mat["texk"]
+        tex1, tex2, texs = mat["tex1"], mat["tex2"], mat["texs"]
+        projk, projp, projr = mat["projk"], mat["projp"], mat["projr"]
+
+        # plane projection (reference src/objects.c:514-518)
+        rel = pos - projp
+        u_pl = _dot(rel, projr[:, 0, :])
+        v_pl = _dot(rel, projr[:, 1, :])
+        # sphere projection (azimuth/elevation, reference
+        # src/objects.c:602-617)
+        r = _norm3(rel)
+        sx = _dot(r, projr[:, 0, :])
+        sy = _dot(r, m3.cross(projr[:, 2, :], projr[:, 0, :]))
+        sz = _dot(r, projr[:, 2, :])
+        u_sp = torch.atan2(sx, sy)
+        v_sp = safe_acos(sz) * (-1.0) + math.pi / 2
+
+        u = torch.where(projk == sir.PROJ_SPHERE, u_sp, u_pl)
+        v = torch.where(projk == sir.PROJ_SPHERE, v_sp, v_pl)
+        xi = torch.round(u * texs).to(torch.int64)
+        yi = torch.round(v * texs).to(torch.int64)
+        chess = torch.where((((xi ^ yi) & 1) == 1)[:, None], tex1, tex2)
+
+        out = torch.where((texk == sir.TEX_PLAIN)[:, None], tex1, base)
+        out = torch.where((texk == sir.TEX_CHESS)[:, None], chess, out)
+        return out
+
+    def _fresnel_reflectance(self, d, exit_nor, trix):
+        """fresnel_reflection (reference src/gmath.c:68-91).  exit_nor
+        points along the ray (into the surface)."""
+        c = _dot(d, exit_nor)
+        f = torch.where(c < 0, trix,
+                        1.0 / torch.where(trix != 0, trix, 1.0))
+        cos_ai = torch.clamp(torch.abs(c), max=1.0)
+        sin_ai = safe_sqrt(1.0 - cos_ai * cos_ai)
+        sin_at = sin_ai * f
+        total = sin_at >= 1.0
+        cos_at = safe_sqrt(1.0 - sin_at * sin_at)
+        den_s = f * cos_ai + cos_at
+        den_p = f * cos_at + cos_ai
+        rs = ((f * cos_ai - cos_at)
+              / torch.where(den_s != 0, den_s, 1.0)) ** 2
+        rp = ((f * cos_at - cos_ai)
+              / torch.where(den_p != 0, den_p, 1.0)) ** 2
+        return torch.where(total, 1.0, (rs + rp) * 0.5)
+
+    def _refract_dir(self, d, exit_nor, trix):
+        """fresnel_refraction (reference src/gmath.c:94-113)."""
+        c = _dot(d, exit_nor)
+        f = torch.where(c < 0, trix,
+                        1.0 / torch.where(trix != 0, trix, 1.0))
+        q = f * f * (1.0 - c * c)
+        sq = safe_sqrt(1.0 - q)
+        b = -f * c + torch.where(c > 0, sq, -sq)
+        out = d * f[:, None] + exit_nor * b[:, None]
+        return torch.where((q < 1.0)[:, None], out, d)
+
+    # ------------------------------------------------------------------
+
+    def _step(self, q: Dict, path_ray: bool = False, mixed: bool = False):
+        """One wavefront step over a padded batch.  Returns
+        (sample_id, contrib [B,3], children dict, path_parent).
+
+        mixed=True: q carries a per-lane `kind` (0 normal ray, 1 path ray,
+        2 path-parent descriptor) plus the parent aux fields; the trace is
+        ONE traversal with per-lane light masking, and the path spawn is
+        returned as a queue-resident parent block (reference
+        src/scene.c:584-621)."""
+        dt, dev = self.tdtype, self.device
+        p, d = q["p"], q["d"]
+        intensity, tint = q["intensity"], q["tint"]
+        depth, sid = q["depth"], q["sample_id"]
+        B = p.shape[0]
+        alive = intensity > 0
+        bg = self._dev["background"]
+
+        if mixed:
+            is_path = q["kind"] == 1
+            is_parent = q["kind"] == 2
+            alive = alive & ~is_parent
+            t, exit_nor, enter, exit_ = self.tr.trans_hit_mixed(p, d, is_path)
+            hit_ok = torch.isfinite(t) & (~is_path
+                                          | (t < self.max_path_length))
+        elif path_ray:
+            t, exit_nor, enter, exit_ = self.tr.trans_hit_matter(p, d)
+            # miss OR beyond max_path_length -> background
+            # (reference src/scene.c:608-616)
+            hit_ok = torch.isfinite(t) & (t < self.max_path_length)
+        else:
+            t, exit_nor, enter, exit_ = self.tr.trans_hit(p, d)
+            hit_ok = torch.isfinite(t)
+
+        contrib = torch.zeros((B, 3), dtype=dt, device=dev)
+        miss = alive & ~hit_ok
+        contrib = contrib + torch.where(
+            miss[:, None], bg[None, :] * intensity[:, None] * tint, 0.0)
+
+        # shading gate: reference returns black at depth==0 or
+        # intensity < tmi (reference src/scene.c:428)
+        shade = alive & hit_ok & (depth > 0) & (intensity >= self.tmi)
+
+        t_safe = torch.where(torch.isfinite(t), t, 0.0)
+        pos = p + d * t_safe[:, None]
+
+        enter_s = torch.clamp(enter, min=0)
+        exit_s = torch.clamp(exit_, min=0)
+        has_enter = enter >= 0
+        has_exit = exit_ >= 0
+
+        mat_in = self._mat_lookup(enter_s)
+        mat_out = self._mat_lookup(exit_s)
+
+        # emitter hit (reference src/scene.c:432-437)
+        e_rad = mat_in["radiance"] * has_enter
+        is_emit = shade & (e_rad > 0)
+        e_pos = mat_in["pos"]
+        diff_sqr = _dot(pos - e_pos, pos - e_pos)
+        e_int = torch.where(diff_sqr > 0,
+                            e_rad / torch.where(diff_sqr > 0, diff_sqr, 1.0),
+                            F3_MAG)
+        e_col = self._albedo(enter_s, pos, mat=mat_in)
+        contrib = contrib + torch.where(
+            is_emit[:, None], e_col * (e_int * intensity)[:, None] * tint,
+            0.0)
+
+        shade = shade & ~is_emit
+
+        # surface parameters with exit-transition override
+        # (reference src/scene.c:441-470)
+        zero = torch.zeros_like(intensity)
+        trix = torch.where(has_enter, mat_in["rix"], 1.0)
+        # C && semantics: fresnel collapses to 0/1 (reference
+        # src/scene.c:459)
+        fresnel = torch.where(has_enter,
+                              ((mat_in["fresnel"] != 0)
+                               & (mat_in["rix"] != 1.0)).to(dt), zero)
+        chromatic = torch.where(has_enter, mat_in["chromatic"], zero)
+        diffuse = torch.where(has_enter, mat_in["diffuse"], zero)
+        transparent = has_enter & (_dot(mat_in["transp"],
+                                        mat_in["transp"]) > 0)
+        sigma = torch.where(has_enter, mat_in["sigma"], zero)
+        sig2 = sigma * sigma
+        on_a = torch.where(sigma > 0, 1.0 - 0.5 * sig2 / (sig2 + 0.33), 1.0)
+        on_b = torch.where(sigma > 0, 0.45 * sig2 / (sig2 + 0.09), 0.0)
+
+        exit_rix = mat_out["rix"]
+        trix = torch.where(has_exit,
+                           trix / torch.where(exit_rix != 0, exit_rix, 1.0),
+                           trix)
+        fresnel = torch.where(has_exit, 1.0, fresnel)
+        chromatic = torch.where(has_exit, 0.0, chromatic)
+        diffuse = torch.where(has_exit, 0.0, diffuse)
+        transparent = has_exit | transparent
+
+        # Beer-Lambert absorption of this segment
+        # (reference src/scene.c:656-664)
+        transp = mat_out["transp"]
+        tpos = transp > 0
+        powed = torch.where(tpos, torch.pow(torch.where(tpos, transp, 1.0),
+                                            t_safe[:, None]), 0.0)
+        absorb = torch.where((has_exit & (t_safe > 0))[:, None], powed, 1.0)
+        tint_l = tint * absorb
+
+        albedo = e_col
+        children = {}
+
+        # --- fresnel branch (reference src/scene.c:473-495)
+        fr_gate = shade & (fresnel > 0) & (intensity >= self.tmi)
+        R = self._fresnel_reflectance(d, exit_nor, trix) * fresnel
+        refl_d = m3.reflect(d, exit_nor)
+        children["fresnel"] = dict(
+            mask=fr_gate, p=pos, d=refl_d, intensity=R * intensity,
+            tint=tint_l, depth=depth - 1, sample_id=sid)
+        intensity = torch.where(fr_gate, intensity * (1.0 - R), intensity)
+
+        # --- chromatic branch (reference src/scene.c:498-523)
+        ch_gate = shade & (chromatic > 0) & (intensity >= self.tmi)
+        children["chromatic"] = dict(
+            mask=ch_gate, p=pos, d=refl_d,
+            intensity=chromatic * intensity,
+            tint=tint_l * albedo, depth=depth - 1, sample_id=sid)
+        intensity = torch.where(ch_gate, intensity * (1.0 - chromatic),
+                                intensity)
+
+        # --- diffuse: NEE direct lighting (reference src/scene.c:526-581)
+        di = intensity * diffuse
+        di_gate = shade & (di >= self.tmi) & (diffuse > 0)
+        surf_d = -exit_nor   # outward shading normal
+        theta_i = safe_acos(-_dot(d, surf_d))
+        ray_prj = _norm3(d - surf_d * _dot(d, surf_d)[:, None])
+        if self.seed_mode == "counter":
+            rv = argn.fold(argn.mix(sid, 2654435769), depth)
+        else:
+            rv = argn.fold(argn.seed_from_v3(pos, 3294479285),
+                           argn.seed_from_v3(surf_d, 3247146734))
+
+        lum_nee = torch.zeros((B, 3), dtype=dt, device=dev)
+        # skip the NEE block when no lane of the batch shades diffusely
+        # (pure-specular wavefront generations)
+        if self.n_lights and bool(di_gate.any()):
+            lum_nee = self._nee(pos, surf_d, di, di_gate, theta_i, on_a,
+                                on_b, ray_prj, rv)
+        path_parent = None
+        if self.path_cap > 0:
+            ns_p = torch.clamp(torch.floor(self.path_cap * di).to(
+                torch.int64), min=1)
+            path_gate = di_gate & (depth > 10)
+            path_parent = dict(
+                mask=path_gate, pos=pos, surf_d=surf_d, di=di,
+                ns=ns_p, theta_i=theta_i, on_a=on_a, on_b=on_b,
+                ray_prj=ray_prj, rv=rv,
+                tint=tint_l * albedo, depth=depth - 10, sample_id=sid)
+
+        contrib = contrib + torch.where(di_gate[:, None],
+                                        lum_nee * albedo * tint_l, 0.0)
+        intensity = torch.where(di_gate, intensity * (1.0 - diffuse),
+                                intensity)
+
+        # --- refraction branch (reference src/scene.c:633-653)
+        re_gate = shade & transparent & (intensity >= self.tmi)
+        refr_d = self._refract_dir(d, exit_nor, trix)
+        refr_p = p + d * (t_safe + 2 * self.tr.eps)[:, None]
+        children["refract"] = dict(
+            mask=re_gate, p=refr_p, d=refr_d, intensity=intensity,
+            tint=tint_l, depth=depth - 1, sample_id=sid)
+
+        if mixed:
+            # widen the specular blocks to the mixed field set and turn
+            # the path-spawn descriptor into a queue-resident parent block
+            # (parent-lane expansion happens in the drain, which knows the
+            # queue headroom)
+            zero3 = torch.zeros((B, 3), dtype=dt, device=dev)
+            zi = torch.zeros((B,), dtype=torch.int64, device=dev)
+            for name in ("fresnel", "chromatic", "refract"):
+                children[name].update(
+                    kind=zi, aux_prj=zero3, aux_t=zero, aux_a=zero,
+                    aux_b=zero, rv=zi, j0=zi, ns=zi)
+            if path_parent is not None:
+                pp = path_parent
+                children["parent"] = dict(
+                    mask=pp["mask"], p=pp["pos"], d=pp["surf_d"],
+                    intensity=pp["di"], tint=pp["tint"],
+                    depth=pp["depth"], sample_id=pp["sample_id"],
+                    kind=torch.full((B,), 2, dtype=torch.int64, device=dev),
+                    aux_prj=pp["ray_prj"], aux_t=pp["theta_i"],
+                    aux_a=pp["on_a"], aux_b=pp["on_b"], rv=pp["rv"],
+                    j0=zi, ns=pp["ns"])
+                path_parent = None
+
+        return sid, contrib, children, path_parent
+
+    # ------------------------------------------------------------------
+
+    def _nee_kernel_ok(self):
+        """The fused NEE kernel applies: the tracer's kernel rules, a
+        position-seeded render, and a scene within the kernel's
+        coverage."""
+        return (self.tr._kernels_ok() and self.seed_mode == "position"
+                and kernels.nee_supported(self))
+
+    def _nee(self, pos, surf_d, di, gate, theta_i, on_a, on_b, ray_prj, rv):
+        """Per-light cone-restricted direct light sampling with the
+        2*cap_height/n estimator (reference src/scene.c:542-578)."""
+        ns = torch.floor(self.cfg.direct_samples * di).to(torch.int64)
+        ns = torch.clamp(ns, min=1, max=self.direct_cap)
+        if self._nee_kernel_ok():
+            return kernels.nee(
+                self, pos.contiguous(), surf_d.contiguous(),
+                torch.where(gate, di, 0.0).contiguous(),
+                torch.cos(theta_i).contiguous(), on_a.contiguous(),
+                on_b.contiguous(), ray_prj.contiguous(),
+                argn.to_uint32(rv), ns.to(torch.int32))
+        return self._nee_plain(pos, surf_d, di, gate, theta_i, on_a, on_b,
+                               ray_prj, rv, ns, self.tr.shadow_blocked,
+                               self.tr.object_hit_t)
+
+    def _nee_plain(self, pos, surf_d, di, gate, theta_i, on_a, on_b, ray_prj,
+                   rv, ns, shadow, obj_hit):
+        """The NEE without the fused kernel: single-sphere lights as one
+        vectorized batch, other lights one by one.  `shadow(p, d, limit)`
+        and `obj_hit(oid, p, d)` answer the shadow and light-hit queries
+        (the plain version of the NEE kernel passes the plain ones)."""
+        tr = self.tr
+        dt = self.tdtype
+        B = pos.shape[0]
+        rv = argn.as_u32(rv)
+        ns = ns.to(torch.int64)
+        lum = torch.zeros((B, 3), dtype=dt, device=self.device)
+        exact = [li for li in range(self.n_lights)
+                 if self.l_sphere_exact[li]]
+        legacy = [li for li in range(self.n_lights)
+                  if not self.l_sphere_exact[li]]
+        if exact:
+            lum = lum + self._nee_exact_batch(
+                exact, pos, surf_d, di, gate, theta_i, on_a, on_b, ray_prj,
+                rv, ns, shadow)
+        # flat-ray budget: B*S x leaves temporaries of the shadow
+        # traversal stay bounded
+        W = max(1, min(len(tr.tab), CHUNK))
+        budget = min(1 << 20, (1 << 26) // W)
+        for li in legacy:
+            lpos = self._dev["l_pos"][li]
+            lrad = self._dev["l_rad"][li]
+            lr = self._dev["l_radius"][li]
+            lcol = self._dev["l_color"][li]
+            if self.l_fov[li] == "plane":
+                # half-space cone (obj_plane_s_fov, reference
+                # src/objects.c:520-526): toward -normal; degenerate when
+                # the surface is behind
+                nrm = self._as(self.l_plane_n[li])
+                fov_d = (-nrm).expand(pos.shape)
+                cos_rs = torch.where(_dot(lpos - pos, fov_d) > 0, 0.0, 1.0)
+                cos_rs = cos_rs.to(dt)
+            else:
+                # sphere / envelope cone toward the light (reference
+                # src/objects.c:619-637, 70-88)
+                cpos = self._as(self.l_cone_pos[li])
+                diff = cpos - pos
+                dist2 = _dot(diff, diff)
+                fov_d = _norm3(diff)
+                r2 = lr * lr
+                cos_rs = torch.where(
+                    dist2 > r2,
+                    safe_sqrt(1.0 - r2 / torch.where(dist2 > 0, dist2, 1.0)),
+                    -1.0)
+            cyl_hgt = 1.0 - cos_rs
+            frame = self._conz_t(fov_d)
+            s_chunk = max(1, min(self.direct_cap, budget // max(B, 1)))
+            cl_sum = torch.zeros((B, 3), dtype=dt, device=self.device)
+            for j0 in range(0, self.direct_cap, s_chunk):
+                js = torch.arange(j0, min(j0 + s_chunk, self.direct_cap),
+                                  device=self.device)
+                S = js.shape[0]
+                ctr = 4 * (li * self.direct_cap + js)[None, :]
+                u1 = argn.uniform(rv[:, None], ctr, dt)
+                u2 = argn.uniform(rv[:, None], ctr + 1, dt)
+                local = m3.sphere_cap_sample(u1, u2, cyl_hgt[:, None])
+                out_d = _frame_apply(frame, local)           # [B,S,3]
+                w = _dotk(out_d, surf_d)
+                ok = (js[None, :] < ns[:, None]) & gate[:, None] & (w > 0)
+                flat_p = pos[:, None, :].expand(B, S, 3).reshape(B * S, 3)
+                flat_d = out_d.reshape(B * S, 3)
+                a = obj_hit(self.l_oid[li], flat_p, flat_d).reshape(B, S)
+                ok = ok & torch.isfinite(a)
+                w = torch.where((on_b > 0)[:, None],
+                                self._oren_nayar_b(w, theta_i, on_a, on_b,
+                                                   out_d, surf_d, ray_prj),
+                                w)
+                # shadow: no matter hit at or before the light (reference
+                # src/scene.c:571 `compound_s_ray_hit(matter) > a`)
+                a_lim = torch.where(torch.isfinite(a), a, 0.0).reshape(B * S)
+                blocked = shadow(flat_p, flat_d, a_lim).reshape(B, S)
+                ok = ok & ~blocked
+                a_safe = torch.where(torch.isfinite(a), a, 0.0)
+                hit_pos = pos[:, None, :] + out_d * a_safe[..., None]
+                dsq = torch.sum((hit_pos - lpos) ** 2, -1)
+                loc = torch.where(dsq > 0,
+                                  lrad / torch.where(dsq > 0, dsq, 1.0),
+                                  F3_MAG)
+                contrib = lcol[None, None, :] * (loc * w)[..., None] \
+                    * di[:, None, None]
+                cl_sum = cl_sum + torch.sum(
+                    torch.where(ok[..., None], contrib, 0.0), dim=1)
+            lum = lum + cl_sum * (2.0 * cyl_hgt / ns.to(dt))[:, None]
+        return lum
+
+    def _nee_exact_batch(self, idx, pos, surf_d, di, gate, theta_i, on_a,
+                         on_b, ray_prj, rv, ns, shadow):
+        """Vectorized NEE over all single-sphere lights at once: the
+        cone / frame / cap-sample / light-hit math batches on a light
+        axis, and each sample chunk issues ONE flattened shadow query for
+        ALL lights.  RNG counters are ctr = 4*(li*direct_cap + j)."""
+        dt, dev = self.tdtype, self.device
+        B = pos.shape[0]
+        Le = len(idx)
+        li = torch.as_tensor(np.asarray(idx, np.int64), device=dev)
+        lp = self._dev["l_pos"][li]                     # [Le,3]
+        lrad = self._dev["l_rad"][li]
+        lr = self._dev["l_radius"][li]
+        lcol = self._dev["l_color"][li]
+
+        diff = lp[None] - pos[:, None]                 # [B,Le,3]
+        dist2 = _dot(diff, diff)
+        fov_d = _norm3(diff)
+        r2 = (lr * lr)[None]
+        cos_rs = torch.where(
+            dist2 > r2,
+            safe_sqrt(1.0 - r2 / torch.where(dist2 > 0, dist2, 1.0)), -1.0)
+        cyl = 1.0 - cos_rs                             # [B,Le]
+        frame = m3.transposed(m3.con_z(fov_d))         # [B,Le,3,3]
+
+        W = max(1, min(len(self.tr.tab), CHUNK))
+        budget = min(1 << 20, (1 << 26) // W)
+        s_chunk = max(1, min(self.direct_cap, budget // max(B * Le, 1)))
+        cl = torch.zeros((B, Le, 3), dtype=dt, device=dev)
+        for j0 in range(0, self.direct_cap, s_chunk):
+            js = j0 + torch.arange(s_chunk, device=dev)    # [S]
+            S = s_chunk
+            ctr = 4 * (li[:, None] * self.direct_cap + js[None, :])
+            u1 = argn.uniform(rv[:, None, None], ctr[None], dt)
+            u2 = argn.uniform(rv[:, None, None], ctr[None] + 1, dt)
+            local = m3.sphere_cap_sample(u1, u2, cyl[..., None])
+            out_d = _frame_apply(frame, local)         # [B,Le,S,3]
+            w = _dotk(out_d, surf_d[:, None, :])
+            ok = (js[None, None] < ns[:, None, None]) \
+                & gate[:, None, None] & (w > 0)
+            a = _sphere_first_hit(lp[None, :, None], lr[None, :, None],
+                                  pos[:, None, None], out_d, self.tr.eps)
+            ok = ok & torch.isfinite(a)
+            won = torch.where(
+                (on_b > 0)[:, None, None],
+                self._oren_nayar_b(
+                    w.reshape(B, Le * S), theta_i, on_a, on_b,
+                    out_d.reshape(B, Le * S, 3), surf_d,
+                    ray_prj).reshape(B, Le, S), w)
+            flat_p = pos[:, None, None, :].expand(B, Le, S, 3).reshape(-1, 3)
+            a_lim = torch.where(torch.isfinite(a), a, 0.0).reshape(-1)
+            blocked = shadow(flat_p, out_d.reshape(-1, 3).contiguous(),
+                             a_lim).reshape(B, Le, S)
+            ok = ok & ~blocked
+            a_safe = torch.where(torch.isfinite(a), a, 0.0)
+            hitp = pos[:, None, None, :] + out_d * a_safe[..., None]
+            dsq = torch.sum((hitp - lp[None, :, None]) ** 2, -1)
+            loc = torch.where(dsq > 0,
+                              lrad[None, :, None]
+                              / torch.where(dsq > 0, dsq, 1.0), F3_MAG)
+            contrib = lcol[None, :, None, :] \
+                * (loc * won)[..., None] * di[:, None, None, None]
+            cl = cl + torch.sum(torch.where(ok[..., None], contrib, 0.0),
+                                dim=2)                 # [B,Le,3]
+        fac = (2.0 * cyl / ns.to(dt)[:, None])[..., None]
+        return torch.sum(cl * fac, dim=1)
+
+    def _conz_t(self, v):
+        """transposed(con_z(v)): columns = orthonormal frame with z // v
+        (reference src/vectors.h:315-322)."""
+        return m3.transposed(m3.con_z(v))
+
+    def _oren_nayar_b(self, weight, theta_i, on_a, on_b, out_d, nor,
+                      ray_prj):
+        """Oren-Nayar weighting (reference src/scene.c:394-416), batched
+        over a [B, K] sample axis."""
+        theta_r = safe_acos(weight)
+        proj = out_d - nor[:, None, :] * _dotk(out_d, nor)[..., None]
+        proj = _norm3(proj)
+        cos_phi = -_dotk(proj, ray_prj)
+        ti = theta_i[:, None]
+        tan_arg = torch.clamp(torch.minimum(ti, theta_r),
+                              max=math.pi / 2 - 1e-6)
+        return weight * (on_a[:, None] + on_b[:, None]
+                         * torch.clamp(cos_phi, min=0.0)
+                         * torch.sin(torch.maximum(ti, theta_r))
+                         * torch.tan(tan_arg))
+
+    # ------------------------------------------------------------------
+
+    def _expand_parents(self, q: Dict, allow):
+        """Expand parent lanes of a mixed batch into PATH_EXPAND path
+        children each plus one continuation (reference
+        src/scene.c:584-621).  A parent lane stores p=hit pos, d=outward
+        normal, intensity=di, tint=tint*albedo, depth=child depth, plus
+        the aux fields (ray_prj/theta_i/on_a/on_b/rv/j0/ns).
+
+        `allow` [B] bool: parents denied by the drain's queue-headroom
+        budget emit NO children this trip and re-enqueue unchanged."""
+        dt, dev = self.tdtype, self.device
+        K = PATH_EXPAND
+        is_parent = q["kind"] == 2
+        pos, surf_d = q["p"], q["d"]
+        di, ns, j0 = q["intensity"], q["ns"], q["j0"]
+        B = pos.shape[0]
+        frame = self._conz_t(surf_d)
+        js = j0[:, None] + torch.arange(K, device=dev)[None, :]
+        c0 = 4 * self.direct_cap * max(self.n_lights, 1)
+        u1 = argn.uniform(q["rv"][:, None], c0 + 2 * js, dt)
+        u2 = argn.uniform(q["rv"][:, None], c0 + 2 * js + 1, dt)
+        local = m3.sphere_cap_sample(u1, u2, 1.0)       # hemisphere cap
+        out_d = _frame_apply(frame, local)
+        w = _dotk(out_d, surf_d)
+        ok = (is_parent & allow)[:, None] & (js < ns[:, None]) & (w > 0) \
+            & (di > 0)[:, None]
+        won = torch.where(
+            (q["aux_b"] > 0)[:, None],
+            self._oren_nayar_b(w, q["aux_t"], q["aux_a"], q["aux_b"],
+                               out_d, surf_d, q["aux_prj"]), w)
+        ns_f = torch.clamp(ns.to(dt), min=1.0)
+        child_tint = q["tint"] * (2.0 / ns_f)[:, None]
+        zero3 = torch.zeros((B, 3), dtype=dt, device=dev)
+        z1 = torch.zeros((B,), dtype=dt, device=dev)
+        zi = torch.zeros((B,), dtype=torch.int64, device=dev)
+        ones = torch.ones((B,), dtype=torch.int64, device=dev)
+        blocks = []
+        for k in range(K):
+            blocks.append(dict(
+                mask=ok[:, k], p=pos, d=out_d[:, k, :],
+                intensity=won[:, k] * di, tint=child_tint,
+                depth=q["depth"], sample_id=q["sample_id"], kind=ones,
+                aux_prj=zero3, aux_t=z1, aux_a=z1, aux_b=z1,
+                rv=zi, j0=zi, ns=zi))
+        cont = is_parent & (di > 0) \
+            & torch.where(allow, j0 + K < ns, torch.ones_like(allow))
+        blocks.append(dict(
+            mask=cont,
+            p=pos, d=surf_d, intensity=di, tint=q["tint"],
+            depth=q["depth"], sample_id=q["sample_id"],
+            kind=torch.full((B,), 2, dtype=torch.int64, device=dev),
+            aux_prj=q["aux_prj"], aux_t=q["aux_t"], aux_a=q["aux_a"],
+            aux_b=q["aux_b"], rv=q["rv"],
+            j0=torch.where(allow, j0 + K, j0), ns=ns))
+        return blocks
+
+    # ------------------------------------------------------------------
+
+    def _camera_rays_dev(self, pos_xy):
+        """Primary camera rays on the device (lum_machine_s_func,
+        reference src/scene.c:958-996) from [N,2] subpixel positions."""
+        cfg, ir = self.cfg, self.ir
+        unit = float(self.dtype.type(1.0 / (cfg.image_height >> 1)))
+        x = unit * (pos_xy[:, 0] - (cfg.image_width >> 1))
+        z = unit * ((cfg.image_height >> 1) - pos_xy[:, 1])
+        d = torch.stack([x, torch.full_like(x, cfg.camera_focal_length), z],
+                        dim=-1)
+        d = _norm3(d)
+        d = d @ self._as(ir.cam_rot).T
+        p = self._as(ir.cam_pos).expand(d.shape)
+        return p, d
+
+    def run_samples(self, pos_xy: np.ndarray) -> np.ndarray:
+        """Render primary camera samples at subpixel positions [N,2]
+        (x, y); returns per-sample radiance [N,3] (f64, un-saturated)."""
+        return self.run_device(pos_xy)
+
+    @property
+    def _n_child_blocks(self):
+        """Child candidate blocks emitted per drain trip: the 3 specular
+        branches, plus (path configs) 1 new-parent block + PATH_EXPAND
+        path children + 1 parent continuation."""
+        return 3 if self.path_cap == 0 else 5 + PATH_EXPAND
+
+    def _fields(self):
+        base = ("p", "d", "intensity", "tint", "depth", "sample_id")
+        if self.path_cap:
+            return base + ("kind", "aux_prj", "aux_t", "aux_a", "aux_b",
+                           "rv", "j0", "ns")
+        return base
+
+    def run_device(self, pos_xy: np.ndarray) -> np.ndarray:
+        """Device-resident wavefront drain: raygen, the queue, child
+        compaction and accumulation stay on the device; the host loop
+        reads one count per trip.  Path configs (path_samples > 0) run the
+        mixed-kind drain."""
+        dt, dev = self.tdtype, self.device
+        N = len(pos_xy)
+        # bucket the sample count to a power of two (pad lanes are dead:
+        # never popped)
+        Np = 1 << int(np.ceil(np.log2(max(N, 64))))
+        B = self.batch
+        nb = self._n_child_blocks
+        # queue capacity: path configs queue path children transiently,
+        # so they get double the slack
+        cap_fac = 4 if self.path_cap == 0 else 8
+        C = 1 << int(np.ceil(np.log2(max(cap_fac * Np, 4 * B))))
+        size = C + nb * B   # the child write-back is always in bounds
+
+        pos = torch.zeros((Np, 2), dtype=dt, device=dev)
+        pos[:N] = self._as(np.asarray(pos_xy))
+        p0, d0 = self._camera_rays_dev(pos)
+        live = (torch.arange(Np, device=dev) < N).to(dt)
+        q = dict(
+            p=torch.zeros((size, 3), dtype=dt, device=dev),
+            d=self._as([0.0, 0.0, 1.0]).repeat(size, 1),
+            intensity=torch.zeros((size,), dtype=dt, device=dev),
+            tint=torch.zeros((size, 3), dtype=dt, device=dev),
+            depth=torch.zeros((size,), dtype=torch.int64, device=dev),
+            sample_id=torch.zeros((size,), dtype=torch.int64, device=dev))
+        q["p"][:Np] = p0
+        q["d"][:Np] = d0
+        q["intensity"][:Np] = live
+        q["tint"][:Np] = live[:, None]
+        q["depth"][:Np] = int(self.cfg.trace_depth)
+        q["sample_id"][:Np] = torch.arange(Np, device=dev)
+        if self.path_cap:
+            for k in ("kind", "rv", "j0", "ns"):
+                q[k] = torch.zeros((size,), dtype=torch.int64, device=dev)
+            q["aux_prj"] = torch.zeros((size, 3), dtype=dt, device=dev)
+            for k in ("aux_t", "aux_a", "aux_b"):
+                q[k] = torch.zeros((size,), dtype=dt, device=dev)
+        acc = torch.zeros((Np, 3), dtype=dt, device=dev)
+        queries = torch.zeros((), dtype=torch.int64, device=dev)
+        count, trips, dropped = N, 0, 0
+
+        # cascade of batch sizes [B, B/8, ...]: the wavefront decays
+        # geometrically, and stage k runs while the queue holds more than
+        # stage k+1 takes, so its occupancy stays above 1/8
+        stages = [B]
+        if len(self.tr.composites) <= 32:
+            while stages[-1] > 1024:
+                stages.append(max(stages[-1] // 8, 512))
+        elif B > 1024:
+            stages.append(max(B // 32, 512))
+        k = 0
+        while count > 0 and trips < DRAIN_TRIP_CAP:
+            while k + 1 < len(stages) and count <= stages[k + 1]:
+                k += 1
+            count, n_drop, tq = self._trip(q, acc, count, stages[k], C)
+            queries = queries + tq
+            dropped += n_drop
+            trips += 1
+
+        self.rays_traced += int(queries) * self.per_lane_queries
+        self.last_trips = trips
+        if dropped:
+            print(f"warning: ray queue overflow, {dropped} rays dropped",
+                  flush=True)
+        if trips >= DRAIN_TRIP_CAP:
+            print(f"warning: drain trip cap ({DRAIN_TRIP_CAP}) reached — "
+                  f"wavefront terminated early, image under-rendered",
+                  flush=True)
+        return acc[:N].to(torch.float64).cpu().numpy()
+
+    def _trip(self, q, acc, count, Bk, C):
+        """One drain trip: pop up to Bk lanes from the queue's tail, step
+        them, accumulate, and compact the children back onto the tail.
+        Returns (new count, dropped rays, live lanes traced)."""
+        dev = self.device
+        mixed = self.path_cap > 0
+        s = max(count - Bk, 0)
+        take = count - s
+        lanes = {k: v[s:s + Bk] for k, v in q.items()}
+        valid = torch.arange(Bk, device=dev) < take
+        lanes["intensity"] = torch.where(valid, lanes["intensity"], 0.0)
+
+        sid, contrib, children, _ = self._step(lanes, mixed=mixed)
+        _scatter_add(acc, sid, torch.where(valid[:, None], contrib, 0.0))
+
+        ch = list(children.values())
+        if mixed:
+            # parent expansion under a queue-headroom budget: a trip's
+            # specular+new-parent children take <= 4*take rows; each
+            # allowed parent adds K+1 more, and parents beyond the budget
+            # re-enqueue untouched, so path spawn cannot overflow the
+            # queue (the >= 1 floor keeps the drain moving)
+            K = PATH_EXPAND
+            is_par = valid & (lanes["kind"] == 2)
+            allow_n = max((C - s - 4 * take) // (K + 1), 1)
+            rank = torch.cumsum(is_par.to(torch.int64), 0) - 1
+            allow = is_par & (rank < allow_n)
+            ch = ch + self._expand_parents(lanes, allow)
+        cmask = torch.cat([c["mask"] & valid & (c["intensity"] > 0)
+                           for c in ch])
+        src = torch.nonzero(cmask).squeeze(1)      # in block order
+        nv = int(src.numel())
+        nv_fit = min(nv, C - s)
+        src = src[:nv_fit]
+        compact = {f: torch.cat([c[f] for c in ch])[src]
+                   for f in self._fields()}
+        for f, v in compact.items():
+            q[f][s:s + nv_fit] = v.to(q[f].dtype)
+        # count only LIVE non-parent lanes (the shared accounting
+        # definition, per_lane_queries)
+        alive = valid & (lanes["intensity"] > 0)
+        if mixed:
+            alive = alive & (lanes["kind"] != 2)
+        return s + nv_fit, nv - nv_fit, alive.sum()

@@ -1,0 +1,1015 @@
+"""Vectorized ray-scene intersection over the compiled Scene IR.
+
+PyTorch counterpart of the JAX package's `render/tracer.py`, main-path
+subset (analytic leaves and analytic CSG composites).  Every analytic
+leaf surface — half-space, sphere, quadric — is one row of a unified
+*generalized quadric* table
+
+    side(x) = sum_i c2_i y_i^2 + sum_i c1_i y_i + r,   y = M x + m0
+
+so a scene traversal is the two affine maps pl = M p + m0, dl = M d, the
+two roots of A t^2 + B t + C = 0 for all leaves at once, the family root
+policies (reference src/gmath.h:38-97, src/objects.c:791-801), a
+crossing-parity walk for CSG composites, and one global top-2 merge.
+Normals are rebuilt for the winners only: grad side = (2 c2 y + c1) M.
+
+Scenes with SDF leaves raise NotImplementedError: their marches belong to
+a later slice of the port.  So do the JAX package's XLA-speed variants
+of the same math (gate-compacted pairs, solo-cluster scans, the
+polynomial-sign walk): the crossing-parity walk below computes the same
+boundaries.
+
+On a CUDA device in f32 the shadow any-hit and the single-object hit run
+as the hand-written kernels of `render/kernels.py`, under the JAX
+package's coverage rules (`_kernels_ok`).  All functions take and return
+tensors shaped [R] / [R,3] on the tracer's device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from actinon_tpu_torch.config import resolve_device
+from actinon_tpu_torch.scene import ir as sir
+
+INF = math.inf
+CHUNK = 1024           # single-leaf candidate chunk (running top-2)
+MAX_KERNEL_LEAVES = 192  # leaf-table size the kernels take (tracer.py:2164)
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """numpy dtype or torch dtype -> torch dtype (f32 / f64 only)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return {np.dtype(np.float32): torch.float32,
+            np.dtype(np.float64): torch.float64}[np.dtype(dtype)]
+
+
+def numpy_dtype(dtype) -> np.dtype:
+    if isinstance(dtype, torch.dtype):
+        return {torch.float32: np.dtype(np.float32),
+                torch.float64: np.dtype(np.float64)}[dtype]
+    return np.dtype(dtype)
+
+
+def _norm3(v):
+    ln2 = torch.sum(v * v, dim=-1, keepdim=True)
+    pos = ln2 > 0
+    ln = torch.sqrt(torch.where(pos, ln2, 1.0))
+    return torch.where(pos, v / ln, v)
+
+
+def _dot(a, b):
+    return torch.sum(a * b, dim=-1)
+
+
+def safe_sqrt(x):
+    pos = x > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
+def safe_acos(x):
+    """arccos with clamped input."""
+    inside = torch.abs(x) < 1.0
+    xin = torch.where(inside, x, 0.0)
+    edge = torch.where(x >= 1.0, 0.0, math.pi).to(x.dtype)
+    return torch.where(inside, torch.arccos(xin), edge)
+
+
+def _sphere_first_hit(c, r, p, d, eps):
+    """Reference sphere_ray_hit semantics (src/gmath.h:64-85): entry root
+    when outside+approaching, exit root when inside or behind-center.
+    Used by the integrator's NEE light intersection."""
+    pp = p - c
+    s = _dot(pp, d)
+    q = _dot(pp, pp) - r * r
+    disc = s * s - q
+    ok = disc >= 0
+    root = safe_sqrt(torch.where(ok, disc, 0.0))
+    entering = (s < 0) & (q > 0)
+    exiting = (s < 0) | (q < 0)
+    a = torch.where(entering, -s - root,
+                    torch.where(exiting, -s + root, INF))
+    return torch.where(ok, a - eps, INF)
+
+
+def _top2_cols(a):
+    """Smallest and second-smallest over the last axis of [R, K] (K >= 1).
+    Returns (vals [R,2], idx [R,2]); ties take the first column."""
+    K = a.shape[1]
+    t1, i1 = torch.min(a, dim=1)
+    cols = torch.arange(K, device=a.device)
+    a2 = torch.where(cols[None, :] == i1[:, None], INF, a)
+    t2, i2 = torch.min(a2, dim=1)
+    return torch.stack([t1, t2], dim=1), torch.stack([i1, i2], dim=1)
+
+
+def _tree_eval_mask(tree, leaf_vals):
+    """Static unroll of the CSG tree program; leaf_vals(li) yields the
+    bool inside-mask of local leaf li."""
+    if tree[0] == "leaf":
+        return leaf_vals(tree[1])
+    if tree[0] == "and":
+        return _tree_eval_mask(tree[1], leaf_vals) \
+            & _tree_eval_mask(tree[2], leaf_vals)
+    if tree[0] == "or":
+        return _tree_eval_mask(tree[1], leaf_vals) \
+            | _tree_eval_mask(tree[2], leaf_vals)
+    if tree[0] == "not":
+        return ~_tree_eval_mask(tree[1], leaf_vals)
+    raise ValueError(tree)
+
+
+# ---------------------------------------------------------------------------
+# unified leaf table
+
+
+class _Unified:
+    """SoA table of all analytic leaves (numpy; uploaded by the Tracer)."""
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+        self.M = []        # [L,3,3]
+        self.m0 = []       # [L,3]
+        self.c2 = []       # [L,3]
+        self.c1 = []       # [L,3]
+        self.rr = []       # [L]
+        self.kind = []     # [L] sir.PLANE/SPHERE/QUADRIC
+        self.neg = []      # [L] normal flip
+        self.oid = []      # [L] owning object id
+        self.is_light = []
+        self.single = []   # candidate column (owning object single-leaf)
+        self.env_c = []    # [L,3] owning object envelope (singles only)
+        self.env_r = []    # [L]
+        # parameter bookkeeping (geom_params / set_geom): every leaf of a
+        # family, composite leaves included, as in the JAX tracer
+        self.sph_rows, self.sph_c, self.sph_r = [], [], []
+        self.pla_rows, self.pla_n, self.pla_k = [], [], []
+        self.qua_rows = []
+        self.qua_m, self.qua_m0, self.qua_coef, self.qua_r = [], [], [], []
+        self.comp_keys = []  # (row, key_prefix, family)
+
+    def add(self, lf: sir.Leaf, oid: int, is_light: bool, single: bool,
+            env_c, env_r, key: Optional[str]) -> int:
+        row = len(self.rr)
+        eye = np.eye(3)
+        if lf.family == sir.PLANE:
+            M, m0 = eye, np.zeros(3)
+            c2, c1, r = np.zeros(3), np.asarray(lf.n, float), float(lf.k)
+            self.pla_rows.append(row)
+            self.pla_n.append(np.asarray(lf.n, float))
+            self.pla_k.append(float(lf.k))
+        elif lf.family == sir.SPHERE:
+            M, m0 = eye, -np.asarray(lf.c, float)
+            c2, c1, r = np.ones(3), np.zeros(3), -float(lf.r) ** 2
+            self.sph_rows.append(row)
+            self.sph_c.append(np.asarray(lf.c, float))
+            self.sph_r.append(float(lf.r))
+        elif lf.family == sir.QUADRIC:
+            M, m0 = np.asarray(lf.m, float), np.asarray(lf.m0, float)
+            c2, c1, r = np.asarray(lf.coef, float), np.zeros(3), float(lf.r)
+            self.qua_rows.append(row)
+            self.qua_m.append(M); self.qua_m0.append(m0)
+            self.qua_coef.append(c2); self.qua_r.append(r)
+        else:
+            raise ValueError(lf.family)
+        self.M.append(M); self.m0.append(m0)
+        self.c2.append(c2); self.c1.append(c1); self.rr.append(r)
+        self.kind.append(lf.family); self.neg.append(lf.neg)
+        self.oid.append(oid); self.is_light.append(is_light)
+        self.single.append(single)
+        self.env_c.append(env_c if env_c is not None else np.zeros(3))
+        self.env_r.append(env_r if env_c is not None else -1.0)
+        if key is not None:
+            self.comp_keys.append((row, key, lf.family))
+        return row
+
+    def finalize(self):
+        dt = self.dtype
+        z = lambda a, shp: (np.asarray(a, dt) if len(a)
+                            else np.zeros(shp, dt))
+        self.M = z(self.M, (0, 3, 3)); self.m0 = z(self.m0, (0, 3))
+        self.c2 = z(self.c2, (0, 3)); self.c1 = z(self.c1, (0, 3))
+        self.rr = z(self.rr, (0,))
+        self.kind = np.asarray(self.kind, np.int32)
+        self.neg = np.asarray(self.neg, bool)
+        self.oid = np.asarray(self.oid, np.int32)
+        self.is_light = np.asarray(self.is_light, bool)
+        self.single = np.asarray(self.single, bool)
+        self.env_c = z(self.env_c, (0, 3)); self.env_r = z(self.env_r, (0,))
+        self.sph_c = z(self.sph_c, (0, 3)); self.sph_r = z(self.sph_r, (0,))
+        self.pla_n = z(self.pla_n, (0, 3)); self.pla_k = z(self.pla_k, (0,))
+        self.qua_m = z(self.qua_m, (0, 3, 3))
+        self.qua_m0 = z(self.qua_m0, (0, 3))
+        self.qua_coef = z(self.qua_coef, (0, 3))
+        self.qua_r = z(self.qua_r, (0,))
+        for n in ("sph_rows", "pla_rows", "qua_rows"):
+            setattr(self, n, np.asarray(getattr(self, n), np.int64))
+
+    def __len__(self):
+        return len(self.rr)
+
+
+class _Composite:
+    """One CSG object: tree program over unified rows."""
+
+    def __init__(self, oid, tree, rows, env_c, env_r, is_light):
+        self.oid = oid
+        self.tree = tree          # local leaf indices
+        self.rows = rows          # local leaf -> global row
+        self.env_c = env_c
+        self.env_r = env_r
+        self.is_light = is_light
+
+
+# -- or-decomposition of analytic composites --------------------------------
+#
+# A union of spatially DISJOINT solids hits like independent objects: the
+# first boundary of A|B is min(first(A), first(B)) whenever A and B cannot
+# overlap.  Splitting or-nodes whose operand bounds are disjoint gives
+# each part a tight envelope gate and lets same-shape parts batch into one
+# group walk (the reference's author-defined bounding-sphere hierarchy,
+# src/compound.c:215-244).
+
+
+def _leaf_bound(tab, row):
+    """Conservative bounding sphere of one positive analytic leaf, or
+    None when unbounded (planes, negations, open quadrics)."""
+    if tab.neg[row]:
+        return None
+    if tab.kind[row] == sir.SPHERE:
+        return (-np.asarray(tab.m0[row], np.float64),
+                float(np.sqrt(-tab.rr[row])))
+    if tab.kind[row] == sir.QUADRIC:
+        M = np.asarray(tab.M[row], np.float64)
+        m0 = np.asarray(tab.m0[row], np.float64)
+        c2 = np.asarray(tab.c2[row], np.float64)
+        rr = float(tab.rr[row])
+        if np.all(c2 > 0) and rr < 0:        # ellipsoid
+            try:
+                Minv = np.linalg.inv(M)
+            except np.linalg.LinAlgError:
+                return None
+            r_local = float(np.sqrt(-rr / np.min(c2)))
+            smax = float(np.linalg.svd(Minv, compute_uv=False)[0])
+            return (Minv @ (-m0), r_local * smax)
+    return None
+
+
+def _merge_bounds(b1, b2):
+    """Smallest sphere around two bounding spheres (None = unbounded)."""
+    if b1 is None or b2 is None:
+        return None
+    c1, r1 = b1
+    c2_, r2 = b2
+    d = float(np.linalg.norm(c2_ - c1))
+    if d + r2 <= r1:
+        return b1
+    if d + r1 <= r2:
+        return b2
+    r = 0.5 * (d + r1 + r2)
+    c = c1 + (c2_ - c1) * ((r - r1) / d if d > 0 else 0.0)
+    return (c, r)
+
+
+def _tree_bound(tree, rows, tab):
+    """Bounding sphere of a subtree (None = unbounded).  An intersection
+    is bounded by ANY bounded operand; a union needs both."""
+    if tree[0] == "leaf":
+        return _leaf_bound(tab, rows[tree[1]])
+    if tree[0] == "not":
+        return None
+    b1 = _tree_bound(tree[1], rows, tab)
+    b2 = _tree_bound(tree[2], rows, tab)
+    if tree[0] == "and":
+        if b1 is None:
+            return b2
+        if b2 is None:
+            return b1
+        return b1 if b1[1] <= b2[1] else b2
+    return _merge_bounds(b1, b2)
+
+
+def _or_parts(tree):
+    if tree[0] == "or":
+        return _or_parts(tree[1]) + _or_parts(tree[2])
+    return [tree]
+
+
+def _tree_leaves(tree):
+    if tree[0] == "leaf":
+        return [tree[1]]
+    if tree[0] == "not":
+        return _tree_leaves(tree[1])
+    return _tree_leaves(tree[1]) + _tree_leaves(tree[2])
+
+
+def _reindex_tree(tree, mapping):
+    if tree[0] == "leaf":
+        return ("leaf", mapping[tree[1]])
+    if tree[0] == "not":
+        return ("not", _reindex_tree(tree[1], mapping))
+    return (tree[0], _reindex_tree(tree[1], mapping),
+            _reindex_tree(tree[2], mapping))
+
+
+def _decompose_composite(comp, tab, eps):
+    """Split a composite's top-level union into mini-composites for its
+    spatially disjoint components.  Components keep the parent's oid;
+    bounded components get their own tight envelope.  Returns [comp]
+    unchanged when nothing splits."""
+    parts = _or_parts(comp.tree)
+    if len(parts) < 2:
+        return [comp]
+    bounds = [_tree_bound(p, comp.rows, tab) for p in parts]
+    n = len(parts)
+    parent = list(range(n))
+
+    def find(i):
+        while parent[i] != i:
+            parent[i] = parent[parent[i]]
+            i = parent[i]
+        return i
+
+    # an unbounded part (contains planes/negations) may overlap anything:
+    # it glues the whole union back together (conservative)
+    margin = 8.0 * eps
+    for i in range(n):
+        for j in range(i + 1, n):
+            if bounds[i] is None or bounds[j] is None:
+                parent[find(i)] = find(j)
+                continue
+            ci, ri = bounds[i]
+            cj, rj = bounds[j]
+            if np.linalg.norm(cj - ci) <= ri + rj + margin:
+                parent[find(i)] = find(j)
+    comps: Dict[int, list] = {}
+    for i in range(n):
+        comps.setdefault(find(i), []).append(i)
+    if len(comps) < 2:
+        return [comp]
+    out = []
+    for idxs in comps.values():
+        tree = parts[idxs[0]]
+        bound = bounds[idxs[0]]
+        for i in idxs[1:]:
+            tree = ("or", tree, parts[i])
+            bound = _merge_bounds(bound, bounds[i])
+        locs = sorted(set(_tree_leaves(tree)))
+        mapping = {l: k for k, l in enumerate(locs)}
+        new_tree = _reindex_tree(tree, mapping)
+        new_rows = [comp.rows[l] for l in locs]
+        if bound is not None:
+            env_c, env_r = bound[0], bound[1] * 1.001 + 4.0 * eps
+        else:
+            env_c, env_r = comp.env_c, comp.env_r
+        out.append(_Composite(comp.oid, new_tree, new_rows, env_c, env_r,
+                              comp.is_light))
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+
+class Tracer:
+    """Per-scene tracer over the unified leaf table: vectorized nearest /
+    transition / shadow queries on one device."""
+
+    def __init__(self, ir: sir.SceneIR, dtype=np.float32, eps=None,
+                 device="cuda"):
+        self.ir = ir
+        self.dtype = numpy_dtype(dtype)
+        self.tdtype = torch_dtype(dtype)
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.dtype != np.float32:
+            raise ValueError(
+                "CUDA renders run in float32: the trace kernels are f32, "
+                "as the Pallas kernels are; use dtype=float32 or "
+                "device='cpu'")
+        self.eps = eps if eps is not None else \
+            (1e-6 if self.dtype == np.float64 else 1e-4)
+        # counterpart of the JAX tracer's `use_pallas`: False keeps every
+        # query on the plain PyTorch path (set only by A/B comparisons)
+        self.use_kernels = True
+
+        self.n_obj = len(ir.objects)
+        self.is_light = np.array([o.is_light for o in ir.objects], bool)
+        self.roughness = np.array([o.roughness for o in ir.objects],
+                                  self.dtype)
+
+        tab = _Unified(self.dtype)
+        composites: List[_Composite] = []
+        for oid, obj in enumerate(ir.objects):
+            if any(lf.family == sir.SDF for lf in obj.leaves):
+                raise NotImplementedError(
+                    "scenes with SDF leaves (distance objects) belong to "
+                    "slice 2 of the port (SDF and composite-heavy scenes)")
+            env_c = obj.env_c if obj.env_c is not None else None
+            env_r = obj.env_r
+            if obj.single_leaf:
+                tab.add(obj.leaves[0], oid, obj.is_light, True, env_c,
+                        env_r if env_c is not None else -1.0, None)
+            else:
+                ci = len(composites)
+                rows = [tab.add(lf, oid, obj.is_light, False, None, -1.0,
+                                f"c{ci}_l{li}_")
+                        for li, lf in enumerate(obj.leaves)]
+                composites.append(_Composite(
+                    oid, obj.tree, rows, env_c,
+                    env_r if env_c is not None else -1.0, obj.is_light))
+        tab.finalize()
+        self.tab = tab
+        self.composites = composites
+
+        # group composites by tree shape after or-decomposition: members
+        # of a group evaluate as ONE batched crossing-parity walk
+        groups: Dict = {}
+        for comp in composites:
+            for sub in _decompose_composite(comp, tab, self.eps):
+                groups.setdefault(repr(sub.tree), []).append(sub)
+        self.comp_groups = list(groups.values())
+
+        self.single_rows = np.flatnonzero(tab.single).astype(np.int64)
+        self._idx_cache = {}
+        self._kernel_cache = {}
+        self._geom_ovr = {}
+        # the leaf table as the queries and kernels read it (numpy);
+        # set_geom replaces it
+        self.tables_np = (tab.M, tab.m0, tab.c2, tab.c1, tab.rr)
+        self._upload()
+
+    # -- tables on the device -------------------------------------------------
+
+    def _upload(self, tables=None):
+        """Copy the leaf table (or assembled `tables`) to the device."""
+        t = self.tab
+        dev, dt = self.device, self.tdtype
+        f = lambda a: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+        if tables is None:
+            tables = (t.M, t.m0, t.c2, t.c1, t.rr)
+        self.tabs = tuple(f(a) for a in tables)
+        self.t_env_c = f(t.env_c)
+        self.t_env_r = f(t.env_r)
+        self.t_neg = torch.as_tensor(t.neg, device=dev)
+        self.t_oid = torch.as_tensor(t.oid.astype(np.int64), device=dev)
+        self.t_rough = f(self.roughness)
+        self._kernel_cache.clear()
+
+    def _idx(self, rows):
+        """Device index tensor for a static numpy row set (cached)."""
+        rows = np.asarray(rows, np.int64)
+        key = (rows.shape, rows.tobytes())
+        got = self._idx_cache.get(key)
+        if got is None:
+            got = torch.as_tensor(rows, device=self.device)
+            self._idx_cache[key] = got
+        return got
+
+    def geom_params(self):
+        """The geometry parameters as a dict of numpy arrays, with the
+        keys and values of the JAX tracer's `geom_params` (family arrays
+        over every leaf of the family, plus per-leaf keys for composite
+        leaves).  The current values, after any set_geom."""
+        t = self.tab
+        p = {}
+        if len(t.sph_rows):
+            p["sph_c"] = t.sph_c
+            p["sph_r"] = t.sph_r
+        if len(t.pla_rows):
+            p["pla_n"] = t.pla_n
+            p["pla_k"] = t.pla_k
+        if len(t.qua_rows):
+            p["qua_m"] = t.qua_m
+            p["qua_m0"] = t.qua_m0
+            p["qua_coef"] = t.qua_coef
+            p["qua_r"] = t.qua_r
+        for row, key, fam in t.comp_keys:
+            if fam == sir.PLANE:
+                p[key + "n"] = t.c1[row]
+                p[key + "k"] = t.rr[row]
+            elif fam == sir.SPHERE:
+                p[key + "c"] = -t.m0[row]
+                p[key + "r"] = np.sqrt(-t.rr[row])
+            elif fam == sir.QUADRIC:
+                p[key + "m"] = t.M[row]
+                p[key + "m0"] = t.m0[row]
+                p[key + "coef"] = t.c2[row]
+                p[key + "r"] = t.rr[row]
+        p.update(self._geom_ovr)
+        return {k: np.asarray(v, self.dtype) for k, v in p.items()}
+
+    def set_geom(self, params: Dict[str, np.ndarray]):
+        """Take geometry parameters (keys of geom_params) in place of the
+        scene's own and rebuild the device leaf table from them — the JAX
+        tracer's `_assemble` with `ovr` set: the family arrays are written
+        first, then the per-leaf composite keys."""
+        t = self.tab
+        dt = self.dtype
+        self._geom_ovr = {k: np.asarray(v, dt) for k, v in params.items()}
+        g = lambda k, base: np.asarray(self._geom_ovr.get(k, base), dt)
+        M, m0, c2, c1, rr = (t.M.copy(), t.m0.copy(), t.c2.copy(),
+                             t.c1.copy(), t.rr.copy())
+        if len(t.sph_rows):
+            sr = g("sph_r", t.sph_r)
+            m0[t.sph_rows] = -g("sph_c", t.sph_c)
+            rr[t.sph_rows] = -sr * sr
+        if len(t.pla_rows):
+            c1[t.pla_rows] = g("pla_n", t.pla_n)
+            rr[t.pla_rows] = g("pla_k", t.pla_k)
+        if len(t.qua_rows):
+            M[t.qua_rows] = g("qua_m", t.qua_m)
+            m0[t.qua_rows] = g("qua_m0", t.qua_m0)
+            c2[t.qua_rows] = g("qua_coef", t.qua_coef)
+            rr[t.qua_rows] = g("qua_r", t.qua_r)
+        for row, key, fam in t.comp_keys:
+            if fam == sir.PLANE:
+                c1[row] = g(key + "n", t.c1[row])
+                rr[row] = g(key + "k", t.rr[row])
+            elif fam == sir.SPHERE:
+                c = g(key + "c", -t.m0[row])
+                r = g(key + "r", np.sqrt(-t.rr[row]))
+                m0[row] = -c
+                rr[row] = -r * r
+            elif fam == sir.QUADRIC:
+                M[row] = g(key + "m", t.M[row])
+                m0[row] = g(key + "m0", t.m0[row])
+                c2[row] = g(key + "coef", t.c2[row])
+                rr[row] = g(key + "r", t.rr[row])
+        self.tables_np = (M, m0, c2, c1, rr)
+        self._upload(self.tables_np)
+
+    def _as(self, x):
+        return torch.as_tensor(x, dtype=self.tdtype, device=self.device)
+
+    # -- unified root math ---------------------------------------------------
+
+    def _quads(self, rows, p, d):
+        """A t^2 + B t + C coefficients of all `rows` leaves along p+td
+        ([R, c] each); C equals side(p), the origin inside-ness."""
+        M, m0, c2, c1, rr = self.tabs
+        idx = self._idx(rows)
+        Mr = M[idx]                                     # [c,3,3]
+        pl = (p[:, None, None, 0] * Mr[None, :, :, 0]
+              + p[:, None, None, 1] * Mr[None, :, :, 1]
+              + p[:, None, None, 2] * Mr[None, :, :, 2]) + m0[idx][None]
+        dl = (d[:, None, None, 0] * Mr[None, :, :, 0]
+              + d[:, None, None, 1] * Mr[None, :, :, 1]
+              + d[:, None, None, 2] * Mr[None, :, :, 2])
+        c2r = c2[idx][None]
+        c1r = c1[idx][None]
+        A = torch.sum(c2r * dl * dl, -1)
+        Bq = 2.0 * torch.sum(c2r * dl * pl, -1) + torch.sum(c1r * dl, -1)
+        Cq = torch.sum(c2r * pl * pl, -1) + torch.sum(c1r * pl, -1) \
+            + rr[idx][None]
+        return A, Bq, Cq
+
+    @staticmethod
+    def _roots(A, Bq, Cq):
+        """Both real roots (t0 <= t1, INF where none) in a
+        cancellation-stable form, the normalized (s, q) of the sphere
+        entry/exit policy, and the linear root for A == 0."""
+        is_quad = A != 0
+        safe_A = torch.where(is_quad, A, 1.0)
+        s = (Bq * 0.5) / safe_A
+        q = Cq / safe_A
+        disc = s * s - q
+        ok = is_quad & (disc >= 0)
+        root = safe_sqrt(torch.where(ok, disc, 0.0))
+        ta = -s - root
+        tb = -s + root
+        tb_nz = torch.abs(tb) > 0
+        ta_nz = torch.abs(ta) > 0
+        t0 = torch.where(s < 0, torch.where(
+            tb_nz, q / torch.where(tb_nz, tb, 1.0), ta), ta)
+        t1 = torch.where(s > 0, torch.where(
+            ta_nz, q / torch.where(ta_nz, ta, 1.0), tb), tb)
+        lin_nz = Bq != 0
+        t_lin = torch.where(lin_nz, -Cq / torch.where(lin_nz, Bq, 1.0), INF)
+        t0u = torch.where(is_quad, torch.where(ok, t0, INF), t_lin)
+        t1u = torch.where(is_quad, torch.where(ok, t1, INF),
+                          torch.full_like(t1, INF))
+        return t0u, t1u, s, q, ok
+
+    def _policy(self, kind_rows, t0u, t1u, s, q, ok):
+        """First-hit offset per leaf column under its family's root policy
+        (eps-backed).  kind_rows is static numpy [c]."""
+        dev = self.device
+        is_pl = torch.as_tensor(kind_rows == sir.PLANE, device=dev)[None]
+        is_sp = torch.as_tensor(kind_rows == sir.SPHERE, device=dev)[None]
+        eps = self.eps
+        # plane: forward crossing (reference src/gmath.h:38-49)
+        a_pl = torch.where(t0u > 0, t0u - eps, INF)
+        # sphere: entry when outside+approaching, exit when inside
+        # (reference src/gmath.h:64-85)
+        entering = (s < 0) & (q > 0)
+        exiting = (s < 0) | (q < 0)
+        a_sp = torch.where(entering, t0u, torch.where(exiting, t1u, INF))
+        a_sp = torch.where(ok, a_sp - eps, INF)
+        # quadric: smaller non-negative root (reference
+        # src/objects.c:791-801)
+        a_qu = torch.where(t0u >= 0, t0u, torch.where(t1u >= 0, t1u, INF))
+        a_qu = torch.where(torch.isfinite(a_qu), a_qu - eps, INF)
+        return torch.where(is_pl, a_pl, torch.where(is_sp, a_sp, a_qu))
+
+    def _env_gate_rows(self, rows, p, d):
+        """Envelope culling mask per candidate column (envelope_s_ray_hits,
+        reference src/objects.c:90-96): True = keep."""
+        idx = self._idx(rows)
+        ec = self.t_env_c[idx][None]                  # [1,c,3]
+        er = self.t_env_r[idx][None]                  # [1,c]
+        pp = p[:, None, :] - ec
+        s = _dot(pp, d[:, None, :])
+        q = _dot(pp, pp) - er * er
+        disc = s * s - q
+        exists = (disc >= 0) & ((s < 0) | (q < 0))
+        return (er <= 0) | exists
+
+    def _env_gate_one(self, env_c, env_r, p, d):
+        ec = self._as(np.asarray(env_c, self.dtype))
+        pp = p - ec
+        s = _dot(pp, d)
+        q = _dot(pp, pp) - float(self.dtype.type(env_r) ** 2)
+        disc = s * s - q
+        return (disc >= 0) & ((s < 0) | (q < 0))
+
+    # -- composite objects ---------------------------------------------------
+
+    def _composite_crossings(self, comp: _Composite, p, d):
+        """Forward crossings [R, NC] (two columns per leaf, t0 then t1),
+        the local leaf of each column, and the origin inside bits."""
+        A, Bq, Cq = self._quads(np.asarray(comp.rows), p, d)
+        t0u, t1u, _, _, _ = self._roots(A, Bq, Cq)
+        cross = torch.stack([t0u, t1u], dim=-1).reshape(p.shape[0], -1)
+        cross = torch.where(cross > 0, cross, INF)
+        leaf_of_col = np.repeat(np.arange(len(comp.rows)), 2)
+        return cross, leaf_of_col, Cq <= 0
+
+    def _walk(self, comp: _Composite, cross, leaf_of_col, inside):
+        """Crossing-parity walk of ONE composite: the G=1 case of
+        _group_walk.  Returns (t_boundary [R] raw, local leaf id [R])."""
+        hit_t, leaf_loc = self._group_walk(
+            comp.tree, cross[:, None, :], leaf_of_col, inside[:, None, :])
+        return hit_t[:, 0], leaf_loc[:, 0]
+
+    def _hit_composite(self, comp: _Composite, p, d):
+        """Boundary hit of one composite: (t [R] eps-backed, local leaf
+        [R], global row [R])."""
+        cross, leaf_of_col, inside = self._composite_crossings(comp, p, d)
+        hit_t, leaf_loc = self._walk(comp, cross, leaf_of_col, inside)
+        if comp.env_c is not None and comp.env_r > 0:
+            gate = self._env_gate_one(comp.env_c, comp.env_r, p, d)
+            hit_t = torch.where(gate, hit_t, INF)
+        row = self._idx(comp.rows)[leaf_loc]
+        a = torch.where(torch.isfinite(hit_t), hit_t - self.eps, INF)
+        return a, leaf_loc, row
+
+    def _shadow_composite(self, comp: _Composite, p, d, limit):
+        """Any boundary flip within (0, limit]: the shadow-side form of
+        _hit_composite."""
+        cross, leaf_of_col, inside = self._composite_crossings(comp, p, d)
+        hit_t, _ = self._walk(comp, cross, leaf_of_col, inside)
+        blocked = torch.isfinite(hit_t) & (hit_t - self.eps <= limit)
+        if comp.env_c is not None and comp.env_r > 0:
+            blocked = blocked & self._env_gate_one(comp.env_c, comp.env_r,
+                                                   p, d)
+        return blocked
+
+    def _group_walk(self, tree, cross, leaf_of_col, inside0):
+        """Crossing-parity walk batched over a composite group axis.
+        cross [R, G, NC] forward crossings (INF-padded), leaf_of_col
+        static [NC], inside0 [R, G, Lc] origin inside-ness.
+
+        A leaf's inside-ness at candidate t_j is its origin bit XOR the
+        parity of its crossings at or before t_j ("<=") and strictly
+        before t_j ("<"); the tree program evaluated on both sides tells
+        whether t_j flips the composite.  Ties of equal t flip jointly.
+        The per-leaf crossing counts are one [.., NC] x [NC, Lc] product
+        of 0/1 values, exact in either float type.  Returns (hit_t [R, G]
+        raw, leaf_loc [R, G])."""
+        R, G, NC = cross.shape
+        Lc = inside0.shape[-1]
+        dev, dt = self.device, self.tdtype
+        lcol = torch.as_tensor(np.asarray(leaf_of_col, np.int64),
+                               device=dev)
+        oh = torch.zeros((NC, Lc), dtype=dt, device=dev)
+        oh[torch.arange(NC, device=dev), lcol] = 1.0
+        valid = torch.isfinite(cross)
+        # chunk rays so the [Rt, G, NC, NC] order tensors stay bounded
+        Rt = int(max(128, min(R, (1 << 24) // max(G * NC * NC, 1))))
+        flips = []
+        for s in range(0, R, Rt):
+            tc = cross[s:s + Rt]
+            vl = valid[s:s + Rt]
+            ba = (tc[..., None, :] <= tc[..., :, None]) & vl[..., None, :]
+            bb = (tc[..., None, :] < tc[..., :, None]) & vl[..., None, :]
+            b2 = torch.stack([ba, bb], dim=1).to(dt)   # [Rt,2,G,j,c]
+            cnt = torch.matmul(b2, oh)                 # [Rt,2,G,j,Lc]
+            p2 = (torch.round(cnt).to(torch.int64) & 1) != 0
+            ins = inside0[s:s + Rt][:, None, :, None, :]
+            w2 = ins ^ p2
+            v2 = _tree_eval_mask(tree, lambda li: w2[..., li])
+            flips.append((v2[:, 0] != v2[:, 1]) & vl)
+        flip = torch.cat(flips, dim=0)                 # [R, G, NC]
+        tcand = torch.where(flip, cross, INF)
+        hit_t, j = torch.min(tcand, dim=-1)
+        return hit_t, lcol[j]
+
+    def _group_hit(self, members, p, d):
+        """Boundary hits of one same-tree composite group: (a [R, G]
+        eps-backed and env-gated, row [R, G] global unified rows)."""
+        R = p.shape[0]
+        G = len(members)
+        Lc = len(members[0].rows)
+        arows = np.asarray([c.rows for c in members], np.int64)  # [G, L]
+        A, Bq, Cq = self._quads(arows.reshape(-1), p, d)
+        t0u, t1u, _, _, _ = self._roots(A, Bq, Cq)
+        cross = torch.cat([t0u.reshape(R, G, Lc), t1u.reshape(R, G, Lc)],
+                          dim=-1)                       # [R, G, 2L]
+        cross = torch.where(cross > 0, cross, INF)
+        leaf_of_col = np.concatenate([np.arange(Lc), np.arange(Lc)])
+        hit_t, leaf_loc = self._group_walk(
+            members[0].tree, cross, leaf_of_col,
+            (Cq <= 0).reshape(R, G, Lc))
+        # envelope gates [R, G] (envelope_s_ray_hits, reference
+        # src/objects.c:90-96)
+        env_c = np.stack([c.env_c if c.env_c is not None else np.zeros(3)
+                          for c in members])
+        env_r = np.asarray([c.env_r if c.env_c is not None else -1.0
+                            for c in members])
+        ec = self._as(np.asarray(env_c, self.dtype))[None]   # [1, G, 3]
+        er = self._as(np.asarray(env_r, self.dtype))[None]
+        pp = p[:, None, :] - ec
+        s = torch.sum(pp * d[:, None, :], -1)
+        q = torch.sum(pp * pp, -1) - er * er
+        disc = s * s - q
+        gate = (er <= 0) | ((disc >= 0) & ((s < 0) | (q < 0)))
+        hit_t = torch.where(gate, hit_t, INF)
+        a = torch.where(torch.isfinite(hit_t), hit_t - self.eps, INF)
+        rows_b = self._idx(arows)[None].expand(R, G, Lc)
+        row = torch.gather(rows_b, 2, leaf_loc[..., None])[..., 0]
+        return a, row
+
+    # -- core query ------------------------------------------------------
+
+    def _single_chunks(self, matter_only, R=None):
+        """Static chunk partition of candidate rows (single-leaf objects);
+        with R the chunk shrinks so [R, c, 3] temporaries stay bounded."""
+        rows = self.single_rows
+        if matter_only and len(rows):
+            rows = rows[~self.tab.is_light[rows]]
+        c = CHUNK
+        if R:
+            c = int(min(CHUNK, max(64, (1 << 23) // max(R, 1))))
+        return [rows[i:i + c] for i in range(0, len(rows), c)]
+
+    def _chunk_candidates(self, rows, p, d):
+        """Policy-root candidates [R, c] for one chunk of single rows."""
+        A, Bq, Cq = self._quads(rows, p, d)
+        t0u, t1u, s, q, ok = self._roots(A, Bq, Cq)
+        a = self._policy(self.tab.kind[rows], t0u, t1u, s, q, ok)
+        return torch.where(self._env_gate_rows(rows, p, d), a, INF)
+
+    def _query(self, p, d, matter_only, want2, rng_rough, lane_matter=None):
+        """Top-1/2 hit over the whole scene, single pass.  Returns
+        (t [R,kw], nor [R,kw,3], oid [R,kw], sign [R,kw]).
+
+        lane_matter: optional [R] bool — lanes marked True ignore light
+        candidates (the mixed normal/path wavefront; reference path rays
+        trace the matter compound only, src/scene.c:607)."""
+        dt, dev = self.tdtype, self.device
+        p = p.to(dt)
+        d = d.to(dt)
+        R = p.shape[0]
+        kw = 2 if want2 else 1
+
+        # 1. single-leaf objects: chunked running top-k merge
+        best_t = torch.full((R, kw), INF, dtype=dt, device=dev)
+        best_row = torch.zeros((R, kw), dtype=torch.int64, device=dev)
+        for rows in self._single_chunks(matter_only, R):
+            a = self._chunk_candidates(rows, p, d)
+            if lane_matter is not None and self.tab.is_light[rows].any():
+                lmask = torch.as_tensor(self.tab.is_light[rows], device=dev)
+                a = torch.where(lane_matter[:, None] & lmask[None, :],
+                                INF, a)
+            if want2:
+                tkc, ikc = _top2_cols(a)
+            else:
+                tkc, ikc = torch.min(a, dim=1, keepdim=True)
+            rkc = self._idx(rows)[ikc]
+            cand_t = torch.cat([best_t, tkc], dim=1)
+            cand_r = torch.cat([best_row, rkc], dim=1)
+            if want2:
+                best_t, sel = _top2_cols(cand_t)
+            else:
+                best_t, sel = torch.min(cand_t, dim=1, keepdim=True)
+            best_row = torch.gather(cand_r, 1, sel)
+
+        # 2. final candidate columns: the kw single winners + one column
+        # per composite
+        cols_t = [best_t[:, i] for i in range(kw)]
+        cols_row = [best_row[:, i] for i in range(kw)]
+        for members in self.comp_groups:
+            mf = [c for c in members if not (matter_only and c.is_light)]
+            if not mf:
+                continue
+            a_g, row_g = self._group_hit(mf, p, d)
+            for gi, comp in enumerate(mf):
+                a = a_g[:, gi]
+                if lane_matter is not None and comp.is_light:
+                    a = torch.where(lane_matter, INF, a)
+                cols_t.append(a)
+                cols_row.append(row_g[:, gi])
+
+        T = torch.stack(cols_t, dim=1)                 # [R, K]
+        ROWS = torch.stack(cols_row, dim=1)
+        if want2:
+            t12, sel = _top2_cols(T)
+        else:
+            t12, sel = torch.min(T, dim=1, keepdim=True)
+        row12 = torch.gather(ROWS, 1, sel)             # [R, kw]
+
+        # 3. winner normals + oid from the unified table: the analytic
+        # gradient (2 c2 y + c1) M
+        M, m0, c2, c1, rr = self.tabs
+        t_safe = torch.where(torch.isfinite(t12), t12, 0.0)
+        x = p[:, None, :] + d[:, None, :] * t_safe[..., None]  # [R,kw,3]
+        if len(self.tab):
+            row_s = torch.clamp(row12, min=0)
+            Mw = M[row_s]                              # [R,kw,3,3]
+            y = torch.sum(Mw * x[..., None, :], -1) + m0[row_s]
+            g = 2.0 * c2[row_s] * y + c1[row_s]
+            grad = torch.sum(g[..., :, None] * Mw, -2)
+            nor = _norm3(grad)
+            nor = torch.where(self.t_neg[row_s][..., None], -nor, nor)
+            oid12 = self.t_oid[row_s]
+        else:
+            nor = torch.zeros((R, kw, 3), dtype=dt, device=dev)
+            oid12 = torch.zeros((R, kw), dtype=torch.int64, device=dev)
+
+        sign = torch.where(_dot(nor, d[:, None, :]) > 0, 1.0, -1.0).to(dt)
+        fin = torch.isfinite(t12)
+        nor = torch.where(fin[..., None], nor, 0.0)
+        oid12 = torch.where(fin, oid12, -1)
+        sign = torch.where(fin, sign, 0.0)
+
+        if rng_rough and np.any(self.roughness > 0):
+            n1 = self._perturb(nor[:, 0, :], p, d, t12[:, 0], oid12[:, 0])
+            nor = torch.cat([n1[:, None, :], nor[:, 1:, :]], dim=1)
+        return t12, nor, oid12, sign
+
+    # -- public queries ----------------------------------------------------
+
+    def nearest2(self, p, d, matter_only=False, rng_rough=True):
+        """Nearest AND second-nearest hit over the whole scene, one pass.
+        Returns (t1, nor1, oid1, sign1, t2, nor2, oid2, sign2); oid=-1 and
+        nor=0 where miss."""
+        t12, nor, oid, sign = self._query(p, d, matter_only, True, rng_rough)
+        return (t12[:, 0], nor[:, 0, :], oid[:, 0], sign[:, 0],
+                t12[:, 1], nor[:, 1, :], oid[:, 1], sign[:, 1])
+
+    def nearest(self, p, d, matter_only=False, rng_rough=True):
+        """Nearest hit over the whole scene: (t[R], nor[R,3], oid[R],
+        sign[R]); oid=-1 where miss."""
+        t12, nor, oid, sign = self._query(p, d, matter_only, False,
+                                          rng_rough)
+        return t12[:, 0], nor[:, 0, :], oid[:, 0], sign[:, 0]
+
+    def _perturb(self, nor, p, d, t, oid):
+        """Surface-roughness normal perturbation (reference
+        src/objects.c:261-284): per-component log-shaped bump seeded from
+        the hit position."""
+        from actinon_tpu_torch import rng as argn
+        rough = self.t_rough[torch.clamp(oid, min=0)]
+        t_safe = torch.where(torch.isfinite(t), t, 0.0)
+        hp = p + d * t_safe[:, None]
+        seed = argn.seed_from_v3(hp, 1246)
+        f = torch.stack([argn.uniform_signed(seed, k, self.tdtype) * 0.99
+                         for k in range(3)], dim=-1)
+        bump = torch.log((1.0 - f) / (1.0 + f))
+        new = _norm3(nor + rough[:, None] * bump)
+        use = (rough > 0)[:, None] & torch.isfinite(t)[:, None]
+        return torch.where(use, new, nor)
+
+    # -- transition query (media boundaries) -------------------------------
+
+    def _trans_from_pair(self, hits):
+        """Transition data from a nearest2 result: a second object whose
+        hit lies within eps of the minimum fills the other role (the
+        glass/wine media-transition case, reference
+        src/compound.c:284-297)."""
+        t, nor, oid, sign, t2, nor2, oid2, sign2 = hits
+        exiting = sign > 0
+        exit_nor = torch.where(exiting[:, None], nor, -nor)
+        enter = torch.where(~exiting & (oid >= 0), oid, -1)
+        exit_ = torch.where(exiting & (oid >= 0), oid, -1)
+        close = torch.isfinite(t) & torch.isfinite(t2) \
+            & (torch.abs(t2 - t) < 2 * self.eps)
+        exiting2 = sign2 > 0
+        enter = torch.where(close & ~exiting2 & (enter < 0), oid2, enter)
+        exit_ = torch.where(close & exiting2 & (exit_ < 0), oid2, exit_)
+        return t, exit_nor, enter, exit_
+
+    def trans_hit(self, p, d):
+        """scene_s_trans_hit + compound_s_ray_trans_hit semantics
+        (reference src/scene.c:362-382, src/compound.c:246-299).
+        Returns (t, exit_nor [anti-ray], enter_oid, exit_oid)."""
+        return self._trans_from_pair(self.nearest2(p, d, matter_only=False))
+
+    def trans_hit_matter(self, p, d):
+        """Transition hit over the matter compound only — the path-ray
+        trace (reference src/scene.c:607)."""
+        return self._trans_from_pair(self.nearest2(p, d, matter_only=True))
+
+    def trans_hit_mixed(self, p, d, path_mask):
+        """Per-lane transition hit: lanes with path_mask=True trace matter
+        only, the rest trace light+matter, in ONE traversal."""
+        t12, nor, oid, sign = self._query(p, d, False, True, True,
+                                          lane_matter=path_mask)
+        return self._trans_from_pair(
+            (t12[:, 0], nor[:, 0, :], oid[:, 0], sign[:, 0],
+             t12[:, 1], nor[:, 1, :], oid[:, 1], sign[:, 1]))
+
+    # -- shadow queries ------------------------------------------------------
+
+    def _kernel_device_ok(self):
+        """The hand-written kernels run on this tracer: a CUDA device, f32,
+        and not switched off for an A/B comparison."""
+        return (self.use_kernels and self.device.type == "cuda"
+                and self.dtype == np.float32)
+
+    def _kernels_ok(self):
+        """The shadow and NEE kernels apply (the JAX tracer's `_pallas_ok`
+        with "TPU backend" read as "CUDA tensor, f32"): at most 192
+        leaves, as the Pallas kernels demand."""
+        return self._kernel_device_ok() and len(self.tab) <= \
+            MAX_KERNEL_LEAVES
+
+    def shadow_blocked(self, p, d, limit):
+        """True where ANY matter hit lies within (.., limit] — the NEE
+        shadow test `compound_s_ray_hit(matter) > a` (reference
+        src/scene.c:571) as an any-hit reduction.  On a CUDA device the
+        kernel-covered scene subset runs as one hand-written kernel;
+        composites too large for it stay on the plain walk."""
+        dt = self.tdtype
+        p = p.to(dt)
+        d = d.to(dt)
+        limit = limit.to(dt)
+        if self._kernels_ok():
+            from actinon_tpu_torch.render import kernels
+            blocked = kernels.shadow_any_hit(self, p, d, limit)
+            for comp in kernels.coverage(self).rest:
+                blocked = blocked | self._shadow_composite(comp, p, d,
+                                                           limit)
+            return blocked
+        return self._shadow_plain(p, d, limit)
+
+    def _shadow_plain(self, p, d, limit, exclude_oids=frozenset()):
+        """The plain any-hit over all matter except the objects in
+        `exclude_oids`: chunked singles and grouped composite walks
+        (JAX tracer.py:2226-2258)."""
+        R = p.shape[0]
+        blocked = torch.zeros((R,), dtype=torch.bool, device=self.device)
+        for rows in self._single_chunks(True, R):
+            rows = rows[~np.isin(self.tab.oid[rows], list(exclude_oids))]
+            if not len(rows):
+                continue
+            a = self._chunk_candidates(rows, p, d)
+            blocked = blocked | torch.any(a <= limit[:, None], dim=1)
+        for members in self.comp_groups:
+            mf = [c for c in members
+                  if not c.is_light and c.oid not in exclude_oids]
+            if not mf:
+                continue
+            a_g, _ = self._group_hit(mf, p, d)
+            blocked = blocked | torch.any(a_g <= limit[:, None], dim=1)
+        return blocked
+
+    def object_hit_t(self, oid: int, p, d):
+        """First-hit distance of ONE object (eps-backed, INF on miss) —
+        the true-geometry light intersection for NEE
+        (obj_ray_hit(light_src, ...), reference src/scene.c:564).  On a
+        CUDA device an analytic object within the kernel's size runs as
+        the hand-written object-hit kernel."""
+        dt = self.tdtype
+        p = p.to(dt)
+        d = d.to(dt)
+        if self._kernel_device_ok():
+            from actinon_tpu_torch.render import kernels
+            if kernels.object_desc(self, oid) is not None:
+                return kernels.object_hit(self, oid, p, d)
+        return self._object_hit_plain(oid, p, d)
+
+    def _object_hit_plain(self, oid: int, p, d):
+        """The plain single-object first hit (JAX tracer.py:2280-2295)."""
+        rows = np.flatnonzero((self.tab.oid == oid) & self.tab.single)
+        if len(rows):
+            return self._chunk_candidates(rows.astype(np.int64), p, d)[:, 0]
+        for comp in self.composites:
+            if comp.oid == oid:
+                a, _, _ = self._hit_composite(comp, p, d)
+                return a
+        raise ValueError(f"object {oid} not found")

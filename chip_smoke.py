@@ -1,0 +1,577 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one card and check what comes out.
+
+    python3 chip_smoke.py            # every phase, on the first card
+    python3 chip_smoke.py --profile  # where the headline render's time goes
+
+Phases, each printing one line of numbers:
+
+  1. card    — torch's device name and nvidia-smi's name and power limit;
+  2. build   — nvcc builds csrc/trace_kernels.cu from this checkout;
+  3. kernels — each CUDA kernel against its plain PyTorch version on the
+               same CUDA tensors (seeded rays over the smoke scene, the
+               main path's shapes), with each kernel's device time per
+               launch (a CUDA graph of 100 launches between CUDA events)
+               and its plain version's time;
+  4. headline render — the smoke scene at bench.py's headline shape
+               (200x150, direct=10, path=0, depth=25, batch 1<<15)
+               through render_scene, twice: equal fold hashes, and the NEE
+               kernel launched;
+  5. shipped-shape render — bench.py's TRUE_CFG shape (80x60,
+               direct=200, path=500, depth=25, batch 1<<14);
+  6. counter-mode render — seed_mode="counter" at 64x48: the shadow and
+               object-hit kernels launched, and the image mean agrees with
+               the same render with the kernels switched off, and with the
+               port's plain render on the CPU at a small size;
+  7. wine_glass — the corpus scene at the headline shape, when the
+               directory named by $ACTINON_CORPUS holds wine_glass.acn.
+
+Any failure exits non-zero.  The line before the last is one JSON object
+with every kernel's numbers; the last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(HERE, "actinon_tpu_torch", "_build", "smoke")
+SCENE = os.path.join(HERE, "actinon_tpu_torch", "scenes", "glass_table.acn")
+CORPUS = os.environ.get("ACTINON_CORPUS", "")   # the .acn corpus directory
+
+HEADLINE = (200, 150, 10, 0, 25)   # bench.py:80 (w, h, direct, path, depth)
+SHIPPED = (80, 60, 200, 500, 25)  # bench.py:90 TRUE_CFG, not cut
+
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): FP32 outside the tensor
+# cores, and HBM bandwidth
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+
+# FP32 operations per primitive, counted from csrc/trace_kernels.cu (adds,
+# multiplies, divides, square roots and float compares; an FMA counts 2;
+# sinf and cosf ~20 each).  The bound charges each only where this run's
+# data needs it (see object_ops and nee_ops).
+OPS_LEAF = 91          # a quadratic leaf: leaf_quads 71, roots + policy 20
+OPS_LIN = 49           # a leaf with no quadratic terms (a plane): linear part
+OPS_ENV = 19           # an envelope-sphere test
+OPS_SAMPLE = 71        # RNG conversion, cap sample, frame and w of a sample
+OPS_EST = 24           # the estimator term of a sample that reaches the light
+OPS_ON = 35            # Oren-Nayar weighting of a sample
+OPS_LIGHT = 60         # per-light cone and frame setup of a lane
+
+
+def fail(msg):
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def say(tag, **kw):
+    print(f"{tag}: " + " ".join(f"{k}={v}" for k, v in kw.items()),
+          flush=True)
+
+
+def load_scene(path, w, h, direct, path_s, depth):
+    from actinon_tpu_torch.acn.interp import run_file
+    cap = []
+    run_file(path, render_fn=lambda sc, fn: cap.append(sc.clone()),
+             args=["-f"])
+    sc = cap[0]
+    sc.cfg.image_width, sc.cfg.image_height = w, h
+    sc.cfg.direct_samples = direct
+    sc.cfg.path_samples = path_s
+    sc.cfg.trace_depth = depth
+    return sc
+
+
+def _event_ms(run):
+    import torch
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    run()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e)
+
+
+def cuda_ms(fn, reps=20, warm=3):
+    """CUDA-event time of one call of fn(): one pair of events around
+    `reps` back-to-back calls, after warmup, divided by `reps`.  Host
+    time between the calls counts (the plain versions are many small
+    torch ops, and that is their cost)."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    return _event_ms(lambda: [fn() for _ in range(reps)]) / reps
+
+
+def kernel_ms(fn, reps=100):
+    """Device time of one kernel launch: `reps` calls of the wrapper fn()
+    captured in one CUDA graph, the graph replayed twice to warm the card
+    up, then once between a pair of CUDA events, divided by `reps`.  No
+    host time lies between the launches: a 5 us kernel behind a 30 us
+    wrapper still reads 5 us."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    g.replay()
+    torch.cuda.synchronize()
+    return _event_ms(g.replay) / reps
+
+
+# ---------------------------------------------------------------------------
+# work counts for the bound: what these inputs need, ray by ray
+
+
+def leaf_ops(tr, row):
+    """A leaf's quadratic and roots; its linear part alone where it has
+    no quadratic terms (a plane)."""
+    return OPS_LIN if np.all(tr.tables_np[2][row] == 0) else OPS_LEAF
+
+
+def object_ops(tr, desc, p, d):
+    """FP32 operations [N] (float64) that one object's first hit needs on
+    the rays p, d: the envelope test where the object has one and, only
+    where the ray passes it, the leaves' roots and, for a composite, the
+    parity walk over the crossing columns that are finite on that ray
+    (2 nf^2 + nf compares for nf finite columns)."""
+    import torch
+    kind, ref = desc
+    if kind == "leaf":
+        env_c, env_r = tr.tab.env_c[ref], float(tr.tab.env_r[ref])
+        has_env = env_r > 0
+        work = torch.full((p.shape[0],), float(leaf_ops(tr, ref)),
+                          dtype=torch.float64, device=p.device)
+    else:
+        env_c, env_r = ref.env_c, ref.env_r
+        has_env = env_c is not None and env_r > 0
+        cross, _, _ = tr._composite_crossings(ref, p, d)
+        nf = torch.isfinite(cross).sum(1).double()
+        work = sum(leaf_ops(tr, r) for r in ref.rows) + 2 * nf * nf + nf
+    if not has_env:
+        return work
+    gate = tr._env_gate_one(env_c, env_r, p, d)
+    return OPS_ENV + torch.where(gate, work, 0.0)
+
+
+def shadow_ops(tr, p, d):
+    """FP32 operations [N] of a shadow any-hit over the kernel coverage:
+    each covered object's first hit and its compare with the limit."""
+    import torch
+    from actinon_tpu_torch.render import kernels
+    cov = kernels.coverage(tr)
+    ops = torch.zeros((p.shape[0],), dtype=torch.float64, device=p.device)
+    for r in cov.singles:
+        ops += object_ops(tr, ("leaf", r), p, d) + 1
+    for c in cov.comps:
+        ops += object_ops(tr, ("comp", c), p, d) + 2
+    return ops
+
+
+def nee_ops(integ, pos, sd, di, on_b, rv, ns):
+    """FP32 operations the NEE kernel's inputs need.  Every lane with
+    di > 0 sets up each light and draws its ns samples; a sample that
+    leaves the surface (w > 0) needs the light's hit; one that reaches the
+    light needs its shadow test, the estimator and, where on_b > 0, the
+    Oren-Nayar weight.  The samples are drawn again here, as the kernel
+    draws them."""
+    import torch
+    from actinon_tpu_torch import math3d as m3
+    from actinon_tpu_torch import rng as argn
+    from actinon_tpu_torch.render import kernels
+    from actinon_tpu_torch.render.integrator import _frame_apply
+    tr, cap, dev = integ.tr, integ.direct_cap, pos.device
+    live = di > 0
+    take = torch.arange(cap, device=dev)[None, :] \
+        < ns[live].long()[:, None]
+    lane, j = take.nonzero(as_tuple=True)
+    p, sdn = pos[live][lane], sd[live][lane]
+    ob, rvs = on_b[live][lane], argn.as_u32(rv)[live][lane]
+    n_l = integ.n_lights
+    ops = (float(live.sum()) * OPS_LIGHT + lane.numel() * OPS_SAMPLE) * n_l
+    as32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    for li, oid in enumerate(integ.l_oid):
+        lpos = as32(integ.l_pos[li])
+        if integ.l_fov[li] == "plane":
+            fov = (-as32(integ.l_plane_n[li])).expand(p.shape)
+            cyl = torch.where(((lpos - p) * fov).sum(-1) > 0, 1.0, 0.0)
+        else:
+            diff = as32(integ.l_cone_pos[li]) - p
+            dist2 = (diff * diff).sum(-1)
+            fov = diff / torch.sqrt(dist2)[:, None]
+            r2 = float(np.float32(integ.l_radius[li]) ** 2)
+            cos_rs = torch.where(dist2 > r2, torch.sqrt(torch.clamp(
+                1.0 - r2 / dist2, min=0.0)), -1.0)
+            cyl = 1.0 - cos_rs
+        ctr = 4 * (li * cap + j)
+        local = m3.sphere_cap_sample(argn.uniform(rvs, ctr),
+                                     argn.uniform(rvs, ctr + 1), cyl)
+        d = _frame_apply(m3.transposed(m3.con_z(fov)),
+                         local[:, None, :])[:, 0]
+        up = (d * sdn).sum(-1) > 0
+        pu, du = p[up], d[up].contiguous()
+        desc = kernels.object_desc(tr, oid)
+        ops += float(object_ops(tr, desc, pu, du).sum())
+        hit = torch.isfinite(kernels.object_hit_plain(tr, oid, pu, du))
+        ops += float(shadow_ops(tr, pu[hit], du[hit]).sum())
+        ops += int(hit.sum()) * OPS_EST
+        ops += int((ob[up][hit] > 0).sum()) * OPS_ON
+    return ops
+
+
+def bound(n_bytes, n_ops):
+    t_b = n_bytes / PEAK_BYTES
+    t_o = n_ops / PEAK_FP32
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+# ---------------------------------------------------------------------------
+
+
+def phase_card():
+    import torch
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi: {smi.stderr.strip()}")
+    line = smi.stdout.strip().splitlines()[0]
+    print(line, flush=True)
+    say("card", name=repr(name), count=torch.cuda.device_count(),
+        torch=torch.__version__, cuda=torch.version.cuda)
+    return name, line
+
+
+def phase_build():
+    from actinon_tpu_torch.render import kernels
+    nvcc = subprocess.run([kernels._nvcc(), "--version"],
+                          capture_output=True, text=True, timeout=60)
+    ver = nvcc.stdout.strip().splitlines()[-1] if nvcc.returncode == 0 \
+        else "unknown"
+    t0 = time.time()
+    path = kernels.build(verbose=True)
+    kernels._lib()
+    say("build", seconds=f"{time.time() - t0:.2f}", nvcc=repr(ver),
+        lib=os.path.basename(path))
+
+
+def phase_kernels(n_lanes):
+    """Each kernel against its plain version at the main path's shapes:
+    K1 on n_lanes NEE lanes, K2 and K3 on the n_lanes * direct rays the
+    counter-mode NEE flattens one batch into."""
+    import torch
+    from actinon_tpu_torch.render import kernels
+    from actinon_tpu_torch.render.integrator import Integrator
+    from actinon_tpu_torch.render.tracer import Tracer
+    from actinon_tpu_torch.scene import ir as sir
+
+    sc = load_scene(SCENE, *HEADLINE)
+    tr = Tracer(sir.compile_scene(sc), dtype=np.float32, device="cuda")
+    integ = Integrator(tr, batch=n_lanes)
+    dev = "cuda"
+    rng = np.random.default_rng(2026)
+    n_rays = n_lanes * integ.direct_cap
+    p = rng.uniform(-5, 5, (n_rays, 3)).astype(np.float32)
+    p[:, 2] = np.abs(p[:, 2])
+    d = rng.normal(0, 1, (n_rays, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    lim = rng.uniform(0.1, 12.0, n_rays).astype(np.float32)
+    pc, dc, lc = (torch.as_tensor(x, device=dev) for x in (p, d, lim))
+    out = []
+
+    # K2: shadow any-hit
+    got = kernels.shadow_any_hit(tr, pc, dc, lc)
+    torch.cuda.synchronize()
+    want = kernels.shadow_plain(tr, pc, dc, lc)
+    agree = float((got == want).float().mean())
+    if not agree >= 0.998:
+        fail(f"shadow kernel agreement {agree}")
+    ms = kernel_ms(lambda: kernels.shadow_any_hit(tr, pc, dc, lc))
+    plain_ms = cuda_ms(lambda: kernels.shadow_plain(tr, pc, dc, lc))
+    b_ms, b_by = bound(n_rays * (7 * 4 + 1),
+                       float(shadow_ops(tr, pc, dc).sum()))
+    say("kernel shadow", n=n_rays, agree=f"{agree:.6f}", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.5f}", bound_by=b_by)
+    out.append(dict(name="shadow_any_hit", route="cuda",
+                    source="actinon_tpu_torch/csrc/trace_kernels.cu",
+                    replaces="actinon_tpu/render/pallas_kernels.py:309",
+                    max_abs_err=float((got != want).float().max()),
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=None, agree=agree, n=n_rays))
+
+    # K3: object hit, on the lamp that is not a single sphere
+    oid = next(o for o, ex in zip(integ.l_oid, integ.l_sphere_exact)
+               if not ex)
+    target = torch.as_tensor(integ.l_pos[integ.l_oid.index(oid)], device=dev)
+    half = n_rays // 2
+    aim = target - pc[:half]
+    dc2 = dc.clone()
+    dc2[:half] = aim / torch.linalg.norm(aim, dim=-1, keepdim=True)
+    got = kernels.object_hit(tr, oid, pc, dc2)
+    torch.cuda.synchronize()
+    want = kernels.object_hit_plain(tr, oid, pc, dc2)
+    fin_w, fin_g = torch.isfinite(want), torch.isfinite(got)
+    fin_agree = float((fin_w == fin_g).float().mean())
+    both = fin_w & fin_g
+    err = torch.abs(got[both] - want[both])
+    max_err = float(err.max()) if both.any() else 0.0
+    t_ok = bool((err <= 1e-3 * (1 + want[both])).all())
+    if not (fin_agree >= 0.998 and t_ok):
+        fail(f"object-hit kernel: finite agreement {fin_agree}, "
+             f"t within 1e-3(1+t): {t_ok}")
+    ms = kernel_ms(lambda: kernels.object_hit(tr, oid, pc, dc2))
+    plain_ms = cuda_ms(lambda: kernels.object_hit_plain(tr, oid, pc, dc2))
+    b_ms, b_by = bound(n_rays * (6 * 4 + 4), float(object_ops(
+        tr, kernels.object_desc(tr, oid), pc, dc2).sum()))
+    say("kernel object_hit", n=n_rays, oid=oid, hits=int(fin_w.sum()),
+        finite_agree=f"{fin_agree:.6f}", max_abs_err=f"{max_err:.3e}",
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.5f}",
+        bound_by=b_by)
+    out.append(dict(name="object_hit", route="cuda",
+                    source="actinon_tpu_torch/csrc/trace_kernels.cu",
+                    replaces="actinon_tpu/render/pallas_kernels.py:695",
+                    max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    agree=fin_agree, n=n_rays))
+
+    # K1: the fused NEE loop, on lanes drawn as tests/test_pallas.py draws
+    B = n_lanes
+    cap = integ.direct_cap
+    pos = rng.uniform(-4, 4, (B, 3)).astype(np.float32)
+    pos[:, 2] = np.abs(pos[:, 2])
+    sd = rng.normal(0, 1, (B, 3)).astype(np.float32)
+    sd /= np.linalg.norm(sd, axis=-1, keepdims=True)
+    di = rng.uniform(0, 1.2, B).astype(np.float32)
+    di = np.where(rng.uniform(0, 1, B) > 0.3, di, 0.0).astype(np.float32)
+    theta_i = rng.uniform(0, np.pi * 0.999, B).astype(np.float32)
+    sigma = rng.uniform(0, 0.4, B).astype(np.float32)
+    sig2 = sigma * sigma
+    on_a = np.where(sigma > 0, 1 - 0.5 * sig2 / (sig2 + 0.33), 1).astype(
+        np.float32)
+    on_b = np.where(sigma > 0, 0.45 * sig2 / (sig2 + 0.09), 0).astype(
+        np.float32)
+    prj = rng.normal(0, 1, (B, 3)).astype(np.float32)
+    prj /= np.linalg.norm(prj, axis=-1, keepdims=True)
+    rv = rng.integers(0, 2 ** 32, B, dtype=np.uint32)
+    ns = np.minimum(np.maximum((cap * di).astype(np.int32), 1), cap)
+    t = lambda x: torch.as_tensor(x, device=dev)
+    args = (t(pos), t(sd), t(di), t(np.cos(theta_i)), t(on_a), t(on_b),
+            t(prj), t(rv.view(np.int32)).view(torch.uint32),
+            t(ns.astype(np.int32)))
+    got = kernels.nee(integ, *args)
+    torch.cuda.synchronize()
+    want = kernels.nee_plain(integ, *args)
+    rel = torch.abs(got - want) / (torch.abs(want) + 1e-4)
+    frac = float((rel.max(dim=1).values < 1e-2).float().mean())
+    max_err = float(torch.abs(got - want).max())
+    if not frac >= 0.99:
+        fail(f"NEE kernel: only {frac} of lanes within rel 1e-2")
+    ms = kernel_ms(lambda: kernels.nee(integ, *args))
+    plain_ms = cuda_ms(lambda: kernels.nee_plain(integ, *args), warm=1)
+    b_ms, b_by = bound(B * (15 * 4 + 3 * 4),
+                       nee_ops(integ, args[0], args[1], args[2], args[5],
+                               args[7], args[8]))
+    say("kernel nee", lanes=B, samples=int(ns[di > 0].sum()),
+        lanes_agree=f"{frac:.6f}", max_abs_err=f"{max_err:.3e}",
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.5f}",
+        bound_by=b_by)
+    out.append(dict(name="nee", route="cuda",
+                    source="actinon_tpu_torch/csrc/trace_kernels.cu",
+                    replaces="actinon_tpu/render/pallas_kernels.py:467",
+                    max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    agree=frac, n=B))
+    return {k["name"]: k for k in out}
+
+
+def render(tag, sc, batch, reps=1):
+    """render_scene on the card; returns (stats of the last run, img)."""
+    import torch
+    from actinon_tpu_torch.render import kernels
+    from actinon_tpu_torch.render.driver import render_scene
+    os.makedirs(OUT, exist_ok=True)
+    hashes, runs = [], []
+    for k in range(reps):
+        stats = {}
+        kernels.reset_launches()
+        img = render_scene(sc.clone(), os.path.join(OUT, f"{tag}.pnm"),
+                           force=True, dtype=np.float32, batch=batch,
+                           verbose=False, device="cuda", stats=stats)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        if img.shape != (sc.cfg.image_height, sc.cfg.image_width, 3) \
+                or not np.isfinite(img).all():
+            fail(f"{tag}: image shape {img.shape} or non-finite values")
+        qps = stats["rays_traced"] / stats["seconds"]
+        w, h = sc.cfg.image_width, sc.cfg.image_height
+        say(f"render {tag}", run=k, size=f"{w}x{h}",
+            direct=sc.cfg.direct_samples, path=sc.cfg.path_samples,
+            depth=sc.cfg.trace_depth, batch=batch,
+            seconds=f"{stats['seconds']:.3f}",
+            samples=stats["samples"], trips=stats["trips"],
+            rays_traced=stats["rays_traced"], queries_per_s=f"{qps:.4g}",
+            hash=stats["hash"], mean=f"{img.mean():.6f}",
+            launches=json.dumps(launches, separators=(",", ":")))
+        hashes.append(stats["hash"])
+        runs.append(dict(stats, launches=launches, mean=float(img.mean()),
+                         qps=qps))
+    if len(set(hashes)) != 1:
+        fail(f"{tag}: fold hashes differ between runs: {hashes}")
+    return runs
+
+
+def counter_render(sc, batch, use_kernels, device="cuda"):
+    """One pass over pixel centres, seed_mode="counter"."""
+    import torch
+    from actinon_tpu_torch.render import kernels
+    from actinon_tpu_torch.render.integrator import Integrator
+    from actinon_tpu_torch.render.tracer import Tracer
+    from actinon_tpu_torch.scene import ir as sir
+    tr = Tracer(sir.compile_scene(sc), dtype=np.float32, device=device)
+    tr.use_kernels = use_kernels
+    integ = Integrator(tr, batch=batch)
+    integ.seed_mode = "counter"
+    cfg = sc.cfg
+    ys, xs = np.mgrid[0:cfg.image_height, 0:cfg.image_width]
+    pos = np.stack([xs.reshape(-1) + 0.5, ys.reshape(-1) + 0.5], -1)
+    kernels.reset_launches()
+    t0 = time.time()
+    acc = integ.run_samples(pos)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return acc, time.time() - t0, dict(kernels.LAUNCHES), integ
+
+
+def phase_counter(w, h):
+    sc = load_scene(SCENE, w, h, *HEADLINE[2:])
+    acc_k, s_k, launches, integ = counter_render(sc, 1 << 15, True)
+    if launches["shadow"] <= 0 or launches["object_hit"] <= 0:
+        fail(f"counter-mode render launched {launches}")
+    acc_p, s_p, off, _ = counter_render(sc, 1 << 15, False)
+    if any(off.values()):
+        fail(f"kernels switched off but launched: {off}")
+    m_k, m_p = float(acc_k.mean()), float(acc_p.mean())
+    rel = abs(m_k - m_p) / max(abs(m_p), 1e-12)
+    if not (np.isfinite(acc_k).all() and rel <= 5e-3):
+        fail(f"counter mode: kernel mean {m_k} vs plain {m_p} (rel {rel})")
+    say("render counter", size=f"{w}x{h}", kernel_s=f"{s_k:.3f}",
+        plain_s=f"{s_p:.3f}", mean_kernels=f"{m_k:.6f}",
+        mean_plain=f"{m_p:.6f}", rel=f"{rel:.2e}",
+        launches=json.dumps(launches, separators=(",", ":")))
+    # the reference on a small input: the port's plain render on the CPU
+    small = load_scene(SCENE, 24, 18, *HEADLINE[2:])
+    acc_c, _, _, _ = counter_render(small, 1 << 12, True, device="cpu")
+    acc_g, _, _, _ = counter_render(small, 1 << 12, True)
+    m_c, m_g = float(acc_c.mean()), float(acc_g.mean())
+    rel_c = abs(m_g - m_c) / max(abs(m_c), 1e-12)
+    if not rel_c <= 5e-3:
+        fail(f"card vs CPU reference: mean {m_g} vs {m_c} (rel {rel_c})")
+    say("reference cpu", size="24x18", mean_card=f"{m_g:.6f}",
+        mean_cpu=f"{m_c:.6f}", rel=f"{rel_c:.2e}")
+    return launches
+
+
+def phase_profile():
+    """Under torch.profiler: phase 3 again, with each kernel's device time
+    per launch beside its CUDA-graph time; then the headline render's
+    device time by kernel and the device's busy share of the wall time
+    (the profiler itself adds host time, so the share is a lower
+    bound)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    dev = lambda e: e.self_device_time_total
+    with profile(activities=acts) as prof:
+        ks = phase_kernels(1 << 15)
+    for name, sym in (("nee", "nee_kernel"), ("shadow_any_hit",
+                                              "shadow_kernel"),
+                      ("object_hit", "object_hit_kernel")):
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and sym in e.key]
+        launches = sum(e.count for e in ev)
+        per_launch = sum(map(dev, ev)) / launches / 1e3
+        say(f"profile kernel {name}", launches=launches,
+            device_ms_per_launch=f"{per_launch:.4f}",
+            graph_ms_under_profiler=f"{ks[name]['ms']:.4f}")
+    sc = load_scene(SCENE, *HEADLINE)
+    render("profile_warmup", sc, 1 << 15)
+    with profile(activities=acts) as prof:
+        t0 = time.time()
+        render("profile", sc, 1 << 15)
+        wall = time.time() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(dev(e) for e in kern) / 1e6
+    say("profile", wall_s=f"{wall:.3f}", device_busy_s=f"{busy:.4f}",
+        busy_share=f"{busy / wall:.4f}", kernel_names=len(kern),
+        launches=sum(e.count for e in kern))
+    for e in sorted(kern, key=dev, reverse=True)[:12]:
+        print(f"  device_ms={dev(e) / 1e3:.3f} calls={e.count} "
+              f"name={e.key[:90]!r}", flush=True)
+
+
+def main(argv):
+    try:
+        import torch
+    except ImportError:
+        print("FAIL: torch is not installed", flush=True)
+        return 2
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device", flush=True)
+        return 2
+    sys.path.insert(0, HERE)
+    try:
+        import actinon_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"FAIL: the port is not in this checkout ({e})", flush=True)
+        return 2
+
+    t_all = time.time()
+    name, _ = phase_card()
+    phase_build()
+    if "--profile" in argv:
+        phase_profile()
+        return 0
+    ks = phase_kernels(1 << 15)
+
+    runs = render("headline", load_scene(SCENE, *HEADLINE), 1 << 15, reps=2)
+    ks["nee"]["launches"] = runs[-1]["launches"]["nee"]
+    render("shipped", load_scene(SCENE, *SHIPPED), 1 << 14)
+    cl = phase_counter(64, 48)
+    wine = os.path.join(CORPUS, "wine_glass.acn")
+    if CORPUS and os.path.exists(wine):
+        render("wine_glass", load_scene(wine, *HEADLINE), 1 << 15)
+    else:
+        print(f"wine_glass: no wine_glass.acn in ACTINON_CORPUS="
+              f"{CORPUS!r}; not rendered", flush=True)
+    if ks["nee"]["launches"] <= 0:
+        fail("the headline render never launched the NEE kernel")
+    ks["shadow_any_hit"]["launches"] = cl["shadow"]
+    ks["object_hit"]["launches"] = cl["object_hit"]
+    print(f"total seconds {time.time() - t_all:.1f}", flush=True)
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    print(json.dumps({"kernels": [{k: ks[n][k] for k in keys} for n in (
+        "nee", "shadow_any_hit", "object_hit")]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

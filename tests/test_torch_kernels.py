@@ -1,0 +1,198 @@
+"""The plain versions of the port's CUDA kernels against the JAX
+package's Pallas kernels in interpret mode, on the CPU.
+
+Inputs are seeded numpy arrays handed to both packages, in f32 over the
+port's shipped smoke scene (actinon_tpu_torch/scenes/glass_table.acn),
+with direct_samples <= 6 and B = 256.  Contracts are those of
+tests/test_pallas.py: shadow booleans agree on >= 99.8 % of rays; NEE
+radiance within rel 1e-2 on >= 99 % of lanes; object hits agree in
+finiteness on >= 99.8 % and in t within 1e-3 (1 + t).  The kernels
+themselves run only on a card: tests/test_torch_cuda.py holds them to
+the same contracts there."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from actinon_tpu.acn.interp import run_file as jrun_file
+from actinon_tpu.render import pallas_kernels as pk
+from actinon_tpu.render.integrator import Integrator as JIntegrator
+from actinon_tpu.render.tracer import Tracer as JTracer
+from actinon_tpu.scene import ir as jsir
+from actinon_tpu_torch.acn.interp import run_file as trun_file
+from actinon_tpu_torch.render import kernels
+from actinon_tpu_torch.render.integrator import Integrator as TIntegrator
+from actinon_tpu_torch.render.tracer import Tracer as TTracer
+from actinon_tpu_torch.scene import ir as tsir
+
+SCENE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "actinon_tpu_torch", "scenes",
+    "glass_table.acn")
+B = 256
+
+
+def _load(run_file, sir, direct=6):
+    cap = []
+    run_file(SCENE, render_fn=lambda sc, fn: cap.append(sc.clone()),
+             args=["-f"])
+    sc = cap[0]
+    sc.cfg.direct_samples = direct
+    return sir.compile_scene(sc)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jt = JTracer(_load(jrun_file, jsir), dtype=np.float32)
+    tt = TTracer(_load(trun_file, tsir), dtype=np.float32, device="cpu")
+    return jt, tt
+
+
+def _rays(n, seed, spread=6.0):
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(-spread, spread, (n, 3)).astype(np.float32)
+    p[:, 2] = np.abs(p[:, 2])          # above the floor
+    d = rng.normal(0, 1, (n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return p, d
+
+
+def _nee_inputs(cap, seed=7):
+    """The kernels' NEE inputs, as tests/test_pallas.py draws them."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-4, 4, (B, 3)).astype(np.float32)
+    pos[:, 2] = np.abs(pos[:, 2])
+    sd = rng.normal(0, 1, (B, 3)).astype(np.float32)
+    sd /= np.linalg.norm(sd, axis=-1, keepdims=True)
+    di = rng.uniform(0, 1.2, B).astype(np.float32)
+    gate = rng.uniform(0, 1, B) > 0.3
+    theta_i = rng.uniform(0, np.pi * 0.999, B).astype(np.float32)
+    sigma = rng.uniform(0, 0.4, B).astype(np.float32)
+    sig2 = sigma * sigma
+    on_a = np.where(sigma > 0, 1.0 - 0.5 * sig2 / (sig2 + 0.33),
+                    1.0).astype(np.float32)
+    on_b = np.where(sigma > 0, 0.45 * sig2 / (sig2 + 0.09),
+                    0.0).astype(np.float32)
+    prj = rng.normal(0, 1, (B, 3)).astype(np.float32)
+    prj /= np.linalg.norm(prj, axis=-1, keepdims=True)
+    rv = rng.integers(0, 2 ** 32, B, dtype=np.uint32)
+    ns = np.minimum(np.maximum((cap * di).astype(np.int32), 1), cap)
+    return dict(pos=pos, surf_d=sd, di=np.where(gate, di, 0.0).astype(
+        np.float32), cos_ti=np.cos(theta_i), on_a=on_a, on_b=on_b,
+        ray_prj=prj, rv=rv, ns=ns)
+
+
+def _torch_args(a, device="cpu"):
+    t = lambda x: torch.as_tensor(x, device=device)
+    rv = torch.as_tensor(a["rv"].view(np.int32), device=device).view(
+        torch.uint32)
+    return (t(a["pos"]), t(a["surf_d"]), t(a["di"]), t(a["cos_ti"]),
+            t(a["on_a"]), t(a["on_b"]), t(a["ray_prj"]), rv,
+            t(a["ns"]).to(torch.int32))
+
+
+def test_smoke_scene_inside_kernel_coverage(pair):
+    """The JAX package's own coverage rules take the whole smoke scene:
+    no SDF, <= 192 leaves, every composite within MAX_COMP_COLS, and a
+    NEE kernel is built."""
+    jt, tt = pair
+    singles, comps, rest = pk.kernel_coverage(jt, matter_only=True)
+    assert not rest and not jt.sdf_singles
+    assert len(jt.tab) <= 192
+    assert len(singles) == 2 and len(comps) == 2
+    integ = JIntegrator(jt, batch=B)
+    assert pk.build_nee_kernel(integ, interpret=True) is not None
+    # the port's rules agree
+    cov = kernels.coverage(tt)
+    assert len(cov.singles) == 2 and len(cov.comps) == 2 and not cov.rest
+    assert kernels.nee_supported(TIntegrator(tt, batch=B))
+    # one lamp is not a single sphere: its NEE goes through object_hit_t
+    assert not all(TIntegrator(tt, batch=B).l_sphere_exact)
+
+
+def test_shadow_plain_matches_pallas(pair):
+    jt, tt = pair
+    p, d = _rays(B, 11)
+    lim = np.random.default_rng(1).uniform(0.1, 12.0, B).astype(np.float32)
+    fn, rest = pk.build_shadow_kernel(jt, interpret=True)
+    assert not rest
+    want = np.asarray(fn(jnp.asarray(p), jnp.asarray(d), jnp.asarray(lim)))
+    got = kernels.shadow_any_hit(tt, torch.as_tensor(p), torch.as_tensor(d),
+                                 torch.as_tensor(lim)).numpy()
+    assert want.any() and (~want).any()
+    assert (got == want).mean() >= 0.998
+
+
+@pytest.mark.parametrize("oid", [0, 1, 3])
+def test_object_hit_plain_matches_pallas(pair, oid):
+    """Both lamps (a sphere and the enveloped ellipsoid) and the goblet
+    composite."""
+    jt, tt = pair
+    p, d = _rays(B, 12 + oid)
+    # aim half the rays at the object so hits are plentiful
+    target = np.asarray(jt.ir.objects[oid].pos, np.float32)
+    if oid == 3:
+        target = np.array([0.0, 0.0, 1.5], np.float32)
+    aim = target - p[: B // 2]
+    d[: B // 2] = aim / np.linalg.norm(aim, axis=-1, keepdims=True)
+    fn = pk.build_object_hit_kernel(jt, oid, interpret=True)
+    want = np.asarray(fn(jnp.asarray(p), jnp.asarray(d)))
+    got = kernels.object_hit(tt, oid, torch.as_tensor(p),
+                             torch.as_tensor(d)).numpy()
+    fin = np.isfinite(want)
+    assert fin.sum() > B // 4
+    assert (np.isfinite(got) == fin).mean() >= 0.998
+    both = fin & np.isfinite(got)
+    assert np.all(np.abs(got[both] - want[both]) <= 1e-3 * (1 + want[both]))
+
+
+def test_nee_plain_matches_pallas(pair):
+    jt, tt = pair
+    jinteg = JIntegrator(jt, batch=B)
+    tinteg = TIntegrator(tt, batch=B)
+    a = _nee_inputs(jinteg.direct_cap)
+    kfn = pk.build_nee_kernel(jinteg, interpret=True)
+    want = np.asarray(kfn(*[jnp.asarray(a[k]) for k in (
+        "pos", "surf_d", "di", "cos_ti", "on_a", "on_b", "ray_prj", "rv",
+        "ns")]))
+    got = kernels.nee(tinteg, *_torch_args(a)).numpy()
+    assert (want > 0).any()
+    rel = np.abs(got - want) / (np.abs(want) + 1e-4)
+    frac = (rel.max(axis=1) < 1e-2).mean()
+    assert frac >= 0.99, f"only {frac} of lanes agree"
+
+
+def test_cpu_wrappers_launch_nothing(pair):
+    """On CPU tensors the wrappers take their plain versions and count no
+    launch."""
+    _, tt = pair
+    kernels.reset_launches()
+    p, d = _rays(8, 3)
+    kernels.shadow_any_hit(tt, torch.as_tensor(p), torch.as_tensor(d),
+                           torch.full((8,), 5.0))
+    kernels.object_hit(tt, 0, torch.as_tensor(p), torch.as_tensor(d))
+    assert kernels.LAUNCHES == {"nee": 0, "shadow": 0, "object_hit": 0}
+
+
+def test_scene_table_layout(pair):
+    """The packed table's header points at records that describe the
+    tracer's geometry (the layout csrc/trace_kernels.cu reads)."""
+    _, tt = pair
+    st = kernels.scene_table(tt)
+    f, i = st.f.numpy(), st.i.numpy()
+    n_leaf, n_comp, n_ss, n_sc = i[:4]
+    assert n_leaf == len(tt.tab) and n_comp == 2 and n_ss == n_sc == 2
+    M, m0, c2, c1, rr = tt.tables_np
+    for r in range(n_leaf):
+        rec = f[i[4] + r * kernels.LF_SIZE:][:kernels.LF_SIZE]
+        np.testing.assert_array_equal(rec[:9], M[r].reshape(9))
+        np.testing.assert_array_equal(rec[18], rr[r])
+        assert i[i[6] + r * kernels.LI_SIZE] == tt.tab.kind[r]
+    for k, comp in enumerate(tt.composites):
+        start, n, pstart, plen = i[i[7] + 4 * k: i[7] + 4 * k + 4]
+        assert list(i[i[8] + start: i[8] + start + n]) == list(comp.rows)
+        prog = list(i[i[9] + pstart: i[9] + pstart + plen])
+        assert prog == kernels._postfix(comp.tree, [])
+        assert sum(op >= 0 for op in prog) == n
