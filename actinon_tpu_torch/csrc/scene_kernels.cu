@@ -1,0 +1,538 @@
+// Packed scene kernels, hand-written for Hopper (sm_90a).
+//
+//   scene_top2_kernel   (K4) replaces actinon_tpu/render/pallas_scene.py
+//                       build_kernels -> kernel_top2: the global top-2
+//                       eps-backed candidates over the packed table —
+//                       singles, standalone SDFs, solo clusters, analytic
+//                       groups — as packed winner codes
+//                       shape << 24 | member << 8 | leaf.
+//   scene_anyhit_kernel (K5) replaces build_kernels -> kernel_anyhit: any
+//                       matter hit within (., limit] over the matter-only
+//                       table.
+//
+// The table is the JAX package's, value for value (built by
+// render/scene_kernels.py): [TOT, 128] f32 rows, one block of 128 member
+// lanes per row group, feature-major; [NB, 8] block bounding spheres; and
+// an int32 shape descriptor (SH_* records, then slots, postfix CSG
+// programs and the host's Batcher comparator pairs).
+//
+// Design.  One thread per ray, 128 threads a block.  Each thread walks the
+// shapes in table order and each shape's member blocks of 128; a block
+// whose bound the ray misses (per ray: exact, because every member's
+// envelope lies inside the bound) is skipped.  Member parameters are read
+// from the row-major table, and every thread of a warp reads the same
+// member at the same time, so each load is a broadcast.  Per member, the
+// f32 expressions of the Pallas helpers: the generalized-quadric roots and
+// root policy, the envelope interval, the bidirectional sphere march (a
+// loop of at most `cycles` steps that ends at the crossing, at the
+// envelope exit, or at the shadow limit), 4 sequential marches per SDF
+// slot of a cluster, and the sorted incremental toggle walk: the host's
+// comparator pairs sort up to 64 crossings in a local array, then one
+// sweep toggles a 32-bit inside mask and evaluates the postfix CSG program
+// until the first flip.  The K4 merge keeps the Pallas order: per member
+// block the block's best and second-best (first lane on ties), then the
+// merge formulas of pallas_scene.py:870-881.  K5 stops a ray at its first
+// hit.  No atomics: results are deterministic.
+//
+// What bounds it on this card: FP32 operations — the march steps and the
+// walk — not bytes (a ray reads 28 bytes and writes at most 16, and the
+// table is read from L1/L2 as broadcasts).  The design keeps the work to
+// what each ray needs: per-ray block culls, member envelope gates before
+// any root or march, early-exit marches with the envelope-exit and limit
+// bails, and a sweep that ends at the first flip.  Not done yet: staging
+// shape blocks in shared memory, and regrouping rays so that the lanes of
+// a warp march together (marching lanes diverge).
+//
+// Numerics: f32, no fast-math.  Interface: plain C functions, loaded with
+// ctypes.  Each launches on the stream it is given and returns
+// cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+// ---- descriptor layout (must match render/scene_kernels.py) ----
+enum {
+    SH_KIND = 0, SH_NBLK = 1, SH_M = 2, SH_ROW0 = 3, SH_RPB = 4,
+    SH_BID0 = 5, SH_ID = 6, SH_LIGHT = 7, SH_LC = 8, SH_NAN = 9,
+    SH_NSDF = 10, SH_AUX = 11, SH_PROG = 12, SH_PLEN = 13, SH_PAIRS = 14,
+    SH_NPAIRS = 15, SH_SIZE = 16
+};
+enum { K_SINGLES = 0, K_SDFSINGLE = 1, K_CLUSTER = 2 };
+enum { SDF_SPHERE = 0, SDF_TORUS = 1 };
+enum { OP_AND = -1, OP_OR = -2, OP_NOT = -3 };
+constexpr int LB = 128;
+constexpr int HDR = 6;
+constexpr int AN_ROWS = 20;
+constexpr int SDF_ROWS = 13;
+constexpr int NC_CAP = 64;
+constexpr int N_CROSS = 4;
+constexpr float F32_BIG = 3e38f;
+
+__device__ __forceinline__ float finf() { return __int_as_float(0x7f800000); }
+
+// false for +-INF and NaN, as jnp.isfinite
+__device__ __forceinline__ bool is_finite(float x) { return fabsf(x) < finf(); }
+
+struct Ray {
+    float px, py, pz, dx, dy, dz;
+};
+
+// The feature column of one member lane: feature f lies LB floats after
+// feature f-1.
+struct Lane {
+    const float* __restrict__ base;
+    __device__ __forceinline__ float operator[](int f) const {
+        return __ldg(base + f * LB);
+    }
+};
+
+// Per-launch constants: eps and the shells derived from it, rounded to
+// f32 as pallas_scene.build_kernels rounds them.
+struct Eps {
+    float eps, eps4, slack, accept;
+};
+
+// ---- per-member math (pallas_scene.py:379-463) ----
+
+// (A, B, C) of the generalized quadric of the 20 rows at `off`.
+__device__ __forceinline__ void quad_lane(const Lane& L, int off,
+                                          const Ray& r, float& A, float& B,
+                                          float& C) {
+    float pl[3], dl[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        const float m0 = L[off + 3 * i], m1 = L[off + 3 * i + 1],
+                    m2 = L[off + 3 * i + 2];
+        pl[i] = ((m0 * r.px + m1 * r.py) + m2 * r.pz) + L[off + 9 + i];
+        dl[i] = (m0 * r.dx + m1 * r.dy) + m2 * r.dz;
+    }
+    const float c2x = L[off + 12], c2y = L[off + 13], c2z = L[off + 14];
+    const float c1x = L[off + 15], c1y = L[off + 16], c1z = L[off + 17];
+    A = ((c2x * dl[0]) * dl[0] + (c2y * dl[1]) * dl[1])
+        + (c2z * dl[2]) * dl[2];
+    B = 2.0f * (((c2x * dl[0]) * pl[0] + (c2y * dl[1]) * pl[1])
+                + (c2z * dl[2]) * pl[2])
+        + ((c1x * dl[0] + c1y * dl[1]) + c1z * dl[2]);
+    C = ((((c2x * pl[0]) * pl[0] + (c2y * pl[1]) * pl[1])
+          + (c2z * pl[2]) * pl[2])
+         + ((c1x * pl[0] + c1y * pl[1]) + c1z * pl[2]))
+        + L[off + 18];
+}
+
+// Both roots, INF-padded (tracer._roots); s, q and ok for the policy.
+__device__ __forceinline__ void roots_lane(float A, float B, float C,
+                                           float& t0u, float& t1u, float& s,
+                                           float& q, bool& ok) {
+    const float inf = finf();
+    const bool is_quad = A != 0.0f;
+    const float safe_A = is_quad ? A : 1.0f;
+    s = (B * 0.5f) / safe_A;
+    q = C / safe_A;
+    const float disc = s * s - q;
+    ok = is_quad && (disc >= 0.0f);
+    const float root = sqrtf(ok ? disc : 0.0f);
+    const float ta = -s - root;
+    const float tb = -s + root;
+    float t0 = ta, t1 = tb;
+    if (s < 0.0f) t0 = fabsf(tb) > 0.0f ? q / tb : ta;
+    if (s > 0.0f) t1 = fabsf(ta) > 0.0f ? q / ta : tb;
+    const float t_lin = B != 0.0f ? -C / B : inf;
+    t0u = is_quad ? (ok ? t0 : inf) : t_lin;
+    t1u = is_quad ? (ok ? t1 : inf) : inf;
+}
+
+// Family root policy with the lane's kind (tracer._policy), eps-backed.
+__device__ __forceinline__ float policy_lane(float kind, float t0u,
+                                             float t1u, float s, float q,
+                                             bool ok, float eps) {
+    const float inf = finf();
+    if (kind == 0.0f) return t0u > 0.0f ? t0u - eps : inf;       // plane
+    if (kind == 1.0f) {                                           // sphere
+        const bool entering = (s < 0.0f) && (q > 0.0f);
+        const bool exiting = (s < 0.0f) || (q < 0.0f);
+        const float a = entering ? t0u : (exiting ? t1u : inf);
+        return ok ? a - eps : inf;
+    }
+    const float a = t0u >= 0.0f ? t0u : (t1u >= 0.0f ? t1u : inf);
+    return is_finite(a) ? a - eps : inf;
+}
+
+// (gate, t_in, t_out) of the lane's envelope sphere; no envelope (r <= 0)
+// gates True with the whole line.
+__device__ __forceinline__ bool env_interval_lane(const Lane& L,
+                                                  const Ray& r, float& t_in,
+                                                  float& t_out) {
+    const float er = L[5];
+    const float ex = r.px - L[2], ey = r.py - L[3], ez = r.pz - L[4];
+    const float s = (ex * r.dx + ey * r.dy) + ez * r.dz;
+    const float q = ((ex * ex + ey * ey) + ez * ez) - er * er;
+    const float disc = s * s - q;
+    const bool hit = (disc >= 0.0f) && ((s < 0.0f) || (q < 0.0f));
+    const bool no_env = er <= 0.0f;
+    const float root = sqrtf(disc > 0.0f ? disc : 0.0f);
+    t_in = no_env ? 0.0f : fmaxf(-s - root, 0.0f);
+    t_out = no_env ? F32_BIG : -s + root;
+    return no_env || hit;
+}
+
+__device__ __forceinline__ float sdf_eval(int kind, float prm, float x,
+                                          float y, float z) {
+    if (kind == SDF_SPHERE) return sqrtf((x * x + y * y) + z * z) - 1.0f;
+    const float f = sqrtf(x * x + y * y);
+    const float f_inv = f > 0.0f ? 1.0f / f : 1.0f;
+    const float xu = x * f_inv - x, yu = y * f_inv - y;
+    return sqrtf((xu * xu + yu * yu) + z * z) - prm;
+}
+
+// The ray in the SDF slot's unit frame: local origin, unit local
+// direction, and the direction's local norm dn.
+__device__ __forceinline__ void sdf_local(const Lane& L, int off,
+                                          const Ray& r, float pl[3],
+                                          float dl[3], float& dn) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        const float m0 = L[off + 3 * i], m1 = L[off + 3 * i + 1],
+                    m2 = L[off + 3 * i + 2];
+        pl[i] = ((m0 * r.px + m1 * r.py) + m2 * r.pz) + L[off + 9 + i];
+        dl[i] = (m0 * r.dx + m1 * r.dy) + m2 * r.dz;
+    }
+    dn = sqrtf((dl[0] * dl[0] + dl[1] * dl[1]) + dl[2] * dl[2]);
+    const float inv = dn > 0.0f ? 1.0f / dn : 1.0f;
+    dl[0] *= inv;
+    dl[1] *= inv;
+    dl[2] *= inv;
+}
+
+// Bidirectional sphere march from local offset offs0 (tracer._sdf_march):
+// at most `cycles` steps; stops at the crossing or once the total offset
+// passes stop_total (the envelope exit or the shadow limit, local units).
+__device__ __forceinline__ void march(int kind, int cycles, float prm,
+                                      const float pl[3], const float dl[3],
+                                      float offs0, float stop_total,
+                                      float eps, float& offs_l,
+                                      float& dist) {
+    const float p0x = pl[0] + dl[0] * offs0, p0y = pl[1] + dl[1] * offs0,
+                p0z = pl[2] + dl[2] * offs0;
+    float dd = sdf_eval(kind, prm, p0x, p0y, p0z);
+    const bool forward = dd > 0.0f;
+    float o1 = 0.0f;
+    for (int i = 0; i < cycles; ++i) {
+        o1 += forward ? dd + eps : -(dd - eps);
+        dd = sdf_eval(kind, prm, p0x + dl[0] * o1, p0y + dl[1] * o1,
+                      p0z + dl[2] * o1);
+        const bool crossed = forward ? ((dd < 0.0f) || (dd > 1e30f))
+                                     : ((dd > 0.0f) || (dd < -1e30f));
+        if (crossed || offs0 + o1 > stop_total) break;
+    }
+    offs_l = offs0 + o1;
+    dist = dd;
+}
+
+// Postfix CSG program on one inside-bit set (bit l = local leaf l).
+__device__ __forceinline__ bool tree_eval(const int* __restrict__ prog,
+                                          int n, uint32_t bits) {
+    uint64_t st = 0;   // bit stack, top at bit 0
+    for (int k = 0; k < n; ++k) {
+        const int op = prog[k];
+        if (op >= 0) {
+            st = (st << 1) | ((bits >> op) & 1u);
+        } else if (op == OP_NOT) {
+            st ^= 1u;
+        } else {
+            const uint64_t a0 = st & 1u, a1 = (st >> 1) & 1u;
+            const uint64_t v = op == OP_AND ? (a0 & a1) : (a0 | a1);
+            st = ((st >> 2) << 1) | v;
+        }
+    }
+    return (st & 1u) != 0;
+}
+
+// Eps-backed, envelope-gated boundary of one member (shape_boundary,
+// pallas_scene.py:546-803) and its winning local leaf.  has_lim: the
+// any-hit query, whose marches also bail past the shadow limit.
+__device__ float member_boundary(const int* __restrict__ desc,
+                                 const int* __restrict__ sh, const Lane& L,
+                                 const Ray& r, bool has_lim, float lim,
+                                 const Eps& E, int& leaf) {
+    const float inf = finf();
+    leaf = 0;
+    float t_in_raw, t_out_raw;
+    const bool gate = env_interval_lane(L, r, t_in_raw, t_out_raw)
+                      && L[0] > 0.0f;
+    if (!gate) return inf;
+    const int kind = sh[SH_KIND];
+    const int* aux = desc + sh[SH_AUX];
+
+    if (kind == K_SINGLES) {
+        float A, B, C, t0u, t1u, s, q;
+        bool ok;
+        quad_lane(L, HDR, r, A, B, C);
+        roots_lane(A, B, C, t0u, t1u, s, q, ok);
+        return policy_lane(L[HDR + 19], t0u, t1u, s, q, ok, E.eps);
+    }
+
+    if (kind == K_SDFSINGLE) {
+        // envelope-clipped entry, ONE bidirectional march
+        const int sk = aux[1], cycles = aux[2];
+        float pl[3], dl[3], dn;
+        sdf_local(L, HDR, r, pl, dl, dn);
+        float stop_w = t_out_raw + E.slack;
+        if (has_lim) stop_w = fminf(stop_w, lim + E.slack);
+        float offs_l, dist;
+        march(sk, cycles, L[HDR + 12], pl, dl, t_in_raw * dn, stop_w * dn,
+              E.eps, offs_l, dist);
+        const float dn_inv = dn > 0.0f ? 1.0f / dn : 1.0f;
+        return fabsf(dist) <= E.accept ? offs_l * dn_inv - E.eps : inf;
+    }
+
+    // -- cluster: crossings, then the sorted incremental toggle walk --
+    const float t_in = fmaxf(t_in_raw - E.slack, 0.0f);
+    const float t_out = t_out_raw + E.slack;
+    float ts[NC_CAP];
+    uint8_t lf[NC_CAP];
+    int nc = 0;
+    uint32_t inside = 0;
+    int off = HDR;
+    const int n_an = sh[SH_NAN], n_sdf = sh[SH_NSDF];
+    for (int k = 0; k < n_an; ++k, off += AN_ROWS) {
+        const int li = aux[k];
+        float A, B, C, t0u, t1u, s, q;
+        bool ok;
+        quad_lane(L, off, r, A, B, C);
+        roots_lane(A, B, C, t0u, t1u, s, q, ok);
+        ts[nc] = t0u > 0.0f ? t0u : inf;
+        lf[nc++] = (uint8_t)li;
+        ts[nc] = t1u > 0.0f ? t1u : inf;
+        lf[nc++] = (uint8_t)li;
+        if (C <= 0.0f) inside |= 1u << li;
+    }
+    for (int k = 0; k < n_sdf; ++k, off += SDF_ROWS) {
+        const int* slot = aux + n_an + 4 * k;
+        const int li = slot[0], sk = slot[1], cycles = slot[2];
+        float pl[3], dl[3], dn;
+        sdf_local(L, off, r, pl, dl, dn);
+        const float prm = L[off + 12];
+        const float dn_inv = 1.0f / (dn > 0.0f ? dn : 1.0f);
+        // N_CROSS sequential marches clipped to the envelope interval
+        float offs = t_in * dn;
+        const float stop_l = (has_lim ? fminf(t_out, lim + E.slack)
+                                      : t_out) * dn;
+        bool dead = false;
+        for (int c = 0; c < N_CROSS; ++c) {
+            float t_world = inf;
+            if (!dead) {
+                float offs_l, dist;
+                march(sk, cycles, prm, pl, dl, offs, stop_l, E.eps, offs_l,
+                      dist);
+                const bool hit = fabsf(dist) <= E.accept && offs_l <= stop_l;
+                if (hit && offs_l > 0.0f) t_world = offs_l * dn_inv;
+                dead = !hit;
+                offs = offs_l + E.eps4;
+            }
+            ts[nc] = t_world;
+            lf[nc++] = (uint8_t)li;
+        }
+        // origin inside-ness at the TRUE ray origin
+        if (sdf_eval(sk, prm, pl[0], pl[1], pl[2]) <= 0.0f)
+            inside |= 1u << li;
+    }
+    // Batcher network (the host's comparator pairs): ascending, INF last
+    const int* pairs = desc + sh[SH_PAIRS];
+    const int npairs = sh[SH_NPAIRS];
+    for (int k = 0; k < npairs; ++k) {
+        const int i = pairs[2 * k], j = pairs[2 * k + 1];
+        if (ts[i] > ts[j]) {
+            const float tt = ts[i];
+            ts[i] = ts[j];
+            ts[j] = tt;
+            const uint8_t ll = lf[i];
+            lf[i] = lf[j];
+            lf[j] = ll;
+        }
+    }
+    // one sweep: each crossing toggles its leaf's bit; coincident
+    // crossings flip jointly (the test fires where a tie run ends); the
+    // first flip is the boundary
+    const int* prog = desc + sh[SH_PROG];
+    const int plen = sh[SH_PLEN];
+    uint32_t state = inside;
+    bool v_run = tree_eval(prog, plen, state);
+    float best = inf;
+    for (int j = 0; j < nc && is_finite(ts[j]); ++j) {
+        state ^= 1u << lf[j];
+        const bool v_new = tree_eval(prog, plen, state);
+        const float t_next = j + 1 < nc ? ts[j + 1] : inf;
+        if (ts[j] != t_next) {
+            if (v_new != v_run) {
+                best = ts[j];
+                leaf = lf[j];
+                break;
+            }
+            v_run = v_new;
+        }
+    }
+    return best < F32_BIG ? best - E.eps : inf;
+}
+
+// The ray may touch block bid's bound (r2 < 0: unbounded).  has_lim: the
+// any-hit test, where the bound's entry must lie within the limit.
+__device__ __forceinline__ bool block_cull(const float* __restrict__ bounds,
+                                           int bid, const Ray& r,
+                                           bool has_lim, float lim) {
+    const float* b = bounds + 8 * bid;
+    const float r2 = __ldg(b + 3);
+    if (r2 < 0.0f) return true;
+    const float ex = __ldg(b) - r.px, ey = __ldg(b + 1) - r.py,
+                ez = __ldg(b + 2) - r.pz;
+    const float s = (ex * r.dx + ey * r.dy) + ez * r.dz;
+    const float q = ((ex * ex + ey * ey) + ez * ez) - r2;
+    const float disc = s * s - q;
+    const bool hit = (disc >= 0.0f) && ((s > 0.0f) || (q < 0.0f));
+    if (!has_lim) return hit;
+    const float te = fmaxf(s - sqrtf(disc >= 0.0f ? disc : 0.0f), 0.0f);
+    return hit && (te <= lim);
+}
+
+__device__ __forceinline__ Eps make_eps(float eps) {
+    return Eps{eps, 4.0f * eps, 8.0f * eps, 1.5f * eps};
+}
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ p,
+                                        const float* __restrict__ d, int i) {
+    return Ray{p[3 * i], p[3 * i + 1], p[3 * i + 2],
+               d[3 * i], d[3 * i + 1], d[3 * i + 2]};
+}
+
+// ---- kernels ----
+
+__global__ void __launch_bounds__(128)
+scene_top2_kernel(const float* __restrict__ table,
+                  const float* __restrict__ bounds,
+                  const int* __restrict__ desc, const float* __restrict__ p,
+                  const float* __restrict__ d, const float* __restrict__ lm,
+                  float* __restrict__ t_out, int* __restrict__ c_out, int n,
+                  float eps) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float inf = finf();
+    const Ray r = load_ray(p, d, i);
+    const bool lane_matter = lm[i] > 0.0f;
+    const Eps E = make_eps(eps);
+    float t1 = inf, t2 = inf;
+    int i1 = -1, i2 = -1;
+    const int n_shapes = desc[0];
+    for (int s = 0; s < n_shapes; ++s) {
+        const int* sh = desc + 1 + s * SH_SIZE;
+        const bool mask_light = sh[SH_LIGHT] && lane_matter;
+        const int M = sh[SH_M];
+        for (int b = 0; b < sh[SH_NBLK]; ++b) {
+            if (!block_cull(bounds, sh[SH_BID0] + b, r, false, 0.0f))
+                continue;
+            const float* blk = table + (size_t)(sh[SH_ROW0]
+                                                + b * sh[SH_RPB]) * LB;
+            // the block's best and second-best lanes, first lane on ties
+            float b1 = inf, b2 = inf;
+            int g1 = -1, g2 = -1;
+            const int n_lanes = min(LB, M - b * LB);
+            for (int lane = 0; lane < n_lanes; ++lane) {
+                const Lane L{blk + lane};
+                if (mask_light && L[1] > 0.0f) continue;
+                int leaf;
+                const float a = member_boundary(desc, sh, L, r, false, 0.0f,
+                                                E, leaf);
+                const int code = (sh[SH_ID] << 24)
+                                 | ((b * LB + lane) << 8) | leaf;
+                if (a < b1) {
+                    b2 = b1;
+                    g2 = g1;
+                    b1 = a;
+                    g1 = code;
+                } else if (a < b2) {
+                    b2 = a;
+                    g2 = code;
+                }
+            }
+            // the Pallas merge (pallas_scene.py:870-881)
+            const float hi_t = fmaxf(t1, b1);
+            const int hi_i = b1 < t1 ? i1 : g1;
+            const float w2 = fminf(t2, b2);
+            const int w2i = b2 < t2 ? g2 : i2;
+            i1 = b1 < t1 ? g1 : i1;
+            t1 = fminf(t1, b1);
+            t2 = fminf(hi_t, w2);
+            i2 = hi_t <= w2 ? hi_i : w2i;
+        }
+    }
+    t_out[2 * i] = t1;
+    t_out[2 * i + 1] = t2;
+    c_out[2 * i] = is_finite(t1) ? i1 : -1;
+    c_out[2 * i + 1] = is_finite(t2) ? i2 : -1;
+}
+
+__global__ void __launch_bounds__(128)
+scene_anyhit_kernel(const float* __restrict__ table,
+                    const float* __restrict__ bounds,
+                    const int* __restrict__ desc,
+                    const float* __restrict__ p, const float* __restrict__ d,
+                    const float* __restrict__ lim_in,
+                    uint8_t* __restrict__ out, int n, float eps) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const Ray r = load_ray(p, d, i);
+    // a limit that is not finite reads as 3e38, as in the Pallas kernel
+    const float l = lim_in[i];
+    const float lim = is_finite(l) ? l : F32_BIG;
+    const Eps E = make_eps(eps);
+    bool blocked = false;
+    const int n_shapes = desc[0];
+    for (int s = 0; s < n_shapes && !blocked; ++s) {
+        const int* sh = desc + 1 + s * SH_SIZE;
+        const int M = sh[SH_M];
+        for (int b = 0; b < sh[SH_NBLK] && !blocked; ++b) {
+            if (!block_cull(bounds, sh[SH_BID0] + b, r, true, lim)) continue;
+            const float* blk = table + (size_t)(sh[SH_ROW0]
+                                                + b * sh[SH_RPB]) * LB;
+            const int n_lanes = min(LB, M - b * LB);
+            for (int lane = 0; lane < n_lanes; ++lane) {
+                int leaf;
+                if (member_boundary(desc, sh, Lane{blk + lane}, r, true, lim,
+                                    E, leaf) <= lim) {
+                    blocked = true;
+                    break;
+                }
+            }
+        }
+    }
+    out[i] = blocked ? 1 : 0;
+}
+
+constexpr int kBlock = 128;
+
+inline int grid_of(int n) { return (n + kBlock - 1) / kBlock; }
+
+}  // namespace
+
+extern "C" {
+
+int actinon_scene_top2(const float* table, const float* bounds,
+                       const int* desc, const float* p, const float* d,
+                       const float* lm, float* t_out, int* c_out, int n,
+                       float eps, void* stream) {
+    scene_top2_kernel<<<grid_of(n), kBlock, 0, (cudaStream_t)stream>>>(
+        table, bounds, desc, p, d, lm, t_out, c_out, n, eps);
+    return (int)cudaGetLastError();
+}
+
+int actinon_scene_anyhit(const float* table, const float* bounds,
+                         const int* desc, const float* p, const float* d,
+                         const float* lim, uint8_t* out, int n, float eps,
+                         void* stream) {
+    scene_anyhit_kernel<<<grid_of(n), kBlock, 0, (cudaStream_t)stream>>>(
+        table, bounds, desc, p, d, lim, out, n, eps);
+    return (int)cudaGetLastError();
+}
+
+}  // extern "C"

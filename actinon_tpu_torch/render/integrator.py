@@ -18,7 +18,9 @@ estimators, the exit-transition override, Beer-Lambert absorption,
 Oren-Nayar weighting, and position-seeded counter RNG streams.
 
 On a CUDA device in f32 the NEE of a position-seeded render runs as the
-hand-written NEE kernel (`render/kernels.py`).
+hand-written NEE kernel (`render/kernels.py`) where the scene lies inside
+its coverage; SDF scenes take the plain NEE, whose shadow and light-hit
+queries go through the tracer's kernels (K5, K3).
 """
 
 from __future__ import annotations
@@ -512,7 +514,6 @@ class Integrator:
         vectorized batch, other lights one by one.  `shadow(p, d, limit)`
         and `obj_hit(oid, p, d)` answer the shadow and light-hit queries
         (the plain version of the NEE kernel passes the plain ones)."""
-        tr = self.tr
         dt = self.tdtype
         B = pos.shape[0]
         rv = argn.as_u32(rv)
@@ -526,10 +527,7 @@ class Integrator:
             lum = lum + self._nee_exact_batch(
                 exact, pos, surf_d, di, gate, theta_i, on_a, on_b, ray_prj,
                 rv, ns, shadow)
-        # flat-ray budget: B*S x leaves temporaries of the shadow
-        # traversal stay bounded
-        W = max(1, min(len(tr.tab), CHUNK))
-        budget = min(1 << 20, (1 << 26) // W)
+        budget = self._flat_ray_budget()
         for li in legacy:
             lpos = self._dev["l_pos"][li]
             lrad = self._dev["l_rad"][li]
@@ -621,8 +619,7 @@ class Integrator:
         cyl = 1.0 - cos_rs                             # [B,Le]
         frame = m3.transposed(m3.con_z(fov_d))         # [B,Le,3,3]
 
-        W = max(1, min(len(self.tr.tab), CHUNK))
-        budget = min(1 << 20, (1 << 26) // W)
+        budget = self._flat_ray_budget()
         s_chunk = max(1, min(self.direct_cap, budget // max(B * Le, 1)))
         cl = torch.zeros((B, Le, 3), dtype=dt, device=dev)
         for j0 in range(0, self.direct_cap, s_chunk):
@@ -662,6 +659,16 @@ class Integrator:
                                 dim=2)                 # [B,Le,3]
         fac = (2.0 * cyl / ns.to(dt)[:, None])[..., None]
         return torch.sum(cl * fac, dim=1)
+
+    def _flat_ray_budget(self):
+        """Shadow rays per flattened NEE query: B*S x leaves temporaries
+        of the plain shadow traversal stay bounded; the scene kernel's
+        shadow (K5) has no such temporaries, so its budget bounds only the
+        kernel's I/O (JAX integrator.py:663-666)."""
+        W = max(1, min(len(self.tr.tab), CHUNK))
+        if self.tr._scene_route_ok() and self.tr._prefer_scene_shadow():
+            W = 64
+        return min(1 << 20, (1 << 26) // W)
 
     def _conz_t(self, v):
         """transposed(con_z(v)): columns = orthonormal frame with z // v

@@ -14,10 +14,14 @@ kernels live in `csrc/trace_kernels.cu`:
 The Pallas kernels were generated per scene with every leaf baked in as
 an immediate.  Here one kernel source serves every scene: the geometry
 the JAX package's `kernel_coverage` and `_light_coverage` select is
-flattened into a read-only table (`SceneTable`, `LightTable`) that every
-thread of a warp reads in step.  The library builds at first use with
-`nvcc`, from the source in this package only, into `_build/`; it is
-keyed by a hash of the source.
+flattened into a read-only table (`SceneTable`, `LightTable`: the flat
+leaf/composite table of K1-K3, not the packed table of the scene kernels
+K4/K5 in `render/scene_kernels.py`) that every thread of a warp reads in
+step.  Composites with SDF leaves lie outside this coverage, as in the
+JAX package.  The library of all the port's kernels (this module's and
+`scene_kernels`') builds at first use with one `nvcc` call, from the
+sources in this package only, into `_build/`; it is keyed by a hash of
+the sources.
 
 A wrapper takes the plain version when its tensors lie on the CPU, and
 only then.  On a CUDA tensor it launches its kernel or raises; each
@@ -42,10 +46,12 @@ import torch
 MAX_COMP_COLS = 64        # composite size cap of the crossing walk
 
 # launches per kernel (a launch of the wrapper's kernel adds one)
-LAUNCHES: Dict[str, int] = {"nee": 0, "shadow": 0, "object_hit": 0}
+LAUNCHES: Dict[str, int] = {"nee": 0, "shadow": 0, "object_hit": 0,
+                            "scene_top2": 0, "scene_anyhit": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "trace_kernels.cu")
+SOURCES = [os.path.join(_PKG, "csrc", f)
+           for f in ("trace_kernels.cu", "scene_kernels.cu")]
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
@@ -75,7 +81,9 @@ class Coverage:
 
 
 def _comp_fits(comp) -> bool:
-    return 2 * len(comp.rows) <= MAX_COMP_COLS
+    """An analytic composite within the walk's column cap; composites
+    with SDF leaves never fit (their marches are not in these kernels)."""
+    return not comp.has_sdf and 2 * len(comp.rows) <= MAX_COMP_COLS
 
 
 def coverage(tr) -> Coverage:
@@ -96,8 +104,8 @@ def coverage(tr) -> Coverage:
 
 def object_desc(tr, oid: int):
     """("leaf", row) or ("comp", composite) for one object, or None when
-    its composite is too large for the walk (build_object_hit_kernel,
-    pallas_kernels.py:695-724)."""
+    it is an SDF object or a composite with SDF leaves or too large for
+    the walk (build_object_hit_kernel, pallas_kernels.py:695-724)."""
     rows = np.flatnonzero((tr.tab.oid == oid) & tr.tab.single)
     if len(rows):
         return ("leaf", int(rows[0]))
@@ -109,9 +117,12 @@ def object_desc(tr, oid: int):
 
 def nee_supported(integ) -> bool:
     """The NEE kernel covers the scene (build_nee_kernel returns a kernel,
-    pallas_kernels.py:478-484): no matter outside coverage, and every
-    light within `_light_coverage` (pallas_kernels.py:426-464)."""
-    if coverage(integ.tr).rest or not integ.n_lights:
+    pallas_kernels.py:478-484): no matter outside coverage (no SDF
+    composite, no standalone matter SDF), and every light within
+    `_light_coverage` (pallas_kernels.py:426-464)."""
+    tr = integ.tr
+    if coverage(tr).rest or not integ.n_lights \
+            or any(not light for *_, light in tr.sdf_singles):
         return False
     return all(object_desc(integ.tr, oid) is not None
                for oid in integ.l_oid)
@@ -251,14 +262,17 @@ def _nvcc():
 
 
 def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libtrace_kernels_{digest}.so")
+    h = hashlib.sha256()
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libtrace_kernels_{h.hexdigest()[:16]}.so")
 
 
 def build(verbose: bool = False) -> str:
-    """Compile csrc/trace_kernels.cu for sm_90a unless the library of this
-    source is already built; returns its path.  Raises on failure."""
+    """Compile csrc/*.cu for sm_90a into one library, in one nvcc call,
+    unless the library of these sources is already built; returns its
+    path.  Raises on failure."""
     path = library_path()
     if os.path.exists(path):
         return path
@@ -267,7 +281,7 @@ def build(verbose: bool = False) -> str:
     cmd = [_nvcc(), *NVCC_FLAGS]
     if verbose:
         cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, SOURCE]
+    cmd += ["-o", tmp, *SOURCES]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
@@ -288,8 +302,13 @@ def _lib():
             lib.actinon_object_hit.argtypes = [P, P, I, I, P, P, P, I, F, P]
             lib.actinon_nee.argtypes = [P, P, P, P, I, I, P, P, P, P, P, P,
                                         P, P, P, P, I, F, P]
+            lib.actinon_scene_top2.argtypes = [P, P, P, P, P, P, P, P, I,
+                                               F, P]
+            lib.actinon_scene_anyhit.argtypes = [P, P, P, P, P, P, P, I, F,
+                                                 P]
             for fn in (lib.actinon_shadow, lib.actinon_object_hit,
-                       lib.actinon_nee):
+                       lib.actinon_nee, lib.actinon_scene_top2,
+                       lib.actinon_scene_anyhit):
                 fn.restype = ctypes.c_int
             _LIB = lib
     return _LIB
@@ -323,9 +342,11 @@ def _stream():
 
 def shadow_plain(tr, p, d, limit):
     """Plain version of the shadow kernel: the tracer's non-kernel
-    any-hit (JAX tracer.py:2226-2258) over the kernel's coverage."""
-    rest = frozenset(c.oid for c in coverage(tr).rest)
-    return tr._shadow_plain(p, d, limit, exclude_oids=rest)
+    any-hit (JAX tracer.py:2226-2258) over the kernel's coverage (no rest
+    composites, no standalone SDF objects)."""
+    out = {c.oid for c in coverage(tr).rest}
+    out.update(oid for _, oid, *_ in tr.sdf_singles)
+    return tr._shadow_plain(p, d, limit, exclude_oids=frozenset(out))
 
 
 def shadow_any_hit(tr, p, d, limit):

@@ -1,9 +1,9 @@
 """Vectorized ray-scene intersection over the compiled Scene IR.
 
-PyTorch counterpart of the JAX package's `render/tracer.py`, main-path
-subset (analytic leaves and analytic CSG composites).  Every analytic
-leaf surface — half-space, sphere, quadric — is one row of a unified
-*generalized quadric* table
+PyTorch counterpart of the JAX package's `render/tracer.py` (forward
+rendering; the differentiable overrides belong to a later slice).  Every
+analytic leaf surface — half-space, sphere, quadric — is one row of a
+unified *generalized quadric* table
 
     side(x) = sum_i c2_i y_i^2 + sum_i c1_i y_i + r,   y = M x + m0
 
@@ -13,20 +13,28 @@ policies (reference src/gmath.h:38-97, src/objects.c:791-801), a
 crossing-parity walk for CSG composites, and one global top-2 merge.
 Normals are rebuilt for the winners only: grad side = (2 c2 y + c1) M.
 
-Scenes with SDF leaves raise NotImplementedError: their marches belong to
-a later slice of the port.  So do the JAX package's XLA-speed variants
-of the same math (gate-compacted pairs, solo-cluster scans, the
-polynomial-sign walk): the crossing-parity walk below computes the same
-boundaries.
+Distance (SDF) leaves are marched: a standalone SDF object by one
+bidirectional sphere march (reference src/objects.c:903-959), an SDF leaf
+inside a composite by up to SDF_CROSSINGS sequential marches that feed
+the crossing walk.  Composites with SDF leaves are or-decomposed and
+clustered by shape; a cluster's members evaluate as one batch dimension.
+The plain path marches from the ray origin, as the JAX package does on
+the CPU (its envelope clip of the marches applies off the CPU only); the
+JAX package's XLA-speed variants of the same math (gate-compacted pairs,
+solo-cluster scans, the polynomial-sign walk) are not ported.
 
-On a CUDA device in f32 the shadow any-hit and the single-object hit run
-as the hand-written kernels of `render/kernels.py`, under the JAX
-package's coverage rules (`_kernels_ok`).  All functions take and return
-tensors shaped [R] / [R,3] on the tracer's device.
+On a CUDA device in f32 the queries run through the hand-written kernels,
+under the JAX package's routing rules: the packed scene kernels of
+`render/scene_kernels.py` (K4, K5; they clip their marches to the
+envelopes, as the Pallas kernels always do) for SDF and large scenes, and
+the kernels of `render/kernels.py` (K2, K3) for small analytic scenes and
+single-object hits.  All functions take and return tensors shaped [R] /
+[R,3] on the tracer's device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, List, Optional
 
@@ -39,6 +47,12 @@ from actinon_tpu_torch.scene import ir as sir
 INF = math.inf
 CHUNK = 1024           # single-leaf candidate chunk (running top-2)
 MAX_KERNEL_LEAVES = 192  # leaf-table size the kernels take (tracer.py:2164)
+SDF_CROSSINGS = 4      # bounded crossing count for SDF leaves inside CSG
+MARCH_ACCEPT = 1.5     # march acceptance = MARCH_ACCEPT * eps: a step of
+                       # dist+eps overshoots the zero by <= eps for a
+                       # 1-Lipschitz SDF, plus f32 evaluation noise
+MAX_SCENE_MEMBERS = 192  # the scene kernels carry larger populations
+                         # (JAX tracer._prefer_scene_query)
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -122,6 +136,28 @@ def _tree_eval_mask(tree, leaf_vals):
     if tree[0] == "not":
         return ~_tree_eval_mask(tree[1], leaf_vals)
     raise ValueError(tree)
+
+
+def _sdf_eval(kind, param, pos):
+    """Signed distance of the unit shape at local points pos [..., 3]
+    (reference src/distance.c); param broadcasts against pos[..., 0]."""
+    if kind == sir.SDF_SPHERE:
+        return torch.sqrt(torch.sum(pos * pos, -1)) - 1.0
+    if kind == sir.SDF_TORUS:
+        x, y = pos[..., 0], pos[..., 1]
+        f = torch.sqrt(x * x + y * y)
+        f_inv = torch.where(f > 0, 1.0 / torch.where(f > 0, f, 1.0), 1.0)
+        xu, yu = x * f_inv, y * f_inv
+        return torch.sqrt((xu - x) ** 2 + (yu - y) ** 2 + pos[..., 2] ** 2) \
+            - param
+    raise ValueError(kind)
+
+
+def _affine(m, m0, x):
+    """m x + m0 for points x [..., 3] and frames m [..., 3, 3] that
+    broadcast against them (m0 None: the linear part alone)."""
+    y = torch.matmul(m, x[..., None])[..., 0]
+    return y if m0 is None else y + m0
 
 
 # ---------------------------------------------------------------------------
@@ -215,15 +251,20 @@ class _Unified:
 
 
 class _Composite:
-    """One CSG object: tree program over unified rows."""
+    """One CSG object: tree program over unified rows + SDF leaves."""
 
-    def __init__(self, oid, tree, rows, env_c, env_r, is_light):
+    def __init__(self, oid, tree, rows, sdf_leaves, env_c, env_r, is_light):
         self.oid = oid
         self.tree = tree          # local leaf indices
-        self.rows = rows          # local leaf -> global row
+        self.rows = rows          # local analytic leaf -> global row (or -1)
+        self.sdf_leaves = sdf_leaves  # local leaf -> sir.Leaf (or None)
         self.env_c = env_c
         self.env_r = env_r
         self.is_light = is_light
+
+    @property
+    def has_sdf(self) -> bool:
+        return any(lf is not None for lf in self.sdf_leaves)
 
 
 # -- or-decomposition of analytic composites --------------------------------
@@ -234,6 +275,28 @@ class _Composite:
 # each part a tight envelope gate and lets same-shape parts batch into one
 # group walk (the reference's author-defined bounding-sphere hierarchy,
 # src/compound.c:215-244).
+
+
+def _sdf_leaf_bound(lf):
+    """Conservative bounding sphere of one positive SDF leaf from its
+    local frame: the unit shape (sphere r=1 / torus ring 1 + tube prm)
+    mapped through the inverse affine transform."""
+    if lf.neg:
+        return None
+    m = np.asarray(lf.m, np.float64)
+    try:
+        minv = np.linalg.inv(m)
+    except np.linalg.LinAlgError:
+        return None
+    if lf.sdf_kind == sir.SDF_SPHERE:
+        r_local = 1.0
+    elif lf.sdf_kind == sir.SDF_TORUS:
+        r_local = 1.0 + float(lf.sdf_param)
+    else:
+        return None
+    c = minv @ (-np.asarray(lf.m0, np.float64))
+    smax = float(np.linalg.svd(minv, compute_uv=False)[0])
+    return (c, r_local * smax)
 
 
 def _leaf_bound(tab, row):
@@ -276,15 +339,19 @@ def _merge_bounds(b1, b2):
     return (c, r)
 
 
-def _tree_bound(tree, rows, tab):
+def _tree_bound(tree, rows, tab, sdf_leaves):
     """Bounding sphere of a subtree (None = unbounded).  An intersection
     is bounded by ANY bounded operand; a union needs both."""
     if tree[0] == "leaf":
-        return _leaf_bound(tab, rows[tree[1]])
+        if rows[tree[1]] >= 0:
+            return _leaf_bound(tab, rows[tree[1]])
+        if sdf_leaves[tree[1]] is not None:
+            return _sdf_leaf_bound(sdf_leaves[tree[1]])
+        return None
     if tree[0] == "not":
         return None
-    b1 = _tree_bound(tree[1], rows, tab)
-    b2 = _tree_bound(tree[2], rows, tab)
+    b1 = _tree_bound(tree[1], rows, tab, sdf_leaves)
+    b2 = _tree_bound(tree[2], rows, tab, sdf_leaves)
     if tree[0] == "and":
         if b1 is None:
             return b2
@@ -319,13 +386,15 @@ def _reindex_tree(tree, mapping):
 
 def _decompose_composite(comp, tab, eps):
     """Split a composite's top-level union into mini-composites for its
-    spatially disjoint components.  Components keep the parent's oid;
-    bounded components get their own tight envelope.  Returns [comp]
-    unchanged when nothing splits."""
+    spatially disjoint components (analytic AND SDF leaves — SDF parts
+    bound through their local frames, _sdf_leaf_bound).  Components keep
+    the parent's oid; bounded components get their own tight envelope.
+    Returns [comp] unchanged when nothing splits."""
     parts = _or_parts(comp.tree)
     if len(parts) < 2:
         return [comp]
-    bounds = [_tree_bound(p, comp.rows, tab) for p in parts]
+    bounds = [_tree_bound(p, comp.rows, tab, comp.sdf_leaves)
+              for p in parts]
     n = len(parts)
     parent = list(range(n))
 
@@ -363,13 +432,32 @@ def _decompose_composite(comp, tab, eps):
         mapping = {l: k for k, l in enumerate(locs)}
         new_tree = _reindex_tree(tree, mapping)
         new_rows = [comp.rows[l] for l in locs]
+        new_sdfs = [comp.sdf_leaves[l] for l in locs]
         if bound is not None:
             env_c, env_r = bound[0], bound[1] * 1.001 + 4.0 * eps
         else:
             env_c, env_r = comp.env_c, comp.env_r
-        out.append(_Composite(comp.oid, new_tree, new_rows, env_c, env_r,
-                              comp.is_light))
+        out.append(_Composite(comp.oid, new_tree, new_rows, new_sdfs, env_c,
+                              env_r, comp.is_light))
     return out
+
+
+def _shape_clusters(comps):
+    """Group composites by shape identity: same CSG tree, same
+    analytic/SDF slot pattern, same static SDF kinds, same envelope
+    presence, same light flag.  Members of a cluster differ only in
+    numeric parameters, so they evaluate as one batch dimension."""
+    clusters: Dict = {}
+    for comp in comps:
+        key = (repr(comp.tree),
+               tuple(r >= 0 for r in comp.rows),
+               tuple(None if lf is None else
+                     (lf.sdf_kind, int(lf.cycles), bool(lf.neg))
+                     for lf in comp.sdf_leaves),
+               comp.env_c is not None and comp.env_r > 0,
+               comp.is_light)
+        clusters.setdefault(key, []).append(comp)
+    return list(clusters.values())
 
 
 # ---------------------------------------------------------------------------
@@ -395,6 +483,10 @@ class Tracer:
         # counterpart of the JAX tracer's `use_pallas`: False keeps every
         # query on the plain PyTorch path (set only by A/B comparisons)
         self.use_kernels = True
+        # counterpart of the JAX tracer's `use_scene_interpret`: tests set
+        # it to take the scene-kernel route on a CPU tracer, where the
+        # kernels' wrappers run their plain versions
+        self.scene_kernels_on_cpu = False
 
         self.n_obj = len(ir.objects)
         self.is_light = np.array([o.is_light for o in ir.objects], bool)
@@ -403,35 +495,58 @@ class Tracer:
 
         tab = _Unified(self.dtype)
         composites: List[_Composite] = []
+        sdf_singles = []   # (leaf, oid, env_c, env_r, is_light)
         for oid, obj in enumerate(ir.objects):
-            if any(lf.family == sir.SDF for lf in obj.leaves):
-                raise NotImplementedError(
-                    "scenes with SDF leaves (distance objects) belong to "
-                    "slice 2 of the port (SDF and composite-heavy scenes)")
             env_c = obj.env_c if obj.env_c is not None else None
             env_r = obj.env_r
             if obj.single_leaf:
-                tab.add(obj.leaves[0], oid, obj.is_light, True, env_c,
-                        env_r if env_c is not None else -1.0, None)
+                lf = obj.leaves[0]
+                if lf.family == sir.SDF:
+                    # the leaf's own entry-clip envelope, else the object's
+                    sdf_singles.append((lf, oid, lf.env_c if lf.env_c
+                                        is not None else env_c,
+                                        lf.env_r if lf.env_c is not None
+                                        else (env_r if env_c is not None
+                                              else -1.0), obj.is_light))
+                else:
+                    tab.add(lf, oid, obj.is_light, True, env_c,
+                            env_r if env_c is not None else -1.0, None)
             else:
                 ci = len(composites)
-                rows = [tab.add(lf, oid, obj.is_light, False, None, -1.0,
-                                f"c{ci}_l{li}_")
-                        for li, lf in enumerate(obj.leaves)]
+                rows, sdfs = [], []
+                for li, lf in enumerate(obj.leaves):
+                    if lf.family == sir.SDF:
+                        rows.append(-1)
+                        sdfs.append(lf)
+                    else:
+                        rows.append(tab.add(lf, oid, obj.is_light, False,
+                                            None, -1.0, f"c{ci}_l{li}_"))
+                        sdfs.append(None)
                 composites.append(_Composite(
-                    oid, obj.tree, rows, env_c,
+                    oid, obj.tree, rows, sdfs, env_c,
                     env_r if env_c is not None else -1.0, obj.is_light))
         tab.finalize()
         self.tab = tab
         self.composites = composites
+        self._sdf_singles0 = sdf_singles   # the scene's own SDF leaves
+        self.sdf_singles = list(sdf_singles)
 
-        # group composites by tree shape after or-decomposition: members
-        # of a group evaluate as ONE batched crossing-parity walk
+        # or-decomposition first: disjoint union components evaluate
+        # independently with tight envelopes.  All-analytic parts group
+        # by tree shape and evaluate as ONE batched crossing-parity walk;
+        # the parts of composites with SDF leaves are the solo composites,
+        # clustered by shape (_solo_clusters)
         groups: Dict = {}
+        self.comp_solo = []
         for comp in composites:
+            if comp.has_sdf:
+                self.comp_solo.extend(
+                    _decompose_composite(comp, tab, self.eps))
+                continue
             for sub in _decompose_composite(comp, tab, self.eps):
                 groups.setdefault(repr(sub.tree), []).append(sub)
         self.comp_groups = list(groups.values())
+        self._solo_cl = _shape_clusters(self.comp_solo)
 
         self.single_rows = np.flatnonzero(tab.single).astype(np.int64)
         self._idx_cache = {}
@@ -472,10 +587,16 @@ class Tracer:
     def geom_params(self):
         """The geometry parameters as a dict of numpy arrays, with the
         keys and values of the JAX tracer's `geom_params` (family arrays
-        over every leaf of the family, plus per-leaf keys for composite
-        leaves).  The current values, after any set_geom."""
+        over every leaf of the family, per-leaf keys for composite leaves,
+        and the frame and parameter of each standalone SDF object as
+        `sdfs{i}_*`).  The current values, after any set_geom."""
         t = self.tab
         p = {}
+        for si, (lf, _oid, _ec, _er, _light) in \
+                enumerate(self._sdf_singles0):
+            p[f"sdfs{si}_m"] = lf.m
+            p[f"sdfs{si}_m0"] = lf.m0
+            p[f"sdfs{si}_prm"] = np.asarray(lf.sdf_param)
         if len(t.sph_rows):
             p["sph_c"] = t.sph_c
             p["sph_r"] = t.sph_r
@@ -506,11 +627,24 @@ class Tracer:
         """Take geometry parameters (keys of geom_params) in place of the
         scene's own and rebuild the device leaf table from them — the JAX
         tracer's `_assemble` with `ovr` set: the family arrays are written
-        first, then the per-leaf composite keys."""
+        first, then the per-leaf composite keys.  The `sdfs{i}_*` keys
+        replace the standalone SDF objects' frames and parameters (the
+        JAX package reads them in its differentiable renderer only; the
+        port, forward-only so far, renders with them).  The kernels'
+        tables are rebuilt from the new values at their next use."""
         t = self.tab
         dt = self.dtype
         self._geom_ovr = {k: np.asarray(v, dt) for k, v in params.items()}
         g = lambda k, base: np.asarray(self._geom_ovr.get(k, base), dt)
+        o = lambda k, base: (np.asarray(self._geom_ovr[k], np.float64)
+                             if k in self._geom_ovr else base)
+        self.sdf_singles = [
+            (dataclasses.replace(
+                lf, m=o(f"sdfs{si}_m", lf.m), m0=o(f"sdfs{si}_m0", lf.m0),
+                sdf_param=float(o(f"sdfs{si}_prm", lf.sdf_param))),
+             oid, ec, er, light)
+            for si, (lf, oid, ec, er, light) in
+            enumerate(self._sdf_singles0)]
         M, m0, c2, c1, rr = (t.M.copy(), t.m0.copy(), t.c2.copy(),
                              t.c1.copy(), t.rr.copy())
         if len(t.sph_rows):
@@ -636,17 +770,188 @@ class Tracer:
         disc = s * s - q
         return (disc >= 0) & ((s < 0) | (q < 0))
 
+    # -- SDF leaves ----------------------------------------------------------
+
+    def _sdf_local(self, m, m0, p, d):
+        """Ray into an SDF leaf's local unit frame: (pl, dl_unit, dn) with
+        dn the direction's local norm (the offset rescale factor).  m, m0
+        broadcast against p, d ([3,3] for one leaf, [G,3,3] against
+        [R,1,3] rays for a cluster's members)."""
+        pl = _affine(m, m0, p)
+        dl0 = _affine(m, None, d)
+        dn = torch.sqrt(torch.sum(dl0 * dl0, -1))
+        dl = dl0 / torch.where(dn > 0, dn, 1.0)[..., None]
+        return pl, dl, dn
+
+    def _sdf_march(self, kind, cycles, prm, pl, dl, offs0, dead):
+        """Bounded bidirectional sphere march from local offset offs0
+        (reference src/objects.c:903-959): at most `cycles` steps, ending
+        early once no lane is active.  Returns (offs_local, dist)."""
+        eps = self.eps
+        p0 = pl + dl * offs0[..., None]
+        dist = _sdf_eval(kind, prm, p0)
+        forward = dist > 0
+        offs1 = torch.zeros_like(dist)
+        active = ~dead
+        # on the card each `any` is a host read: test every 8 steps (an
+        # inactive lane's step is a no-op, so the result is the same)
+        every = 1 if self.device.type == "cpu" else 8
+        for i in range(int(cycles)):
+            if i % every == 0 and not bool(active.any()):
+                break
+            step = torch.where(forward, dist + eps, -(dist - eps))
+            offs1 = torch.where(active, offs1 + step, offs1)
+            dnew = _sdf_eval(kind, prm, p0 + dl * offs1[..., None])
+            dist = torch.where(active, dnew, dist)
+            crossed = torch.where(forward, (dist < 0) | (dist > 1e30),
+                                  (dist > 0) | (dist < -1e30))
+            active = active & ~crossed
+        return offs0 + offs1, dist
+
+    def _sdf_normal(self, kind, prm, m, neg, q_local):
+        """Forward-difference gradient normal in world space (reference
+        src/objects.c:940-952), with the Neg flip baked in; m [..., 3, 3]
+        broadcasts against q_local [..., 3] (per-ray frames too)."""
+        eps = self.eps
+        d0 = _sdf_eval(kind, prm, q_local)
+        ex = torch.eye(3, dtype=self.tdtype, device=self.device)
+        grad = torch.stack([
+            (_sdf_eval(kind, prm, q_local + ex[i] * eps) - d0) / eps
+            for i in range(3)], dim=-1)
+        nor = _norm3(torch.matmul(grad[..., None, :], m)[..., 0, :])
+        return -nor if neg else nor
+
+    def _hit_sdf_leaf(self, lf, env_c, env_r, p, d):
+        """First hit of a standalone SDF object: envelope-clipped entry,
+        one bounded march, gradient normal (the forward branch of the JAX
+        tracer's _hit_sdf_leaf).  Returns (a [R] eps-backed, nor [R,3])."""
+        R = p.shape[0]
+        if env_c is not None and env_r > 0:
+            ec = self._as(np.asarray(env_c))
+            outside = _dot(p - ec, p - ec) > env_r * env_r
+            t_env = _sphere_first_hit(ec, float(self.dtype.type(env_r)),
+                                      p, d, 0.0)
+            dead = outside & ~torch.isfinite(t_env)
+            offs0w = torch.where(outside & torch.isfinite(t_env), t_env, 0.0)
+        else:
+            dead = torch.zeros((R,), dtype=torch.bool, device=self.device)
+            offs0w = torch.zeros((R,), dtype=self.tdtype, device=self.device)
+        m = self._as(lf.m)
+        pl, dl, dn = self._sdf_local(m, self._as(lf.m0),
+                                     p + d * offs0w[:, None], d)
+        offs_l, dist = self._sdf_march(lf.sdf_kind, lf.cycles, lf.sdf_param,
+                                       pl, dl, torch.zeros_like(dn), dead)
+        hit = ~dead & (torch.abs(dist) <= MARCH_ACCEPT * self.eps)
+        t_star = offs0w + offs_l / torch.where(dn > 0, dn, 1.0)
+        nor = self._sdf_normal(lf.sdf_kind, lf.sdf_param, m, lf.neg,
+                               pl + dl * offs_l[:, None])
+        return torch.where(hit, t_star - self.eps, INF), nor
+
+    def _sdf_crossings(self, kind, cycles, prm, m, m0, p, d, alive=None):
+        """Up to SDF_CROSSINGS forward surface crossings of an SDF leaf
+        along p+td (world offsets, INF-padded, last axis) — the crossing
+        supply for SDF leaves inside CSG composites (reference
+        pair-marching, src/objects.c:1052-1094).  Each crossing is found
+        by a bounded march from the ray origin; the next march restarts
+        just past the surface shell.  Lanes where `alive` is False never
+        march."""
+        pl, dl, dn = self._sdf_local(m, m0, p, d)
+        dn_safe = torch.where(dn > 0, dn, 1.0)
+        offs = torch.zeros_like(dn)
+        dead = torch.zeros_like(dn, dtype=torch.bool) if alive is None \
+            else ~alive
+        out = []
+        for _ in range(SDF_CROSSINGS):
+            offs_l, dist = self._sdf_march(kind, cycles, prm, pl, dl, offs,
+                                           dead)
+            hit = ~dead & (torch.abs(dist) <= MARCH_ACCEPT * self.eps)
+            out.append(torch.where(hit & (offs_l > 0), offs_l / dn_safe,
+                                   INF))
+            dead = dead | ~hit
+            offs = offs_l + 4.0 * self.eps   # step through the eps shell
+        return torch.stack(out, dim=-1)
+
+    def _env_interval(self, env_c, env_r, p, d):
+        """(gate, t_in, t_out) of envelope spheres along p+td; t_in
+        clamped to 0 when starting inside."""
+        pp = p - env_c
+        s = _dot(pp, d)
+        q = _dot(pp, pp) - env_r * env_r
+        disc = s * s - q
+        gate = (disc >= 0) & ((s < 0) | (q < 0))
+        root = safe_sqrt(torch.clamp(disc, min=0.0))
+        return gate, torch.clamp(-s - root, min=0.0), -s + root
+
     # -- composite objects ---------------------------------------------------
 
-    def _composite_crossings(self, comp: _Composite, p, d):
-        """Forward crossings [R, NC] (two columns per leaf, t0 then t1),
-        the local leaf of each column, and the origin inside bits."""
-        A, Bq, Cq = self._quads(np.asarray(comp.rows), p, d)
-        t0u, t1u, _, _, _ = self._roots(A, Bq, Cq)
-        cross = torch.stack([t0u, t1u], dim=-1).reshape(p.shape[0], -1)
+    def _member_stacks(self, members):
+        """Per-member parameters of a same-shape composite list, stacked
+        on a leading member axis (cached; _upload clears them): analytic
+        rows [G, n_an], rows map [G, Lc], per SDF slot (m [G,3,3],
+        m0 [G,3], prm [G]), envelopes (c [G,3], r [G]) when present."""
+        key = ("stacks",) + tuple(id(c) for c in members)
+        got = self._kernel_cache.get(key)
+        if got is not None:
+            return got
+        proto = members[0]
+        an = [li for li, r in enumerate(proto.rows) if r >= 0]
+        sdf = {}
+        for li, lf in enumerate(proto.sdf_leaves):
+            if lf is not None:
+                sdf[li] = (
+                    self._as(np.stack([c.sdf_leaves[li].m for c in members])),
+                    self._as(np.stack([c.sdf_leaves[li].m0
+                                       for c in members])),
+                    self._as([c.sdf_leaves[li].sdf_param for c in members]))
+        env = None
+        if proto.env_c is not None and proto.env_r > 0:
+            env = (self._as(np.stack([c.env_c for c in members])),
+                   self._as([c.env_r for c in members]))
+        got = dict(
+            an=an, arows=np.asarray([[c.rows[li] for li in an]
+                                     for c in members], np.int64),
+            rows=self._idx(np.asarray([c.rows for c in members])),
+            sdf=sdf, env=env)
+        self._kernel_cache[key] = got
+        return got
+
+    def _crossings(self, members, p, d, alive=None):
+        """Forward crossings [R, G, NC] of same-shape composites (two
+        columns per analytic leaf, t0 then t1, then SDF_CROSSINGS per SDF
+        leaf), the local leaf of each column, and the origin inside bits
+        [R, G, Lc] — each member gets the op sequence of the JAX tracer's
+        _solo_body_core.  `alive` [R, G] keeps dead lanes from marching."""
+        R, G = p.shape[0], len(members)
+        proto = members[0]
+        x = self._member_stacks(members)
+        cols, leaf_of_col = [], []
+        inside = [None] * len(proto.rows)
+        if x["an"]:
+            A, Bq, Cq = self._quads(x["arows"].reshape(-1), p, d)
+            t0u, t1u, _, _, _ = self._roots(A, Bq, Cq)
+            shp = (R, G, len(x["an"]))
+            t0u, t1u, Cq = t0u.reshape(shp), t1u.reshape(shp), Cq.reshape(shp)
+            for ai, li in enumerate(x["an"]):
+                cols += [t0u[..., ai], t1u[..., ai]]
+                leaf_of_col += [li, li]
+                inside[li] = Cq[..., ai] <= 0        # side(p) = C
+        pg, dg = p[:, None, :], d[:, None, :]
+        for li, (m, m0, prm) in x["sdf"].items():
+            lf = proto.sdf_leaves[li]
+            ts = self._sdf_crossings(lf.sdf_kind, lf.cycles, prm, m, m0,
+                                     pg, dg, alive)
+            cols += list(ts.unbind(-1))
+            leaf_of_col += [li] * SDF_CROSSINGS
+            inside[li] = _sdf_eval(lf.sdf_kind, prm, _affine(m, m0, pg)) <= 0
+        cross = torch.stack(cols, dim=-1)
         cross = torch.where(cross > 0, cross, INF)
-        leaf_of_col = np.repeat(np.arange(len(comp.rows)), 2)
-        return cross, leaf_of_col, Cq <= 0
+        return cross, np.asarray(leaf_of_col), torch.stack(inside, dim=-1)
+
+    def _composite_crossings(self, comp: _Composite, p, d):
+        """Forward crossings [R, NC], the local leaf of each column, and
+        the origin inside bits [R, Lc] of one composite."""
+        cross, leaf_of_col, inside = self._crossings([comp], p, d)
+        return cross[:, 0], leaf_of_col, inside[:, 0]
 
     def _walk(self, comp: _Composite, cross, leaf_of_col, inside):
         """Crossing-parity walk of ONE composite: the G=1 case of
@@ -753,6 +1058,54 @@ class Tracer:
         row = torch.gather(rows_b, 2, leaf_loc[..., None])[..., 0]
         return a, row
 
+    # -- shape clusters of solo composites (the SDF composites' parts) ------
+
+    def _solo_clusters(self):
+        """comp_solo partitioned into shape-identical clusters."""
+        return self._solo_cl
+
+    def _cluster_walk(self, cluster, p, d):
+        """Boundary of every member of a shape cluster, evaluated as one
+        batch dimension: (hit_t [R, G] raw, env-gated; leaf_loc [R, G])."""
+        x = self._member_stacks(cluster)
+        gate = None
+        if x["env"] is not None:
+            ec, er = x["env"]
+            gate, _, _ = self._env_interval(ec[None], er[None],
+                                            p[:, None, :], d[:, None, :])
+        cross, leaf_of_col, inside = self._crossings(cluster, p, d, gate)
+        hit_t, leaf_loc = self._group_walk(cluster[0].tree, cross,
+                                           leaf_of_col, inside)
+        if gate is not None:
+            hit_t = torch.where(gate, hit_t, INF)
+        return hit_t, leaf_loc
+
+    def _cluster_hit(self, cluster, p, d):
+        """Boundary hits of a shape cluster: (a [R, G] eps-backed, row
+        [R, G] global unified rows (-1 for SDF leaves), nor [R, G, 3] the
+        SDF winners' normals, zero elsewhere)."""
+        R = p.shape[0]
+        x = self._member_stacks(cluster)
+        hit_t, leaf_loc = self._cluster_walk(cluster, p, d)
+        rows_b = x["rows"][None].expand(R, *x["rows"].shape)
+        row = torch.gather(rows_b, 2, leaf_loc[..., None])[..., 0]
+        a = torch.where(torch.isfinite(hit_t), hit_t - self.eps, INF)
+        t_safe = torch.where(torch.isfinite(a), a, 0.0)
+        hx = p[:, None, :] + d[:, None, :] * t_safe[..., None]
+        nor = torch.zeros(hx.shape, dtype=self.tdtype, device=self.device)
+        for li, (m, m0, prm) in x["sdf"].items():
+            lf = cluster[0].sdf_leaves[li]
+            nl = self._sdf_normal(lf.sdf_kind, prm, m, lf.neg,
+                                  _affine(m, m0, hx))
+            nor = torch.where((leaf_loc == li)[..., None], nl, nor)
+        return a, row, nor
+
+    def _cluster_shadow(self, cluster, p, d, limit):
+        """Any member's boundary within (0, limit]: blocked [R]."""
+        hit_t, _ = self._cluster_walk(cluster, p, d)
+        b = torch.isfinite(hit_t) & (hit_t - self.eps <= limit[:, None])
+        return torch.any(b, dim=1)
+
     # -- core query ------------------------------------------------------
 
     def _single_chunks(self, matter_only, R=None):
@@ -786,33 +1139,64 @@ class Tracer:
         R = p.shape[0]
         kw = 2 if want2 else 1
 
-        # 1. single-leaf objects: chunked running top-k merge
-        best_t = torch.full((R, kw), INF, dtype=dt, device=dev)
-        best_row = torch.zeros((R, kw), dtype=torch.int64, device=dev)
-        for rows in self._single_chunks(matter_only, R):
-            a = self._chunk_candidates(rows, p, d)
-            if lane_matter is not None and self.tab.is_light[rows].any():
-                lmask = torch.as_tensor(self.tab.is_light[rows], device=dev)
-                a = torch.where(lane_matter[:, None] & lmask[None, :],
-                                INF, a)
-            if want2:
-                tkc, ikc = _top2_cols(a)
+        cols_t, cols_row = [], []
+        oid_special = []  # (col, oid: int or [R]) for SDF-surface winners
+        nor_ovr = []      # (col, [R,3]) explicit normals (SDF surfaces)
+        stf = None
+        if self._scene_route_ok() and self._prefer_scene_query():
+            stf, _ = self._scene_tables()
+            if not stf.shapes:
+                stf = None
+        if stf is not None:
+            # 0. the packed scene kernel (K4): ONE launch carries the
+            # singles, standalone SDFs, solo clusters and analytic groups
+            # as a global top-2; only the leftovers below stay plain
+            from actinon_tpu_torch.render import scene_kernels
+            if matter_only:
+                lmf = torch.ones((R,), dtype=dt, device=dev)
+            elif lane_matter is not None:
+                lmf = lane_matter.to(dt)
             else:
-                tkc, ikc = torch.min(a, dim=1, keepdim=True)
-            rkc = self._idx(rows)[ikc]
-            cand_t = torch.cat([best_t, tkc], dim=1)
-            cand_r = torch.cat([best_row, rkc], dim=1)
-            if want2:
-                best_t, sel = _top2_cols(cand_t)
-            else:
-                best_t, sel = torch.min(cand_t, dim=1, keepdim=True)
-            best_row = torch.gather(cand_r, 1, sel)
+                lmf = torch.zeros((R,), dtype=dt, device=dev)
+            t12k, c12k = scene_kernels.scene_top2(self, p.contiguous(),
+                                                  d.contiguous(), lmf)
+            rowk, oidk, nork = self._decode_scene(stf, t12k, c12k, p, d)
+            for j in (0, 1):
+                k = len(cols_t)
+                cols_t.append(t12k[:, j])
+                cols_row.append(rowk[:, j])
+                oid_special.append((k, oidk[:, j]))
+                nor_ovr.append((k, nork[:, j]))
+        else:
+            # 1. single-leaf objects: chunked running top-k merge
+            best_t = torch.full((R, kw), INF, dtype=dt, device=dev)
+            best_row = torch.zeros((R, kw), dtype=torch.int64, device=dev)
+            for rows in self._single_chunks(matter_only, R):
+                a = self._chunk_candidates(rows, p, d)
+                if lane_matter is not None \
+                        and self.tab.is_light[rows].any():
+                    lmask = torch.as_tensor(self.tab.is_light[rows],
+                                            device=dev)
+                    a = torch.where(lane_matter[:, None] & lmask[None, :],
+                                    INF, a)
+                if want2:
+                    tkc, ikc = _top2_cols(a)
+                else:
+                    tkc, ikc = torch.min(a, dim=1, keepdim=True)
+                rkc = self._idx(rows)[ikc]
+                cand_t = torch.cat([best_t, tkc], dim=1)
+                cand_r = torch.cat([best_row, rkc], dim=1)
+                if want2:
+                    best_t, sel = _top2_cols(cand_t)
+                else:
+                    best_t, sel = torch.min(cand_t, dim=1, keepdim=True)
+                best_row = torch.gather(cand_r, 1, sel)
+            # 2. final candidate columns: the kw single winners, then one
+            # column per composite and per standalone SDF object
+            cols_t += [best_t[:, i] for i in range(kw)]
+            cols_row += [best_row[:, i] for i in range(kw)]
 
-        # 2. final candidate columns: the kw single winners + one column
-        # per composite
-        cols_t = [best_t[:, i] for i in range(kw)]
-        cols_row = [best_row[:, i] for i in range(kw)]
-        for members in self.comp_groups:
+        for members in (stf.rest_groups if stf else self.comp_groups):
             mf = [c for c in members if not (matter_only and c.is_light)]
             if not mf:
                 continue
@@ -823,6 +1207,47 @@ class Tracer:
                     a = torch.where(lane_matter, INF, a)
                 cols_t.append(a)
                 cols_row.append(row_g[:, gi])
+
+        # solo composites: each cluster evaluates as one batch, and the
+        # columns are keyed back to the members so that they stay in
+        # comp_solo order (argmin ties between coincident surfaces depend
+        # on the column order)
+        solo = {}
+        for cluster in self._solo_clusters():
+            if stf and id(cluster[0]) in stf.covered_solo_ids:
+                continue
+            if matter_only and cluster[0].is_light:
+                continue
+            a_g, row_g, nor_g = self._cluster_hit(cluster, p, d)
+            for gi, comp in enumerate(cluster):
+                solo[id(comp)] = (a_g[:, gi], row_g[:, gi], nor_g[:, gi])
+        for comp in self.comp_solo:
+            got = solo.get(id(comp))
+            if got is None:
+                continue
+            a, row, nor = got
+            if lane_matter is not None and comp.is_light:
+                a = torch.where(lane_matter, INF, a)
+            k = len(cols_t)
+            cols_t.append(a)
+            cols_row.append(row)
+            oid_special.append((k, comp.oid))
+            nor_ovr.append((k, nor))
+
+        for si, (lf, oid, env_c, env_r, light) in enumerate(self.sdf_singles):
+            if stf and si in stf.covered_sdf_idx:
+                continue
+            if matter_only and light:
+                continue
+            a, nor = self._hit_sdf_leaf(lf, env_c, env_r, p, d)
+            if lane_matter is not None and light:
+                a = torch.where(lane_matter, INF, a)
+            k = len(cols_t)
+            cols_t.append(a)
+            cols_row.append(torch.full((R,), -1, dtype=torch.int64,
+                                       device=dev))
+            oid_special.append((k, oid))
+            nor_ovr.append((k, nor))
 
         T = torch.stack(cols_t, dim=1)                 # [R, K]
         ROWS = torch.stack(cols_row, dim=1)
@@ -849,6 +1274,14 @@ class Tracer:
         else:
             nor = torch.zeros((R, kw, 3), dtype=dt, device=dev)
             oid12 = torch.zeros((R, kw), dtype=torch.int64, device=dev)
+        sdf_win = row12 == -1
+        for k, oc in oid_special:
+            # oc: a python int, or [R] (the scene kernel's winners)
+            ocb = oc if isinstance(oc, int) else oc[:, None].to(oid12.dtype)
+            oid12 = torch.where((sel == k) & sdf_win, ocb, oid12)
+        for k, n_ovr in nor_ovr:
+            use = ((sel == k) & sdf_win)[..., None]
+            nor = torch.where(use, n_ovr[:, None, :], nor)
 
         sign = torch.where(_dot(nor, d[:, None, :]) > 0, 1.0, -1.0).to(dt)
         fin = torch.isfinite(t12)
@@ -933,7 +1366,7 @@ class Tracer:
             (t12[:, 0], nor[:, 0, :], oid[:, 0], sign[:, 0],
              t12[:, 1], nor[:, 1, :], oid[:, 1], sign[:, 1]))
 
-    # -- shadow queries ------------------------------------------------------
+    # -- kernel routing ------------------------------------------------------
 
     def _kernel_device_ok(self):
         """The hand-written kernels run on this tracer: a CUDA device, f32,
@@ -948,29 +1381,122 @@ class Tracer:
         return self._kernel_device_ok() and len(self.tab) <= \
             MAX_KERNEL_LEAVES
 
+    def _scene_route_ok(self):
+        """The packed scene kernels apply (the JAX tracer's `_scene_ok`):
+        the kernel device rules, or a CPU f32 tracer that a test sends
+        down the kernel route (`scene_kernels_on_cpu`)."""
+        return self._kernel_device_ok() or (
+            self.scene_kernels_on_cpu and self.use_kernels
+            and self.dtype == np.float32)
+
+    def _prefer_scene_shadow(self):
+        """Scenes with SDF composites or standalone matter SDFs shadow
+        through the scene kernel (K5); pure analytic small scenes keep the
+        shadow kernel (K2)."""
+        return bool(self.comp_solo) \
+            or any(not light for *_, light in self.sdf_singles)
+
+    def _prefer_scene_query(self):
+        """The scene kernel (K4) carries the nearest/transition query for
+        march-bound scenes (SDF composites, standalone SDFs) and large
+        member populations; small all-analytic scenes keep the plain
+        query.  The big-scene sphere kernels (K6, K7) are not ported yet,
+        so large sphere populations ride K4's singles shape."""
+        if self.comp_solo or self.sdf_singles:
+            return True
+        n_members = len(self.single_rows) \
+            + sum(len(g) for g in self.comp_groups)
+        return n_members > MAX_SCENE_MEMBERS
+
+    def _scene_tables(self):
+        """(full table, matter-only table) of the scene kernels (cached;
+        set_geom rebuilds them)."""
+        got = self._kernel_cache.get("scene_tables")
+        if got is None:
+            from actinon_tpu_torch.render import scene_kernels
+            got = (scene_kernels.SceneTable(self, matter_only=False),
+                   scene_kernels.SceneTable(self, matter_only=True))
+            self._kernel_cache["scene_tables"] = got
+        return got
+
+    def _decode_scene(self, st, t12, c12, p, d):
+        """Decode the scene kernel's packed (shape << 24 | member << 8 |
+        leaf) winner codes [R, 2] into unified rows, object ids and SDF
+        winner normals."""
+        fin = torch.isfinite(t12)
+        code = torch.where(fin, c12, -1).to(torch.int64)
+        shp = code >> 24
+        member = (code >> 8) & 0xFFFF
+        leaf = code & 0xFF
+        rows = torch.full(code.shape, -1, dtype=torch.int64,
+                          device=self.device)
+        oid = torch.full(code.shape, -1, dtype=torch.int64,
+                         device=self.device)
+        nor = torch.zeros(code.shape + (3,), dtype=self.tdtype,
+                          device=self.device)
+        t_safe = torch.where(fin, t12, 0.0)
+        x = p[:, None, :] + d[:, None, :] * t_safe[..., None]
+        for sh in st.shapes:
+            dev = st.device_arrays(sh)
+            m = (shp == sh.shape_id) & (code >= 0)
+            midx = torch.clamp(member, 0, len(sh.oid) - 1)
+            idxf = torch.clamp(member * sh.Lc + leaf, 0,
+                               len(sh.rows_flat) - 1)
+            rows = torch.where(m, dev["rows_flat"][idxf], rows)
+            oid = torch.where(m, dev["oid"][midx], oid)
+            for (li, kind, _cycles, neg) in sh.sdf_slots:
+                mm, mm0, prm = (a[midx] for a in dev["sdf"][li])
+                # per-ray frames: the JAX tracer's _sdf_normal_dyn
+                nli = self._sdf_normal(kind, prm, mm, neg,
+                                       _affine(mm, mm0, x))
+                nor = torch.where((m & (leaf == li))[..., None], nli, nor)
+        return rows, oid, nor
+
+    # -- shadow queries ------------------------------------------------------
+
     def shadow_blocked(self, p, d, limit):
         """True where ANY matter hit lies within (.., limit] — the NEE
         shadow test `compound_s_ray_hit(matter) > a` (reference
         src/scene.c:571) as an any-hit reduction.  On a CUDA device the
-        kernel-covered scene subset runs as one hand-written kernel;
-        composites too large for it stay on the plain walk."""
+        kernel-covered scene subset runs as one hand-written kernel (K5
+        for SDF scenes, K2 for small analytic ones); what a kernel leaves
+        out stays on the plain walks."""
         dt = self.tdtype
         p = p.to(dt)
         d = d.to(dt)
         limit = limit.to(dt)
+        R = p.shape[0]
+        if self._scene_route_ok() and self._prefer_scene_shadow():
+            from actinon_tpu_torch.render import scene_kernels
+            _, stm = self._scene_tables()
+            blocked = (scene_kernels.scene_anyhit(
+                self, p.contiguous(), d.contiguous(), limit.contiguous())
+                if stm.shapes else
+                torch.zeros((R,), dtype=torch.bool, device=self.device))
+            for mf in stm.rest_groups:
+                a_g, _ = self._group_hit(mf, p, d)
+                blocked = blocked | torch.any(a_g <= limit[:, None], dim=1)
+            for cluster in _shape_clusters(stm.rest_solos):
+                blocked = blocked | self._cluster_shadow(cluster, p, d,
+                                                         limit)
+            return blocked
         if self._kernels_ok():
             from actinon_tpu_torch.render import kernels
             blocked = kernels.shadow_any_hit(self, p, d, limit)
             for comp in kernels.coverage(self).rest:
                 blocked = blocked | self._shadow_composite(comp, p, d,
                                                            limit)
+            for lf, _oid, env_c, env_r, light in self.sdf_singles:
+                if not light:
+                    a, _ = self._hit_sdf_leaf(lf, env_c, env_r, p, d)
+                    blocked = blocked | (a <= limit)
             return blocked
         return self._shadow_plain(p, d, limit)
 
     def _shadow_plain(self, p, d, limit, exclude_oids=frozenset()):
         """The plain any-hit over all matter except the objects in
-        `exclude_oids`: chunked singles and grouped composite walks
-        (JAX tracer.py:2226-2258)."""
+        `exclude_oids`: chunked singles, grouped composite walks, solo
+        clusters and standalone SDF marches (JAX tracer.py:2226-2258)."""
         R = p.shape[0]
         blocked = torch.zeros((R,), dtype=torch.bool, device=self.device)
         for rows in self._single_chunks(True, R):
@@ -986,6 +1512,16 @@ class Tracer:
                 continue
             a_g, _ = self._group_hit(mf, p, d)
             blocked = blocked | torch.any(a_g <= limit[:, None], dim=1)
+        for cluster in self._solo_clusters():
+            mf = [c for c in cluster
+                  if not c.is_light and c.oid not in exclude_oids]
+            if mf:
+                blocked = blocked | self._cluster_shadow(mf, p, d, limit)
+        for lf, oid, env_c, env_r, light in self.sdf_singles:
+            if light or oid in exclude_oids:
+                continue
+            a, _ = self._hit_sdf_leaf(lf, env_c, env_r, p, d)
+            blocked = blocked | (a <= limit)
         return blocked
 
     def object_hit_t(self, oid: int, p, d):
@@ -993,7 +1529,7 @@ class Tracer:
         the true-geometry light intersection for NEE
         (obj_ray_hit(light_src, ...), reference src/scene.c:564).  On a
         CUDA device an analytic object within the kernel's size runs as
-        the hand-written object-hit kernel."""
+        the hand-written object-hit kernel (K3); SDF objects march."""
         dt = self.tdtype
         p = p.to(dt)
         d = d.to(dt)
@@ -1011,5 +1547,9 @@ class Tracer:
         for comp in self.composites:
             if comp.oid == oid:
                 a, _, _ = self._hit_composite(comp, p, d)
+                return a
+        for lf, o, env_c, env_r, _light in self.sdf_singles:
+            if o == oid:
+                a, _ = self._hit_sdf_leaf(lf, env_c, env_r, p, d)
                 return a
         raise ValueError(f"object {oid} not found")

@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port on one card and check what comes out.
 
     python3 chip_smoke.py            # every phase, on the first card
-    python3 chip_smoke.py --profile  # where the headline render's time goes
+    python3 chip_smoke.py --profile  # where the renders' time goes
 
 Phases, each printing one line of numbers:
 
@@ -23,8 +23,22 @@ Phases, each printing one line of numbers:
                object-hit kernels launched, and the image mean agrees with
                the same render with the kernels switched off, and with the
                port's plain render on the CPU at a small size;
-  7. wine_glass — the corpus scene at the headline shape, when the
+  7. lamp_row render — the composite-heavy smoke scene lamp_row.acn at
+               bench.py's hanging_lamp shape (160x120, direct=6, path=0,
+               depth=25, batch 1<<15), twice: equal fold hashes, and the
+               scene kernels K4 and K5 launched;
+  8. scene kernels — K4 and K5 against their plain versions on the inputs
+               of the lamp_row render's largest calls (the drain batch for
+               K4, one NEE chunk of flattened shadow rays for K5), with
+               device time, plain time and the bound;
+  9. counter-mode lamp_row — the image mean with the kernels and without
+               them agrees within 5e-3, and the card's render agrees with
+               the port's plain render on the CPU;
+ 10. wine_glass — the corpus scene at the headline shape, when the
                directory named by $ACTINON_CORPUS holds wine_glass.acn.
+
+The glass_table phases hold slice 1 still: the headline hash repeats
+GLASS_HASH, and no scene kernel launches there.
 
 Any failure exits non-zero.  The line before the last is one JSON object
 with every kernel's numbers; the last line is
@@ -42,10 +56,14 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "actinon_tpu_torch", "_build", "smoke")
 SCENE = os.path.join(HERE, "actinon_tpu_torch", "scenes", "glass_table.acn")
+LAMP = os.path.join(HERE, "actinon_tpu_torch", "scenes", "lamp_row.acn")
 CORPUS = os.environ.get("ACTINON_CORPUS", "")   # the .acn corpus directory
 
 HEADLINE = (200, 150, 10, 0, 25)   # bench.py:80 (w, h, direct, path, depth)
 SHIPPED = (80, 60, 200, 500, 25)  # bench.py:90 TRUE_CFG, not cut
+LAMP_SHAPE = (160, 120, 6, 0, 25)  # bench.py:84 hanging_lamp, not cut
+LAMP_COUNTER = (16, 12)            # counter-mode A/B size of lamp_row
+GLASS_HASH = 7572424404618532405   # glass_table headline hash on the H100
 
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): FP32 outside the tensor
 # cores, and HBM bandwidth
@@ -63,6 +81,17 @@ OPS_SAMPLE = 71        # RNG conversion, cap sample, frame and w of a sample
 OPS_EST = 24           # the estimator term of a sample that reaches the light
 OPS_ON = 35            # Oren-Nayar weighting of a sample
 OPS_LIGHT = 60         # per-light cone and frame setup of a lane
+
+# ... and per unit of work of the scene kernels (csrc/scene_kernels.cu),
+# counted by their plain versions on this run's inputs (scene_kernels._Work)
+OPS_CULL = 19          # a block-bound test (the limit-aware one: 23)
+OPS_GATE = 30          # a member's envelope interval and alive test, and
+                       # its compare against the block's best two
+OPS_SDF = 53           # an SDF slot's local frame and march set-up
+OPS_STEP = 30          # one march step (a torus: 17 for its distance)
+OPS_CMP = 1            # one comparator of the sort network
+OPS_SWEEP = 2          # one finite crossing of the toggle sweep
+OPS_MERGE = 8          # the top-2 merge of one block into a ray's pair
 
 
 def fail(msg):
@@ -228,6 +257,16 @@ def nee_ops(integ, pos, sd, di, on_b, rv, ns):
         ops += int(hit.sum()) * OPS_EST
         ops += int((ob[up][hit] > 0).sum()) * OPS_ON
     return ops
+
+
+def scene_ops(work, anyhit):
+    """FP32 operations of K4 or K5 from the plain version's work counts;
+    an analytic slot costs a leaf's roots (OPS_LEAF)."""
+    cull = OPS_CULL + (4 if anyhit else 0)
+    return (work.culls * cull + work.gates * OPS_GATE
+            + work.analytic * OPS_LEAF + work.sdf_setups * OPS_SDF
+            + work.steps * OPS_STEP + work.comparators * OPS_CMP
+            + work.sweeps * OPS_SWEEP + work.merges * OPS_MERGE)
 
 
 def bound(n_bytes, n_ops):
@@ -458,7 +497,8 @@ def counter_render(sc, batch, use_kernels, device="cuda"):
 def phase_counter(w, h):
     sc = load_scene(SCENE, w, h, *HEADLINE[2:])
     acc_k, s_k, launches, integ = counter_render(sc, 1 << 15, True)
-    if launches["shadow"] <= 0 or launches["object_hit"] <= 0:
+    if launches["shadow"] <= 0 or launches["object_hit"] <= 0 \
+            or launches["scene_top2"] or launches["scene_anyhit"]:
         fail(f"counter-mode render launched {launches}")
     acc_p, s_p, off, _ = counter_render(sc, 1 << 15, False)
     if any(off.values()):
@@ -484,12 +524,136 @@ def phase_counter(w, h):
     return launches
 
 
+def phase_lamp():
+    """The lamp_row render at the hanging_lamp shape, twice.  The inputs of
+    the largest K4 and K5 calls of the first run are kept (cloned once)
+    for the kernel phase: the shapes and rays the main path gives them."""
+    from actinon_tpu_torch.render import scene_kernels as sk
+    cap = {}
+    orig = {n: getattr(sk, n) for n in ("scene_top2", "scene_anyhit")}
+
+    def spy(name):
+        def call(tr, p, d, x):
+            if name not in cap or p.shape[0] > cap[name][1].shape[0]:
+                cap[name] = (tr, p.clone(), d.clone(), x.clone())
+            return orig[name](tr, p, d, x)
+        return call
+
+    for name in orig:
+        setattr(sk, name, spy(name))
+    try:
+        runs = render("lamp_row", load_scene(LAMP, *LAMP_SHAPE), 1 << 15,
+                      reps=2)
+    finally:
+        for name, fn in orig.items():
+            setattr(sk, name, fn)
+    launches = runs[-1]["launches"]
+    if launches["scene_top2"] <= 0 or launches["scene_anyhit"] <= 0:
+        fail(f"lamp_row render launched {launches}")
+    return runs, cap
+
+
+def phase_scene_kernels(cap):
+    """K4 and K5 against their plain versions on the lamp_row render's
+    inputs.  The plain versions also count the work the bound charges."""
+    import torch
+    from actinon_tpu_torch.render import scene_kernels as sk
+    out = {}
+
+    tr, p, d, lm = cap["scene_top2"]
+    st, stm = tr._scene_tables()
+    n = p.shape[0]
+    got_t, got_c = sk.scene_top2(tr, p, d, lm)
+    torch.cuda.synchronize()
+    work = sk._Work()
+    want_t, want_c = sk.scene_top2_plain(st, p, d, lm, work=work)
+    fin_g, fin_w = torch.isfinite(got_t), torch.isfinite(want_t)
+    fin_agree = float((fin_g == fin_w).float().mean())
+    both = fin_g & fin_w
+    code_agree = float((got_c[both] == want_c[both]).float().mean())
+    # t where the winners agree: a different winner is a near-tie
+    same = both & (got_c == want_c)
+    err = torch.abs(got_t[same] - want_t[same])
+    max_err = float(err.max()) if same.any() else 0.0
+    t_ok = bool((err <= 2e-4 + 2e-4 * torch.abs(want_t[same])).all())
+    if not (fin_agree >= 0.998 and code_agree >= 0.99 and t_ok):
+        fail(f"scene top-2 kernel: finite agreement {fin_agree}, codes "
+             f"{code_agree}, t within 2e-4: {t_ok}")
+    ms = kernel_ms(lambda: sk.scene_top2(tr, p, d, lm))
+    plain_ms = cuda_ms(lambda: sk.scene_top2_plain(st, p, d, lm), reps=1,
+                       warm=0)
+    tables = st.table.nbytes + st.bounds.nbytes + 4 * st.desc_t.numel()
+    b_ms, b_by = bound(n * (7 * 4 + 2 * 8) + tables,
+                       scene_ops(work, anyhit=False))
+    say("kernel scene_top2", n=n, hits=int(fin_w[:, 0].sum()),
+        finite_agree=f"{fin_agree:.6f}", codes_agree=f"{code_agree:.6f}",
+        max_abs_err=f"{max_err:.3e}", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.5f}", bound_by=b_by,
+        steps=work.steps, sweeps=work.sweeps)
+    out["scene_top2"] = dict(
+        name="scene_top2", route="cuda",
+        source="actinon_tpu_torch/csrc/scene_kernels.cu",
+        replaces="actinon_tpu/render/pallas_scene.py:831",
+        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, agree=code_agree, n=n)
+
+    tr, p, d, lim = cap["scene_anyhit"]
+    n = p.shape[0]
+    got = sk.scene_anyhit(tr, p, d, lim)
+    torch.cuda.synchronize()
+    work = sk._Work()
+    want = sk.scene_anyhit_plain(stm, p, d, lim, work=work)
+    agree = float((got == want).float().mean())
+    if not agree >= 0.998:
+        fail(f"scene any-hit kernel agreement {agree}")
+    ms = kernel_ms(lambda: sk.scene_anyhit(tr, p, d, lim))
+    plain_ms = cuda_ms(lambda: sk.scene_anyhit_plain(stm, p, d, lim),
+                       reps=1, warm=0)
+    tables = stm.table.nbytes + stm.bounds.nbytes + 4 * stm.desc_t.numel()
+    b_ms, b_by = bound(n * (7 * 4 + 1) + tables, scene_ops(work, True))
+    say("kernel scene_anyhit", n=n, blocked=int(want.sum()),
+        agree=f"{agree:.6f}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{b_ms:.5f}", bound_by=b_by, steps=work.steps)
+    out["scene_anyhit"] = dict(
+        name="scene_anyhit", route="cuda",
+        source="actinon_tpu_torch/csrc/scene_kernels.cu",
+        replaces="actinon_tpu/render/pallas_scene.py:892",
+        max_abs_err=float((got != want).float().max()), ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        agree=agree, n=n)
+    return out
+
+
+def phase_lamp_counter(w, h):
+    """Counter-mode lamp_row: kernels against no kernels on the card, and
+    the card against the port's plain render on the CPU."""
+    sc = load_scene(LAMP, w, h, *LAMP_SHAPE[2:])
+    acc_k, s_k, launches, _ = counter_render(sc, 1 << 15, True)
+    if launches["scene_top2"] <= 0 or launches["scene_anyhit"] <= 0:
+        fail(f"counter-mode lamp_row launched {launches}")
+    acc_p, s_p, off, _ = counter_render(sc, 1 << 15, False)
+    if any(off.values()):
+        fail(f"kernels switched off but launched: {off}")
+    acc_c, s_c, _, _ = counter_render(sc, 1 << 12, True, device="cpu")
+    m_k, m_p, m_c = (float(a.mean()) for a in (acc_k, acc_p, acc_c))
+    rel = abs(m_k - m_p) / max(abs(m_p), 1e-12)
+    rel_c = abs(m_k - m_c) / max(abs(m_c), 1e-12)
+    if not (np.isfinite(acc_k).all() and rel <= 5e-3 and rel_c <= 5e-3):
+        fail(f"counter-mode lamp_row: kernels {m_k}, plain {m_p} (rel "
+             f"{rel}), CPU {m_c} (rel {rel_c})")
+    say("render lamp_row counter", size=f"{w}x{h}", kernel_s=f"{s_k:.3f}",
+        plain_s=f"{s_p:.3f}", cpu_s=f"{s_c:.3f}", mean_kernels=f"{m_k:.6f}",
+        mean_plain=f"{m_p:.6f}", mean_cpu=f"{m_c:.6f}", rel=f"{rel:.2e}",
+        rel_cpu=f"{rel_c:.2e}",
+        launches=json.dumps(launches, separators=(",", ":")))
+
+
 def phase_profile():
     """Under torch.profiler: phase 3 again, with each kernel's device time
-    per launch beside its CUDA-graph time; then the headline render's
-    device time by kernel and the device's busy share of the wall time
-    (the profiler itself adds host time, so the share is a lower
-    bound)."""
+    per launch beside its CUDA-graph time; then the headline and the
+    lamp_row renders' device time by kernel and the device's busy share of
+    the wall time (the profiler itself adds host time, so the share is a
+    lower bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -506,21 +670,22 @@ def phase_profile():
         say(f"profile kernel {name}", launches=launches,
             device_ms_per_launch=f"{per_launch:.4f}",
             graph_ms_under_profiler=f"{ks[name]['ms']:.4f}")
-    sc = load_scene(SCENE, *HEADLINE)
-    render("profile_warmup", sc, 1 << 15)
-    with profile(activities=acts) as prof:
-        t0 = time.time()
-        render("profile", sc, 1 << 15)
-        wall = time.time() - t0
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy = sum(dev(e) for e in kern) / 1e6
-    say("profile", wall_s=f"{wall:.3f}", device_busy_s=f"{busy:.4f}",
-        busy_share=f"{busy / wall:.4f}", kernel_names=len(kern),
-        launches=sum(e.count for e in kern))
-    for e in sorted(kern, key=dev, reverse=True)[:12]:
-        print(f"  device_ms={dev(e) / 1e3:.3f} calls={e.count} "
-              f"name={e.key[:90]!r}", flush=True)
+    for tag, sc in (("headline", load_scene(SCENE, *HEADLINE)),
+                    ("lamp_row", load_scene(LAMP, *LAMP_SHAPE))):
+        render(f"profile_warmup_{tag}", sc, 1 << 15)
+        with profile(activities=acts) as prof:
+            t0 = time.time()
+            render(f"profile_{tag}", sc, 1 << 15)
+            wall = time.time() - t0
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(dev(e) for e in kern) / 1e6
+        say(f"profile {tag}", wall_s=f"{wall:.3f}",
+            device_busy_s=f"{busy:.4f}", busy_share=f"{busy / wall:.4f}",
+            kernel_names=len(kern), launches=sum(e.count for e in kern))
+        for e in sorted(kern, key=dev, reverse=True)[:12]:
+            print(f"  device_ms={dev(e) / 1e3:.3f} calls={e.count} "
+                  f"name={e.key[:90]!r}", flush=True)
 
 
 def main(argv):
@@ -540,7 +705,7 @@ def main(argv):
         return 2
 
     t_all = time.time()
-    name, _ = phase_card()
+    kind, _ = phase_card()
     phase_build()
     if "--profile" in argv:
         phase_profile()
@@ -548,9 +713,19 @@ def main(argv):
     ks = phase_kernels(1 << 15)
 
     runs = render("headline", load_scene(SCENE, *HEADLINE), 1 << 15, reps=2)
-    ks["nee"]["launches"] = runs[-1]["launches"]["nee"]
+    hl = runs[-1]["launches"]
+    ks["nee"]["launches"] = hl["nee"]
+    if int(runs[-1]["hash"]) != GLASS_HASH or hl["scene_top2"] \
+            or hl["scene_anyhit"]:
+        fail(f"slice 1 moved: headline hash {runs[-1]['hash']} (want "
+             f"{GLASS_HASH}), launches {hl}")
     render("shipped", load_scene(SCENE, *SHIPPED), 1 << 14)
     cl = phase_counter(64, 48)
+    lamp_runs, cap = phase_lamp()
+    ks.update(phase_scene_kernels(cap))
+    for k in ("scene_top2", "scene_anyhit"):
+        ks[k]["launches"] = lamp_runs[-1]["launches"][k]
+    phase_lamp_counter(*LAMP_COUNTER)
     wine = os.path.join(CORPUS, "wine_glass.acn")
     if CORPUS and os.path.exists(wine):
         render("wine_glass", load_scene(wine, *HEADLINE), 1 << 15)
@@ -566,9 +741,10 @@ def main(argv):
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: ks[n][k] for k in keys} for n in (
-        "nee", "shadow_any_hit", "object_hit")]}), flush=True)
+        "nee", "shadow_any_hit", "object_hit", "scene_top2",
+        "scene_anyhit")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

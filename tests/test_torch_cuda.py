@@ -5,10 +5,12 @@ the card's machine:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 (`--noconftest` because tests/conftest.py sets up JAX.)  Each kernel is
-held to the contracts of tests/test_pallas.py against its plain PyTorch
-version on the same CUDA tensors: shadow booleans agree on >= 99.8 % of
-rays, object hits agree in finiteness on >= 99.8 % and in t within
-1e-3 (1 + t), NEE radiance is within rel 1e-2 on >= 99 % of lanes."""
+held to the contracts of tests/test_pallas.py and
+tests/test_pallas_scene.py against its plain PyTorch version on the same
+CUDA tensors: shadow booleans agree on >= 99.8 % of rays, object hits
+agree in finiteness on >= 99.8 % and in t within 1e-3 (1 + t), NEE
+radiance is within rel 1e-2 on >= 99 % of lanes; the scene kernels as
+stated above their tests."""
 
 import os
 
@@ -155,3 +157,128 @@ def test_render_on_card_is_deterministic(integ, tmp_path):
         assert kernels.LAUNCHES["nee"] > 0
         hashes.append(stats["hash"])
     assert hashes[0] == hashes[1]
+
+
+# -- K4 and K5, the packed scene kernels ------------------------------------
+#
+# Contracts of tests/test_pallas_scene.py against the plain versions on
+# the same CUDA tensors: finiteness equal on >= 99.8 % of rays, winner
+# codes equal on >= 99 % of the finite lanes, t within rtol/atol 2e-4
+# where the codes agree, any-hit booleans equal on >= 99.8 % of rays.
+
+
+def _scene_tracer(name):
+    from actinon_tpu_torch.render.tracer import Tracer
+    from actinon_tpu_torch.scene import ir as sir
+    from actinon_tpu_torch.scene import objects as ho
+    import _torch_scenes as S
+    if name == "mixed":
+        sc = S.mixed_scene(ho)
+    else:
+        from actinon_tpu_torch.acn.interp import run_file
+        cap = []
+        run_file(S.LAMP_ROW, render_fn=lambda s, fn: cap.append(s.clone()),
+                 args=["-f"])
+        sc = cap[0]
+    return Tracer(sir.compile_scene(sc), dtype=np.float32, device="cuda")
+
+
+@pytest.fixture(scope="module", params=["mixed", "lamp_row"])
+def scene_tr(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return _scene_tracer(request.param)
+
+
+def _scene_rays(n, seed):
+    """Random rays through the scene's box, half of them aimed at points
+    near the scene's centre so that they meet the composites."""
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(-7, 7, (n, 3)).astype(np.float32)
+    p[:, 2] = rng.uniform(0.1, 6, n)
+    aim = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    aim[:, 2] = rng.uniform(0, 4, n)
+    d = rng.normal(0, 1, (n, 3)).astype(np.float32)
+    d[: n // 2] = aim[: n // 2] - p[: n // 2]
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    lim = rng.uniform(0.1, 12.0, n).astype(np.float32)
+    lim[::7] = np.inf
+    lm = (rng.uniform(0, 1, n) < 0.5).astype(np.float32)
+    return (torch.as_tensor(x, device="cuda") for x in (p, d, lim, lm))
+
+
+def test_scene_top2_kernel_matches_plain(scene_tr):
+    from actinon_tpu_torch.render import kernels, scene_kernels
+    tr = scene_tr
+    st, _ = tr._scene_tables()
+    p, d, _, lm = _scene_rays(8192, 21)
+    before = kernels.LAUNCHES["scene_top2"]
+    t_k, c_k = scene_kernels.scene_top2(tr, p, d, lm)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["scene_top2"] == before + 1
+    t_p, c_p = scene_kernels.scene_top2_plain(st, p, d, lm)
+    fin_k, fin_p = torch.isfinite(t_k), torch.isfinite(t_p)
+    assert float(fin_p[:, 0].float().mean()) > 0.2
+    assert float((fin_k == fin_p).float().mean()) >= 0.998
+    both = fin_k & fin_p
+    assert float((c_k[both] == c_p[both]).float().mean()) >= 0.99
+    # t where the winners agree (a different winner is a near-tie)
+    same = both & (c_k == c_p)
+    assert bool((torch.abs(t_k[same] - t_p[same])
+                 <= 2e-4 + 2e-4 * torch.abs(t_p[same])).all())
+    assert bool((c_k[~fin_k] == -1).all())
+
+
+def test_scene_anyhit_kernel_matches_plain(scene_tr):
+    from actinon_tpu_torch.render import kernels, scene_kernels
+    tr = scene_tr
+    _, stm = tr._scene_tables()
+    p, d, lim, _ = _scene_rays(8192, 22)
+    before = kernels.LAUNCHES["scene_anyhit"]
+    got = scene_kernels.scene_anyhit(tr, p, d, lim)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["scene_anyhit"] == before + 1
+    want = scene_kernels.scene_anyhit_plain(stm, p, d, lim)
+    assert want.any() and (~want).any()
+    assert float((got == want).float().mean()) >= 0.998
+
+
+def test_sdf_render_on_card_launches_scene_kernels(tmp_path):
+    """A small lamp_row render on the card goes through K4 and K5 and
+    repeats its fold hash."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from actinon_tpu_torch.acn.interp import run_file
+    from actinon_tpu_torch.render import kernels
+    from actinon_tpu_torch.render.driver import render_scene
+    import _torch_scenes as S
+    cap = []
+    run_file(S.LAMP_ROW, render_fn=lambda s, fn: cap.append(s.clone()),
+             args=["-f"])
+    sc = cap[0]
+    sc.cfg.image_width, sc.cfg.image_height = 32, 24
+    sc.cfg.direct_samples = 2
+    hashes = []
+    for k in range(2):
+        stats = {}
+        kernels.reset_launches()
+        img = render_scene(sc.clone(), str(tmp_path / f"{k}.pnm"),
+                           force=True, verbose=False, batch=1 << 12,
+                           device="cuda", stats=stats)
+        assert np.isfinite(img).all()
+        assert kernels.LAUNCHES["scene_top2"] > 0
+        assert kernels.LAUNCHES["scene_anyhit"] > 0
+        assert kernels.LAUNCHES["nee"] == 0
+        hashes.append(stats["hash"])
+    assert hashes[0] == hashes[1]
+
+
+def test_scene_wrappers_refuse_bad_tensors(scene_tr):
+    from actinon_tpu_torch.render import scene_kernels
+    p, d, lim, lm = _scene_rays(64, 23)
+    with pytest.raises(TypeError):
+        scene_kernels.scene_top2(scene_tr, p.double(), d, lm)
+    with pytest.raises(ValueError, match="contiguous"):
+        scene_kernels.scene_anyhit(scene_tr, p, d.t().contiguous().t(), lim)
+    with pytest.raises(ValueError, match="shape"):
+        scene_kernels.scene_anyhit(scene_tr, p, d, lim[:10])

@@ -173,7 +173,8 @@ def test_cpu_wrappers_launch_nothing(pair):
     kernels.shadow_any_hit(tt, torch.as_tensor(p), torch.as_tensor(d),
                            torch.full((8,), 5.0))
     kernels.object_hit(tt, 0, torch.as_tensor(p), torch.as_tensor(d))
-    assert kernels.LAUNCHES == {"nee": 0, "shadow": 0, "object_hit": 0}
+    assert kernels.LAUNCHES == {"nee": 0, "shadow": 0, "object_hit": 0,
+                                "scene_top2": 0, "scene_anyhit": 0}
 
 
 def test_scene_table_layout(pair):

@@ -1,0 +1,378 @@
+"""The port's packed scene table and the plain versions of K4/K5 against
+the JAX package's `render/pallas_scene.py`, on the CPU.
+
+  * `SceneTable` equals `pallas_scene.SceneTable` value for value (table,
+    bounds, every shape's structure and reconstruction tables, the
+    covered and leftover sets), on the scene of tests/test_pallas_scene.py
+    and on the parsed lamp_row.acn smoke scene, so that winner codes
+    compare directly between the packages;
+  * `scene_top2_plain` / `scene_anyhit_plain` against the Pallas kernels
+    in interpret mode on the same rays: t within rtol/atol 2e-4, codes
+    equal on >= 99 % of the finite lanes, any-hit equal on >= 99.8 %;
+  * the CUDA source of K4/K5 compiled as host C++ (a shim maps the CUDA
+    keywords, a loop runs the threads) against the plain versions: the
+    kernels' arithmetic and table reads without a card;
+  * the tracer's scene-kernel route (the plain versions standing in for
+    the kernels on a CPU tensor) against the JAX XLA tracer, with the
+    contract of tests/test_pallas_scene.py:_cmp_hits, and on a coherent
+    camera-style tile (tests/test_pallas_scene.py:176-195).
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from actinon_tpu.acn.interp import run_file as jrun_file
+from actinon_tpu.render import pallas_scene as ps
+from actinon_tpu.render.tracer import Tracer as JTracer
+from actinon_tpu.scene import ir as jsir
+from actinon_tpu.scene import objects as jho
+from actinon_tpu_torch.acn.interp import run_file as trun_file
+from actinon_tpu_torch.render import scene_kernels as sk
+from actinon_tpu_torch.render.tracer import Tracer as TTracer
+from actinon_tpu_torch.scene import ir as tsir
+from actinon_tpu_torch.scene import objects as tho
+
+import _torch_scenes as S
+
+
+def _mixed_pair():
+    return (JTracer(jsir.compile_scene(S.mixed_scene(jho)),
+                    dtype=np.float32),
+            TTracer(tsir.compile_scene(S.mixed_scene(tho)),
+                    dtype=np.float32, device="cpu"))
+
+
+def _lamp_row_pair():
+    got = {}
+    for name, run, sir in (("jax", jrun_file, jsir), ("torch", trun_file,
+                                                      tsir)):
+        cap = []
+        run(S.LAMP_ROW, render_fn=lambda sc, fn: cap.append(sc.clone()),
+            args=["-f"])
+        got[name] = sir.compile_scene(cap[0])
+    return (JTracer(got["jax"], dtype=np.float32),
+            TTracer(got["torch"], dtype=np.float32, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def mixed():
+    return _mixed_pair()
+
+
+def _solo_index(tr, ids):
+    return sorted(i for i, c in enumerate(tr.comp_solo) if id(c) in ids)
+
+
+def _comps(comps):
+    return [(c.oid, list(c.rows), repr(c.tree)) for c in comps]
+
+
+def _assert_tables_equal(jt, tt, matter_only):
+    a = ps.SceneTable(jt, matter_only=matter_only)
+    b = sk.SceneTable(tt, matter_only=matter_only)
+    np.testing.assert_array_equal(b.table, a.table)
+    np.testing.assert_array_equal(b.bounds, a.bounds)
+    assert b.eps == a.eps
+    assert len(b.shapes) == len(a.shapes)
+    for sa, sb in zip(a.shapes, b.shapes):
+        assert (sb.kind, sb.tree, sb.Lc, sb.M) == (sa.kind, sa.tree, sa.Lc,
+                                                   sa.M)
+        assert list(sb.an_slots) == list(sa.an_slots)
+        assert [tuple(x) for x in sb.sdf_slots] == \
+            [tuple(x) for x in sa.sdf_slots]
+        assert (sb.shape_id, sb.row_off, sb.rows_per_block, sb.bid0,
+                sb.has_light) == (sa.shape_id, sa.row_off,
+                                  sa.rows_per_block, sa.bid0, sa.has_light)
+        np.testing.assert_array_equal(sb.rows_flat, sa.rows_flat)
+        np.testing.assert_array_equal(sb.oid, sa.oid)
+        for li in sa.sdf_m:
+            np.testing.assert_array_equal(sb.sdf_m[li], sa.sdf_m[li])
+            np.testing.assert_array_equal(sb.sdf_m0[li], sa.sdf_m0[li])
+            np.testing.assert_array_equal(sb.sdf_prm[li], sa.sdf_prm[li])
+    np.testing.assert_array_equal(b.covered_single_rows,
+                                  a.covered_single_rows)
+    assert b.covered_sdf_idx == a.covered_sdf_idx
+    assert _solo_index(tt, b.covered_solo_ids) == \
+        _solo_index(jt, a.covered_solo_ids)
+    assert [_comps(g) for g in b.rest_groups] == \
+        [_comps(g) for g in a.rest_groups]
+    assert _comps(b.rest_solos) == _comps(a.rest_solos)
+    return b
+
+
+@pytest.mark.parametrize("matter_only", [False, True],
+                         ids=["full", "matter"])
+def test_scene_table_equals_jax(mixed, matter_only):
+    jt, tt = mixed
+    st = _assert_tables_equal(jt, tt, matter_only)
+    kinds = {sh.kind for sh in st.shapes}
+    assert kinds == {"singles", "sdfsingle", "cluster"}
+    # the kernels read the tables row-major
+    assert st.table.flags.c_contiguous and st.table_t.is_contiguous()
+    assert not st.rest_groups and not st.rest_solos
+
+
+def test_lamp_row_table_equals_jax():
+    """The parsed smoke scene (parsing only, no render): both tables, and
+    the scene has the content it was written for."""
+    jt, tt = _lamp_row_pair()
+    assert len(tt.tab) + len(tt.sdf_singles) + sum(
+        lf is not None for c in tt.composites for lf in c.sdf_leaves) >= 950
+    assert sum(c.has_sdf for c in tt.comp_solo) >= 76
+    st = _assert_tables_equal(jt, tt, False)
+    _assert_tables_equal(jt, tt, True)
+    assert len(st.rest_groups) == 1 and len(st.rest_groups[0][0].rows) >= 13
+    assert tt.sdf_singles and any(sh.has_light and sh.kind == "cluster"
+                                  for sh in st.shapes)
+
+
+@pytest.fixture(scope="module")
+def pallas_out(mixed):
+    """The Pallas kernels in interpret mode, built and run once: top-2 on
+    512 rays with half the lanes matter-only, any-hit on 512 rays."""
+    jt, _ = mixed
+    stf = ps.SceneTable(jt, matter_only=False)
+    stm = ps.SceneTable(jt, matter_only=True)
+    top2, _ = ps.build_kernels(stf, interpret=True)
+    _, anyhit = ps.build_kernels(stm, interpret=True)
+    p, d = S.rays(512, seed=21)
+    lm = (np.arange(512) % 2).astype(np.float32)
+    lim = np.random.default_rng(23).uniform(0.2, 15.0, 512).astype(
+        np.float32)
+    lim[::9] = np.inf
+    t12, c12 = top2(p, d, lm)
+    blocked = anyhit(p, d, lim)
+    return dict(p=p, d=d, lm=lm, lim=lim, t=np.asarray(t12),
+                c=np.asarray(c12), blocked=np.asarray(blocked))
+
+
+def test_scene_top2_plain_matches_pallas(mixed, pallas_out):
+    _, tt = mixed
+    st, _ = tt._scene_tables()
+    o = pallas_out
+    t, c = sk.scene_top2_plain(st, torch.as_tensor(o["p"]),
+                               torch.as_tensor(o["d"]),
+                               torch.as_tensor(o["lm"]))
+    t, c = t.numpy(), c.numpy()
+    fin = np.isfinite(o["t"])
+    assert fin[:, 0].mean() > 0.3 and (~fin[:, 0]).any()
+    assert (np.isfinite(t) == fin).mean() >= 0.998
+    both = fin & np.isfinite(t)
+    np.testing.assert_allclose(t[both], o["t"][both], rtol=2e-4, atol=2e-4)
+    assert (c[both] == o["c"][both]).mean() >= 0.99
+    assert (c[~np.isfinite(t)] == -1).all()
+
+
+def test_scene_anyhit_plain_matches_pallas(mixed, pallas_out):
+    _, tt = mixed
+    _, stm = tt._scene_tables()
+    o = pallas_out
+    got = sk.scene_anyhit_plain(stm, torch.as_tensor(o["p"]),
+                                torch.as_tensor(o["d"]),
+                                torch.as_tensor(o["lim"])).numpy()
+    assert o["blocked"].any() and (~o["blocked"]).any()
+    assert (got == o["blocked"]).mean() >= 0.998
+
+
+def test_plain_work_counts(mixed):
+    """The plain versions count the work the bound charges: culls on
+    every block and ray, marches only where a gate passed."""
+    _, tt = mixed
+    st, stm = tt._scene_tables()
+    p, d = (torch.as_tensor(x) for x in S.rays(128, seed=3))
+    work = sk._Work()
+    sk.scene_top2_plain(st, p, d, torch.zeros(128), work=work)
+    n_blocks = sum(sh.n_blocks for sh in st.shapes)
+    assert work.culls == 128 * n_blocks
+    assert 0 < work.steps and 0 < work.sweeps and 0 < work.comparators
+    assert work.gates >= work.analytic // 4 > 0
+    w5 = sk._Work()
+    sk.scene_anyhit_plain(stm, p, d, torch.full((128,), 0.01), work=w5)
+    assert w5.steps < work.steps
+
+
+def _route_pair(mixed):
+    jt, tt = mixed
+    tk = TTracer(tt.ir, dtype=np.float32, device="cpu")
+    tk.scene_kernels_on_cpu = True
+    assert tk._scene_route_ok() and tk._prefer_scene_query()
+    assert not tt._scene_route_ok()
+    return jt, tk
+
+
+def _hits(out):
+    return [np.asarray(x) for x in out]
+
+
+@pytest.mark.parametrize("matter_only", [False, True],
+                         ids=["all", "matter"])
+def test_scene_route_nearest(mixed, matter_only):
+    """The port's scene-kernel route against the JAX XLA tracer."""
+    jt, tk = _route_pair(mixed)
+    p, d = S.rays(512, seed=31)
+    t_k, n_k, o_k, s_k = _hits(tk.nearest(
+        torch.as_tensor(p), torch.as_tensor(d), matter_only=matter_only,
+        rng_rough=False))
+    t_x, n_x, o_x, s_x = _hits(jt.nearest(p, d, matter_only=matter_only,
+                                          rng_rough=False))
+    fin = np.isfinite(t_x)
+    assert fin.any() and (~fin).any()
+    assert (np.isfinite(t_k) == fin).mean() > 0.998
+    both = fin & np.isfinite(t_k)
+    np.testing.assert_allclose(t_k[both], t_x[both], rtol=2e-4, atol=2e-4)
+    assert (o_k[both] == o_x[both]).mean() > 0.99
+    same = both & (o_k == o_x)
+    np.testing.assert_allclose(n_k[same], n_x[same], rtol=0, atol=5e-3)
+    assert (s_k[same] == s_x[same]).mean() > 0.999
+    if matter_only:
+        assert not np.isin(o_k, np.flatnonzero(tk.is_light)).any()
+
+
+def test_scene_route_mixed_and_shadow(mixed):
+    jt, tk = _route_pair(mixed)
+    p, d = S.rays(512, seed=37)
+    mask = np.arange(len(p)) % 2 == 0
+    o_k = _hits(tk.trans_hit_mixed(torch.as_tensor(p), torch.as_tensor(d),
+                                   torch.as_tensor(mask)))
+    o_x = _hits(jt.trans_hit_mixed(p, d, mask))
+    both = np.isfinite(o_x[0]) & np.isfinite(o_k[0])
+    np.testing.assert_allclose(o_k[0][both], o_x[0][both], rtol=2e-4,
+                               atol=2e-4)
+    lights = np.flatnonzero(tk.is_light)
+    assert not np.isin(o_k[2][mask], lights).any()
+    assert not np.isin(o_k[3][mask], lights).any()
+    lim = np.random.default_rng(41).uniform(0.2, 15.0, len(p)).astype(
+        np.float32)
+    b_k = tk.shadow_blocked(torch.as_tensor(p), torch.as_tensor(d),
+                            torch.as_tensor(lim)).numpy()
+    b_x = np.asarray(jt.shadow_blocked(p, d, lim))
+    assert b_x.any() and (~b_x).any()
+    assert (b_k == b_x).mean() > 0.998
+
+
+def test_scene_coherent_tile(mixed):
+    """A coherent camera-style tile (shared direction): the block-cull
+    regression shape of tests/test_pallas_scene.py:176-195, the scene
+    route against the port's plain tracer."""
+    _, tt = mixed
+    _, tk = _route_pair(mixed)
+    n = 256
+    xs = np.linspace(-6, 6, n).astype(np.float32)
+    p = np.stack([xs, np.full(n, -20.0, np.float32),
+                  np.zeros(n, np.float32)], -1)
+    d = np.tile(np.asarray([[0, 1, 0]], np.float32), (n, 1))
+    t_k, _, oid_k, _ = _hits(tk.nearest(torch.as_tensor(p),
+                                        torch.as_tensor(d), rng_rough=False))
+    t_x, _, oid_x, _ = _hits(tt.nearest(torch.as_tensor(p),
+                                        torch.as_tensor(d), rng_rough=False))
+    fin = np.isfinite(t_x)
+    assert fin.mean() > 0.2
+    assert (np.isfinite(t_k) == fin).all()
+    both = fin & np.isfinite(t_k)
+    np.testing.assert_allclose(t_k[both], t_x[both], rtol=2e-4, atol=2e-4)
+    assert (oid_k[both] == oid_x[both]).mean() > 0.99
+
+
+def test_set_geom_rebuilds_scene_tables(mixed):
+    """The packed table bakes the geometry: set_geom drops it, and the
+    next table carries the new values."""
+    _, tk = _route_pair(mixed)
+    st0, _ = tk._scene_tables()
+    g = tk.geom_params()
+    g["sph_r"] = g["sph_r"] * 1.5
+    tk.set_geom(g)
+    st1, _ = tk._scene_tables()
+    assert st1 is not st0
+    assert not np.array_equal(st1.table, st0.table)
+    assert st1.table.shape == st0.table.shape
+
+
+HOST_SHIM = r"""
+#include <math.h>
+#include <stdint.h>
+#include <string.h>
+#include <algorithm>
+using std::min;
+#define __device__
+#define __forceinline__ inline
+#define __global__
+#define __launch_bounds__(x)
+template <class T> static inline T __ldg(const T* p) { return *p; }
+static inline float __int_as_float(int i) {
+    float f; memcpy(&f, &i, 4); return f;
+}
+struct Idx { unsigned x; };
+static Idx blockIdx, threadIdx, blockDim;
+"""
+
+HOST_DRIVER = r"""
+#define LOOP(call) blockDim.x = 128; \
+    for (int b = 0; b < (n + 127) / 128; ++b) \
+        for (int t = 0; t < 128; ++t) { \
+            blockIdx.x = b; threadIdx.x = t; call; }
+extern "C" void host_top2(const float* tab, const float* bnd, const int* desc,
+                          const float* p, const float* d, const float* lm,
+                          float* t_out, int* c_out, int n, float eps) {
+    LOOP(scene_top2_kernel(tab, bnd, desc, p, d, lm, t_out, c_out, n, eps))
+}
+extern "C" void host_anyhit(const float* tab, const float* bnd,
+                            const int* desc, const float* p, const float* d,
+                            const float* lim, uint8_t* out, int n,
+                            float eps) {
+    LOOP(scene_anyhit_kernel(tab, bnd, desc, p, d, lim, out, n, eps))
+}
+"""
+
+
+def test_cuda_source_on_host_matches_plain(mixed, tmp_path):
+    """csrc/scene_kernels.cu's kernels compiled as host C++, one call per
+    thread, on the scene tables as the wrappers pass them: the same
+    results as the plain versions (t within rtol/atol 2e-4, codes equal
+    on >= 99 % of the finite lanes, any-hit equal on >= 99.8 %)."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    from actinon_tpu_torch.render import kernels
+    src = open(kernels.SOURCES[1]).read()
+    src = src.replace("#include <cuda_runtime.h>", "")
+    src = src[:src.index('extern "C" {')]
+    cpp = tmp_path / "host_scene_kernels.cpp"
+    cpp.write_text(HOST_SHIM + src + HOST_DRIVER)
+    so = tmp_path / "libhost.so"
+    subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-o",
+                    str(so), str(cpp)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    _, tt = mixed
+    st, stm = tt._scene_tables()
+    n = 1024
+    p, d = S.rays(n, seed=43)
+    lm = (np.arange(n) % 2).astype(np.float32)
+    lim = np.random.default_rng(47).uniform(0.2, 15.0, n).astype(np.float32)
+    lim[::5] = np.inf
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    P, D, LM, LIM = (torch.as_tensor(x) for x in (p, d, lm, lim))
+    t = torch.empty((n, 2), dtype=torch.float32)
+    c = torch.empty((n, 2), dtype=torch.int32)
+    lib.host_top2(ptr(st.table_t), ptr(st.bounds_t), ptr(st.desc_t), ptr(P),
+                  ptr(D), ptr(LM), ptr(t), ptr(c), ctypes.c_int(n),
+                  ctypes.c_float(float(st.eps)))
+    t_p, c_p = sk.scene_top2_plain(st, P, D, LM)
+    fin = torch.isfinite(t_p)
+    assert float(fin[:, 0].float().mean()) > 0.3
+    assert float((torch.isfinite(t) == fin).float().mean()) >= 0.998
+    both = fin & torch.isfinite(t)
+    np.testing.assert_allclose(t[both].numpy(), t_p[both].numpy(),
+                               rtol=2e-4, atol=2e-4)
+    assert float((c[both] == c_p[both]).float().mean()) >= 0.99
+    out = torch.empty((n,), dtype=torch.bool)
+    lib.host_anyhit(ptr(stm.table_t), ptr(stm.bounds_t), ptr(stm.desc_t),
+                    ptr(P), ptr(D), ptr(LIM), ptr(out), ctypes.c_int(n),
+                    ctypes.c_float(float(stm.eps)))
+    want = sk.scene_anyhit_plain(stm, P, D, LIM)
+    assert want.any() and (~want).any()
+    assert float((out == want).float().mean()) >= 0.998

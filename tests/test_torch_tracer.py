@@ -194,10 +194,20 @@ def test_geom_params_keys_and_values():
 
 
 def test_sdf_scene_raises():
+    """SDF scenes load; what still raises is a packed scene table whose
+    winner codes (shape << 24 | member << 8 | leaf) would overflow: 129
+    standalone tori of distinct march lengths are 129 shapes."""
+    from actinon_tpu_torch.render import scene_kernels
     sc = tho.Scene()
-    sc.push(tho.make_torus(1.0, 0.3))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        TTracer(tsir.compile_scene(sc), dtype=np.float64, device="cpu")
+    for k in range(129):
+        t = tho.make_torus(1.0, 0.3)
+        t.cycles = 50 + k
+        t.move(tho.v3(3.0 * k, 0.0, 0.0))
+        sc.push(t)
+    tt = TTracer(tsir.compile_scene(sc), dtype=np.float32, device="cpu")
+    assert len(tt.sdf_singles) == 129
+    with pytest.raises(ValueError, match="shape index"):
+        scene_kernels.SceneTable(tt, matter_only=False)
 
 
 def test_default_device_is_cuda():
