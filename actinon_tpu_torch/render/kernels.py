@@ -18,10 +18,10 @@ flattened into a read-only table (`SceneTable`, `LightTable`: the flat
 leaf/composite table of K1-K3, not the packed table of the scene kernels
 K4/K5 in `render/scene_kernels.py`) that every thread of a warp reads in
 step.  Composites with SDF leaves lie outside this coverage, as in the
-JAX package.  The library of all the port's kernels (this module's and
-`scene_kernels`') builds at first use with one `nvcc` call, from the
-sources in this package only, into `_build/`; it is keyed by a hash of
-the sources.
+JAX package.  The library of all the port's kernels (this module's,
+`scene_kernels`' K4/K5, `bigscene`'s K6/K7 and `diag_ops`' K8/K9) builds
+at first use with one `nvcc` call, from the sources in this package only,
+into `_build/`; it is keyed by a hash of the sources.
 
 A wrapper takes the plain version when its tensors lie on the CPU, and
 only then.  On a CUDA tensor it launches its kernel or raises; each
@@ -47,11 +47,14 @@ MAX_COMP_COLS = 64        # composite size cap of the crossing walk
 
 # launches per kernel (a launch of the wrapper's kernel adds one)
 LAUNCHES: Dict[str, int] = {"nee": 0, "shadow": 0, "object_hit": 0,
-                            "scene_top2": 0, "scene_anyhit": 0}
+                            "scene_top2": 0, "scene_anyhit": 0,
+                            "big_top2": 0, "big_anyhit": 0,
+                            "diag_unary": 0, "diag_expr": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = [os.path.join(_PKG, "csrc", f)
-           for f in ("trace_kernels.cu", "scene_kernels.cu")]
+           for f in ("trace_kernels.cu", "scene_kernels.cu",
+                     "bigscene_kernels.cu", "diag_ops.cu")]
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
@@ -306,9 +309,13 @@ def _lib():
                                                F, P]
             lib.actinon_scene_anyhit.argtypes = [P, P, P, P, P, P, P, I, F,
                                                  P]
+            lib.actinon_big_top2.argtypes = [P, P, I, P, P, P, P, I, F, P]
+            lib.actinon_big_anyhit.argtypes = [P, P, I, P, P, P, P, I, F, P]
+            lib.actinon_diag_op.argtypes = [I, P, P, P, P, I, P]
             for fn in (lib.actinon_shadow, lib.actinon_object_hit,
                        lib.actinon_nee, lib.actinon_scene_top2,
-                       lib.actinon_scene_anyhit):
+                       lib.actinon_scene_anyhit, lib.actinon_big_top2,
+                       lib.actinon_big_anyhit, lib.actinon_diag_op):
                 fn.restype = ctypes.c_int
             _LIB = lib
     return _LIB

@@ -165,10 +165,11 @@ class SceneTable:
     leftovers the tracer evaluates on its plain paths (`rest_groups`,
     `rest_solos`).  matter_only=True builds the shadow table (light
     members dropped, reference src/scene.c:571 traces the matter compound
-    only).  The big-scene sphere kernels are not ported yet, so no single
-    row is excluded for them (the JAX table's `exclude_rows` is None)."""
+    only).  exclude_rows drops single rows from the singles shape: the
+    tracer passes the big-scene kernels' sphere rows where K6/K7 carry
+    them (JAX pallas_scene.py:154-172, tracer.py:1692)."""
 
-    def __init__(self, tracer, matter_only: bool):
+    def __init__(self, tracer, matter_only: bool, exclude_rows=None):
         self.eps = np.float32(tracer.eps)
         self.matter_only = matter_only
         self.device = tracer.device
@@ -184,6 +185,8 @@ class SceneTable:
         rows = tracer.single_rows
         if matter_only and len(rows):
             rows = rows[~tab.is_light[rows]]
+        if exclude_rows is not None and len(exclude_rows) and len(rows):
+            rows = np.setdiff1d(rows, exclude_rows)
         members_s = []
         for r in rows:
             members_s.append(dict(

@@ -26,9 +26,11 @@ solo-cluster scans, the polynomial-sign walk) are not ported.
 On a CUDA device in f32 the queries run through the hand-written kernels,
 under the JAX package's routing rules: the packed scene kernels of
 `render/scene_kernels.py` (K4, K5; they clip their marches to the
-envelopes, as the Pallas kernels always do) for SDF and large scenes, and
-the kernels of `render/kernels.py` (K2, K3) for small analytic scenes and
-single-object hits.  All functions take and return tensors shaped [R] /
+envelopes, as the Pallas kernels always do) for SDF and large scenes, the
+Morton-block sphere kernels of `render/bigscene.py` (K6, K7) for the
+spheres of scenes with at least BIG_MIN_ROWS of them, and the kernels of
+`render/kernels.py` (K2, K3) for small analytic scenes and single-object
+hits.  All functions take and return tensors shaped [R] /
 [R,3] on the tracer's device.
 """
 
@@ -109,6 +111,17 @@ def _sphere_first_hit(c, r, p, d, eps):
     a = torch.where(entering, -s - root,
                     torch.where(exiting, -s + root, INF))
     return torch.where(ok, a - eps, INF)
+
+
+@dataclasses.dataclass
+class _BigScene:
+    """The sphere blocks of K6/K7 and their device tensors: the block
+    table and bounds, and `rows_padded` [G * 128] (the unified row of each
+    block lane; 0 on dead lanes) that maps a kernel's gidx to a row."""
+    blocks: object
+    table: torch.Tensor
+    bounds: torch.Tensor
+    rows_padded: torch.Tensor
 
 
 def _top2_cols(a):
@@ -487,6 +500,9 @@ class Tracer:
         # it to take the scene-kernel route on a CPU tracer, where the
         # kernels' wrappers run their plain versions
         self.scene_kernels_on_cpu = False
+        # counterpart of the JAX tracer's `use_bigscene_interpret`: tests
+        # set it to take the big-scene route (K6, K7) on a CPU tracer
+        self.bigscene_on_cpu = False
 
         self.n_obj = len(ir.objects)
         self.is_light = np.array([o.is_light for o in ir.objects], bool)
@@ -549,6 +565,19 @@ class Tracer:
         self._solo_cl = _shape_clusters(self.comp_solo)
 
         self.single_rows = np.flatnonzero(tab.single).astype(np.int64)
+        # big-scene kernel coverage (JAX tracer.py:603-617): single-leaf
+        # matter spheres whose envelope is absent or encloses the sphere
+        # (the envelope gate is then redundant), the rows of K6/K7
+        sph = (tab.kind == sir.SPHERE) & tab.single & ~tab.is_light
+        if sph.any():
+            c = -tab.m0
+            r = np.sqrt(np.maximum(-tab.rr, 0.0))
+            off = np.linalg.norm(tab.env_c - c, axis=-1)
+            env_ok = (tab.env_r <= 0) \
+                | (off + r <= tab.env_r * (1 + 1e-6) + 1e-9)
+            self.big_rows = np.flatnonzero(sph & env_ok).astype(np.int32)
+        else:
+            self.big_rows = np.zeros((0,), np.int32)
         self._idx_cache = {}
         self._kernel_cache = {}
         self._geom_ovr = {}
@@ -1108,12 +1137,15 @@ class Tracer:
 
     # -- core query ------------------------------------------------------
 
-    def _single_chunks(self, matter_only, R=None):
+    def _single_chunks(self, matter_only, R=None, exclude_big=False):
         """Static chunk partition of candidate rows (single-leaf objects);
-        with R the chunk shrinks so [R, c, 3] temporaries stay bounded."""
+        with R the chunk shrinks so [R, c, 3] temporaries stay bounded.
+        exclude_big drops the rows the big-scene kernels cover."""
         rows = self.single_rows
         if matter_only and len(rows):
             rows = rows[~self.tab.is_light[rows]]
+        if exclude_big and len(self.big_rows):
+            rows = np.setdiff1d(rows, self.big_rows)
         c = CHUNK
         if R:
             c = int(min(CHUNK, max(64, (1 << 23) // max(R, 1))))
@@ -1142,16 +1174,28 @@ class Tracer:
         cols_t, cols_row = [], []
         oid_special = []  # (col, oid: int or [R]) for SDF-surface winners
         nor_ovr = []      # (col, [R,3]) explicit normals (SDF surfaces)
+        use_big = self._bigscene_ok()
         stf = None
         if self._scene_route_ok() and self._prefer_scene_query():
             stf, _ = self._scene_tables()
             if not stf.shapes:
                 stf = None
+        if use_big:
+            # the big-scene sphere kernel (K6): the top-2 over the sphere
+            # blocks, as unified rows
+            from actinon_tpu_torch.render import bigscene
+            t2k, gik = bigscene.big_top2(self, p.contiguous(),
+                                         d.contiguous())
+            row2k = self._bigscene().rows_padded[gik.long()]
         if stf is not None:
             # 0. the packed scene kernel (K4): ONE launch carries the
             # singles, standalone SDFs, solo clusters and analytic groups
-            # as a global top-2; only the leftovers below stay plain
+            # as a global top-2; only the leftovers below stay plain.  The
+            # K6 columns come first: column order decides exact ties
             from actinon_tpu_torch.render import scene_kernels
+            if use_big:
+                cols_t += [t2k[:, j] for j in range(kw)]
+                cols_row += [row2k[:, j] for j in range(kw)]
             if matter_only:
                 lmf = torch.ones((R,), dtype=dt, device=dev)
             elif lane_matter is not None:
@@ -1168,10 +1212,15 @@ class Tracer:
                 oid_special.append((k, oidk[:, j]))
                 nor_ovr.append((k, nork[:, j]))
         else:
-            # 1. single-leaf objects: chunked running top-k merge
+            # 1. single-leaf objects: the big-scene kernel's seed, then a
+            # chunked running top-k merge over the remaining rows
             best_t = torch.full((R, kw), INF, dtype=dt, device=dev)
             best_row = torch.zeros((R, kw), dtype=torch.int64, device=dev)
-            for rows in self._single_chunks(matter_only, R):
+            if use_big:
+                best_t = t2k[:, :kw].to(dt)
+                best_row = row2k[:, :kw]
+            for rows in self._single_chunks(matter_only, R,
+                                            exclude_big=use_big):
                 a = self._chunk_candidates(rows, p, d)
                 if lane_matter is not None \
                         and self.tab.is_light[rows].any():
@@ -1400,8 +1449,8 @@ class Tracer:
         """The scene kernel (K4) carries the nearest/transition query for
         march-bound scenes (SDF composites, standalone SDFs) and large
         member populations; small all-analytic scenes keep the plain
-        query.  The big-scene sphere kernels (K6, K7) are not ported yet,
-        so large sphere populations ride K4's singles shape."""
+        query.  Where the big-scene kernels apply, their spheres leave
+        K4's singles shape for K6 (`_scene_tables`)."""
         if self.comp_solo or self.sdf_singles:
             return True
         n_members = len(self.single_rows) \
@@ -1409,14 +1458,47 @@ class Tracer:
         return n_members > MAX_SCENE_MEMBERS
 
     def _scene_tables(self):
-        """(full table, matter-only table) of the scene kernels (cached;
-        set_geom rebuilds them)."""
+        """(full table, matter-only table) of the scene kernels, without
+        the big-scene kernels' rows where those apply (JAX tracer.py:1692;
+        cached; set_geom rebuilds them)."""
         got = self._kernel_cache.get("scene_tables")
         if got is None:
             from actinon_tpu_torch.render import scene_kernels
-            got = (scene_kernels.SceneTable(self, matter_only=False),
-                   scene_kernels.SceneTable(self, matter_only=True))
+            ex = self.big_rows if self._bigscene_ok() else None
+            got = (scene_kernels.SceneTable(self, False, exclude_rows=ex),
+                   scene_kernels.SceneTable(self, True, exclude_rows=ex))
             self._kernel_cache["scene_tables"] = got
+        return got
+
+    BIG_MIN_ROWS = 512   # sphere rows below which K6/K7 do not apply
+
+    def _bigscene_ok(self):
+        """The big-scene sphere kernels K6/K7 apply (the JAX tracer's
+        `_bigscene_ok`): at least BIG_MIN_ROWS sphere rows, f32, and the
+        kernel device rules, or a CPU f32 tracer that a test sends down
+        the big-scene route (`bigscene_on_cpu`)."""
+        if len(self.big_rows) < self.BIG_MIN_ROWS \
+                or self.dtype != np.float32:
+            return False
+        return self._kernel_device_ok() or (self.bigscene_on_cpu
+                                            and self.use_kernels)
+
+    def _bigscene(self) -> _BigScene:
+        """The Morton sphere blocks of K6/K7 over `big_rows`, from the
+        current leaf table (cached; set_geom rebuilds them)."""
+        got = self._kernel_cache.get("bigscene")
+        if got is None:
+            from actinon_tpu_torch.render import bigscene
+            _, m0, _, _, rr = self.tables_np
+            rows = self.big_rows
+            blocks = bigscene.SphereBlocks(
+                rows, -m0[rows], np.sqrt(np.maximum(-rr[rows], 0.0)),
+                float(self.eps))
+            rows_padded = np.zeros(blocks.G * bigscene.LB, np.int64)
+            rows_padded[:blocks.n] = blocks.rows
+            got = _BigScene(blocks, *blocks.upload(self.device),
+                            torch.as_tensor(rows_padded, device=self.device))
+            self._kernel_cache["bigscene"] = got
         return got
 
     def _decode_scene(self, st, t12, c12, p, d):
@@ -1459,13 +1541,15 @@ class Tracer:
         shadow test `compound_s_ray_hit(matter) > a` (reference
         src/scene.c:571) as an any-hit reduction.  On a CUDA device the
         kernel-covered scene subset runs as one hand-written kernel (K5
-        for SDF scenes, K2 for small analytic ones); what a kernel leaves
-        out stays on the plain walks."""
+        for SDF scenes, K2 for small analytic ones), and the spheres of a
+        big scene as K7; what a kernel leaves out stays on the plain
+        walks."""
         dt = self.tdtype
         p = p.to(dt)
         d = d.to(dt)
         limit = limit.to(dt)
         R = p.shape[0]
+        use_big = self._bigscene_ok()
         if self._scene_route_ok() and self._prefer_scene_shadow():
             from actinon_tpu_torch.render import scene_kernels
             _, stm = self._scene_tables()
@@ -1479,8 +1563,7 @@ class Tracer:
             for cluster in _shape_clusters(stm.rest_solos):
                 blocked = blocked | self._cluster_shadow(cluster, p, d,
                                                          limit)
-            return blocked
-        if self._kernels_ok():
+        elif self._kernels_ok():
             from actinon_tpu_torch.render import kernels
             blocked = kernels.shadow_any_hit(self, p, d, limit)
             for comp in kernels.coverage(self).rest:
@@ -1490,16 +1573,25 @@ class Tracer:
                 if not light:
                     a, _ = self._hit_sdf_leaf(lf, env_c, env_r, p, d)
                     blocked = blocked | (a <= limit)
-            return blocked
-        return self._shadow_plain(p, d, limit)
+        else:
+            blocked = self._shadow_plain(p, d, limit, exclude_big=use_big)
+        if use_big:
+            # K7 over the spheres that the branches above left out (JAX
+            # tracer.py:2187-2189, 2228-2234)
+            from actinon_tpu_torch.render import bigscene
+            blocked = blocked | bigscene.big_anyhit(
+                self, p.contiguous(), d.contiguous(), limit.contiguous())
+        return blocked
 
-    def _shadow_plain(self, p, d, limit, exclude_oids=frozenset()):
+    def _shadow_plain(self, p, d, limit, exclude_oids=frozenset(),
+                      exclude_big=False):
         """The plain any-hit over all matter except the objects in
-        `exclude_oids`: chunked singles, grouped composite walks, solo
+        `exclude_oids` (and, with exclude_big, the big-scene kernels'
+        sphere rows): chunked singles, grouped composite walks, solo
         clusters and standalone SDF marches (JAX tracer.py:2226-2258)."""
         R = p.shape[0]
         blocked = torch.zeros((R,), dtype=torch.bool, device=self.device)
-        for rows in self._single_chunks(True, R):
+        for rows in self._single_chunks(True, R, exclude_big=exclude_big):
             rows = rows[~np.isin(self.tab.oid[rows], list(exclude_oids))]
             if not len(rows):
                 continue

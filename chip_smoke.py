@@ -7,7 +7,7 @@
 Phases, each printing one line of numbers:
 
   1. card    — torch's device name and nvidia-smi's name and power limit;
-  2. build   — nvcc builds csrc/trace_kernels.cu from this checkout;
+  2. build   — nvcc builds csrc/*.cu from this checkout, in one call;
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                same CUDA tensors (seeded rays over the smoke scene, the
                main path's shapes), with each kernel's device time per
@@ -34,11 +34,33 @@ Phases, each printing one line of numbers:
   9. counter-mode lamp_row — the image mean with the kernels and without
                them agrees within 5e-3, and the card's render agrees with
                the port's plain render on the CPU;
- 10. wine_glass — the corpus scene at the headline shape, when the
+ 10. fractal render — the big-scene smoke scene sphere_fractal.acn at
+               bench.py's many_spheres shape (160x120, direct=10, path=0,
+               depth=11, batch 1<<15), twice: equal fold hashes, at least
+               512 big-scene sphere rows, K6 and K7 launched, K4 launched
+               (the floor and the light), K1, K2 and K5 not;
+ 11. big-scene kernels — K6 and K7 against their plain versions on the
+               inputs of the fractal render's largest calls (the drain
+               batch for K6, one NEE chunk of flattened shadow rays for K7),
+               with device time, plain time and the bound;
+ 12. counter-mode fractal — the image mean with the kernels and without
+               them on the card (64x48 at the render's samples and depth),
+               and the card against the port's plain render on the CPU
+               (64x48 at direct=1, depth=3, which costs the CPU about what
+               16x12 at the full depth would), each within 5e-3.  The
+               image is 64x48 because a grazing hit on a sphere of 20 eps
+               can flip between two roundings of one formula: a flipped
+               pixel moves a 16x12 mean by up to 8e-3;
+ 13. ops     — the diagnostic kernels K8 (sin, cos, sqrt, rsqrt, exp) and
+               K9 (a / b, a * b + c) through the diag_ops entry point, each
+               op's bit-equal share and max ulp against torch's op (sqrt and
+               division must be bit-equal), and the einsum check;
+ 14. wine_glass — the corpus scene at the headline shape, when the
                directory named by $ACTINON_CORPUS holds wine_glass.acn.
 
 The glass_table phases hold slice 1 still: the headline hash repeats
-GLASS_HASH, and no scene kernel launches there.
+GLASS_HASH, and no scene or big-scene kernel launches there.  lamp_row
+(528 beads) crosses the big-scene gate, so its phases launch K4-K7.
 
 Any failure exits non-zero.  The line before the last is one JSON object
 with every kernel's numbers; the last line is
@@ -57,12 +79,17 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "actinon_tpu_torch", "_build", "smoke")
 SCENE = os.path.join(HERE, "actinon_tpu_torch", "scenes", "glass_table.acn")
 LAMP = os.path.join(HERE, "actinon_tpu_torch", "scenes", "lamp_row.acn")
+FRACTAL = os.path.join(HERE, "actinon_tpu_torch", "scenes",
+                       "sphere_fractal.acn")
 CORPUS = os.environ.get("ACTINON_CORPUS", "")   # the .acn corpus directory
 
 HEADLINE = (200, 150, 10, 0, 25)   # bench.py:80 (w, h, direct, path, depth)
 SHIPPED = (80, 60, 200, 500, 25)  # bench.py:90 TRUE_CFG, not cut
 LAMP_SHAPE = (160, 120, 6, 0, 25)  # bench.py:84 hanging_lamp, not cut
 LAMP_COUNTER = (16, 12)            # counter-mode A/B size of lamp_row
+FRACTAL_SHAPE = (160, 120, 10, 0, 11)  # bench.py:82 many_spheres, not cut
+FRACTAL_AB = (64, 48)              # counter-mode size, kernels vs none
+FRACTAL_CPU = (64, 48, 1, 0, 3)    # counter-mode shape, card vs CPU
 GLASS_HASH = 7572424404618532405   # glass_table headline hash on the H100
 
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): FP32 outside the tensor
@@ -93,6 +120,15 @@ OPS_CMP = 1            # one comparator of the sort network
 OPS_SWEEP = 2          # one finite crossing of the toggle sweep
 OPS_MERGE = 8          # the top-2 merge of one block into a ray's pair
 
+# ... and of the big-scene kernels (csrc/bigscene_kernels.cu), counted by
+# their plain versions on this run's inputs (bigscene._Work)
+OPS_SPHERE = 33        # a sphere lane's candidate (31) and its compare
+                       # against the block's best two (K7: against the
+                       # limit, 32 in all)
+
+
+SCENE_KEYS = ("scene_top2", "scene_anyhit", "big_top2", "big_anyhit")
+
 
 def fail(msg):
     print(f"FAIL: {msg}", flush=True)
@@ -109,7 +145,12 @@ def load_scene(path, w, h, direct, path_s, depth):
     cap = []
     run_file(path, render_fn=lambda sc, fn: cap.append(sc.clone()),
              args=["-f"])
-    sc = cap[0]
+    return sized(cap[0], w, h, direct, path_s, depth)
+
+
+def sized(sc, w, h, direct, path_s, depth):
+    """The scene sc (cloned) at another image size and sample counts."""
+    sc = sc.clone()
     sc.cfg.image_width, sc.cfg.image_height = w, h
     sc.cfg.direct_samples = direct
     sc.cfg.path_samples = path_s
@@ -267,6 +308,13 @@ def scene_ops(work, anyhit):
             + work.analytic * OPS_LEAF + work.sdf_setups * OPS_SDF
             + work.steps * OPS_STEP + work.comparators * OPS_CMP
             + work.sweeps * OPS_SWEEP + work.merges * OPS_MERGE)
+
+
+def big_ops(work, anyhit):
+    """FP32 operations of K6 or K7 from the plain version's work counts."""
+    cull = OPS_CULL + (4 if anyhit else 0)
+    lane = OPS_SPHERE - (1 if anyhit else 0)
+    return work.culls * cull + work.lanes * lane + work.merges * OPS_MERGE
 
 
 def bound(n_bytes, n_ops):
@@ -498,7 +546,7 @@ def phase_counter(w, h):
     sc = load_scene(SCENE, w, h, *HEADLINE[2:])
     acc_k, s_k, launches, integ = counter_render(sc, 1 << 15, True)
     if launches["shadow"] <= 0 or launches["object_hit"] <= 0 \
-            or launches["scene_top2"] or launches["scene_anyhit"]:
+            or any(launches[k] for k in SCENE_KEYS):
         fail(f"counter-mode render launched {launches}")
     acc_p, s_p, off, _ = counter_render(sc, 1 << 15, False)
     if any(off.values()):
@@ -524,31 +572,41 @@ def phase_counter(w, h):
     return launches
 
 
-def phase_lamp():
-    """The lamp_row render at the hanging_lamp shape, twice.  The inputs of
-    the largest K4 and K5 calls of the first run are kept (cloned once)
-    for the kernel phase: the shapes and rays the main path gives them."""
-    from actinon_tpu_torch.render import scene_kernels as sk
+def spied_render(module, names, tag, sc, reps):
+    """render() with the wrappers `names` of `module` spied on: the inputs
+    of each one's largest call are kept (cloned once) for the kernel
+    phases, the shapes and rays the main path gives them."""
     cap = {}
-    orig = {n: getattr(sk, n) for n in ("scene_top2", "scene_anyhit")}
+    orig = {n: getattr(module, n) for n in names}
 
     def spy(name):
-        def call(tr, p, d, x):
+        def call(tr, p, d, *x):
             if name not in cap or p.shape[0] > cap[name][1].shape[0]:
-                cap[name] = (tr, p.clone(), d.clone(), x.clone())
-            return orig[name](tr, p, d, x)
+                cap[name] = (tr, p.clone(), d.clone(),
+                             *(v.clone() for v in x))
+            return orig[name](tr, p, d, *x)
         return call
 
     for name in orig:
-        setattr(sk, name, spy(name))
+        setattr(module, name, spy(name))
     try:
-        runs = render("lamp_row", load_scene(LAMP, *LAMP_SHAPE), 1 << 15,
-                      reps=2)
+        runs = render(tag, sc, 1 << 15, reps=reps)
     finally:
         for name, fn in orig.items():
-            setattr(sk, name, fn)
+            setattr(module, name, fn)
+    return runs, cap
+
+
+def phase_lamp():
+    """The lamp_row render at the hanging_lamp shape, twice, keeping the
+    inputs of the largest K4 and K5 calls.  Its 528 beads cross the
+    big-scene gate: K6 and K7 launch beside K4 and K5."""
+    from actinon_tpu_torch.render import scene_kernels as sk
+    runs, cap = spied_render(sk, ("scene_top2", "scene_anyhit"), "lamp_row",
+                             load_scene(LAMP, *LAMP_SHAPE), reps=2)
     launches = runs[-1]["launches"]
-    if launches["scene_top2"] <= 0 or launches["scene_anyhit"] <= 0:
+    if min(launches[k] for k in ("scene_top2", "scene_anyhit", "big_top2",
+                                 "big_anyhit")) <= 0:
         fail(f"lamp_row render launched {launches}")
     return runs, cap
 
@@ -629,7 +687,8 @@ def phase_lamp_counter(w, h):
     the card against the port's plain render on the CPU."""
     sc = load_scene(LAMP, w, h, *LAMP_SHAPE[2:])
     acc_k, s_k, launches, _ = counter_render(sc, 1 << 15, True)
-    if launches["scene_top2"] <= 0 or launches["scene_anyhit"] <= 0:
+    if min(launches[k] for k in ("scene_top2", "scene_anyhit", "big_top2",
+                                 "big_anyhit")) <= 0:
         fail(f"counter-mode lamp_row launched {launches}")
     acc_p, s_p, off, _ = counter_render(sc, 1 << 15, False)
     if any(off.values()):
@@ -648,12 +707,205 @@ def phase_lamp_counter(w, h):
         launches=json.dumps(launches, separators=(",", ":")))
 
 
+def phase_fractal(base):
+    """The fractal render at the many_spheres shape, twice, keeping the
+    inputs of the largest K6 and K7 calls."""
+    from actinon_tpu_torch.render import bigscene
+    runs, cap = spied_render(bigscene, ("big_top2", "big_anyhit"),
+                             "sphere_fractal", sized(base, *FRACTAL_SHAPE),
+                             reps=2)
+    L = runs[-1]["launches"]
+    if L["big_top2"] <= 0 or L["big_anyhit"] <= 0 or L["scene_top2"] <= 0 \
+            or L["nee"] or L["shadow"] or L["scene_anyhit"]:
+        fail(f"sphere_fractal render launched {L}")
+    tr = cap["big_top2"][0]
+    n_big = len(tr.big_rows)
+    if n_big < tr.BIG_MIN_ROWS:
+        fail(f"sphere_fractal has {n_big} big-scene rows")
+    say("fractal", big_rows=n_big, leaves=len(tr.tab))
+    return runs, cap
+
+
+def phase_big_kernels(cap):
+    """K6 and K7 against their plain versions on the fractal render's
+    inputs.  The plain versions also count the work the bound charges."""
+    import torch
+    from actinon_tpu_torch.render import bigscene as bs
+    out = {}
+
+    tr, p, d = cap["big_top2"]
+    big = tr._bigscene()
+    blocks = big.blocks
+    n = p.shape[0]
+    tables = 4 * blocks.G * bs.LB * 4 + 4 * blocks.G * 4   # the rows read
+    got_t, got_g = bs.big_top2(tr, p, d)
+    torch.cuda.synchronize()
+    work = bs._Work()
+    want_t, want_g = bs.big_top2_plain(blocks, p, d, work=work,
+                                       table=big.table)
+    fin_g, fin_w = torch.isfinite(got_t), torch.isfinite(want_t)
+    fin_agree = float((fin_g == fin_w).float().mean())
+    both = fin_g & fin_w
+    idx_agree = float((got_g[both] == want_g[both]).float().mean())
+    same = both & (got_g == want_g)
+    err = torch.abs(got_t[same] - want_t[same])
+    max_err = float(err.max()) if same.any() else 0.0
+    t_ok = bool((err <= 2e-4 + 2e-4 * torch.abs(want_t[same])).all())
+    if not (fin_agree >= 0.998 and idx_agree >= 0.99 and t_ok):
+        fail(f"big top-2 kernel: finite agreement {fin_agree}, indices "
+             f"{idx_agree}, t within 2e-4: {t_ok}")
+    ms = kernel_ms(lambda: bs.big_top2(tr, p, d))
+    plain_ms = cuda_ms(lambda: bs.big_top2_plain(blocks, p, d,
+                                                 table=big.table),
+                       reps=1, warm=0)
+    b_ms, b_by = bound(n * (6 * 4 + 2 * 8) + tables, big_ops(work, False))
+    say("kernel big_top2", n=n, blocks=blocks.G,
+        hits=int(fin_w[:, 0].sum()), finite_agree=f"{fin_agree:.6f}",
+        idx_agree=f"{idx_agree:.6f}", max_abs_err=f"{max_err:.3e}",
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.5f}",
+        bound_by=b_by, block_tests=work.culls, blocks_evaluated=work.blocks,
+        lanes=work.lanes, merges=work.merges)
+    out["big_top2"] = dict(
+        name="big_top2", route="cuda",
+        source="actinon_tpu_torch/csrc/bigscene_kernels.cu",
+        replaces="actinon_tpu/render/pallas_bigscene.py:159",
+        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, agree=idx_agree, n=n)
+
+    tr, p, d, lim = cap["big_anyhit"]
+    n = p.shape[0]
+    got = bs.big_anyhit(tr, p, d, lim)
+    torch.cuda.synchronize()
+    work = bs._Work()
+    want = bs.big_anyhit_plain(blocks, p, d, lim, work=work,
+                               table=big.table)
+    agree = float((got == want).float().mean())
+    if not agree >= 0.998:
+        fail(f"big any-hit kernel agreement {agree}")
+    ms = kernel_ms(lambda: bs.big_anyhit(tr, p, d, lim))
+    plain_ms = cuda_ms(lambda: bs.big_anyhit_plain(blocks, p, d, lim,
+                                                   table=big.table),
+                       reps=1, warm=0)
+    b_ms, b_by = bound(n * (7 * 4 + 1) + tables, big_ops(work, True))
+    say("kernel big_anyhit", n=n, blocked=int(want.sum()),
+        agree=f"{agree:.6f}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{b_ms:.5f}", bound_by=b_by, block_tests=work.culls,
+        blocks_evaluated=work.blocks, lanes=work.lanes)
+    out["big_anyhit"] = dict(
+        name="big_anyhit", route="cuda",
+        source="actinon_tpu_torch/csrc/bigscene_kernels.cu",
+        replaces="actinon_tpu/render/pallas_bigscene.py:260",
+        max_abs_err=float((got != want).float().max()), ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        agree=agree, n=n)
+    return out
+
+
+def phase_fractal_counter(base):
+    """Counter-mode fractal: kernels against no kernels on the card, and
+    the card against the port's plain render on the CPU."""
+    sc = sized(base, *FRACTAL_AB, *FRACTAL_SHAPE[2:])
+    acc_k, s_k, launches, _ = counter_render(sc, 1 << 15, True)
+    if launches["big_top2"] <= 0 or launches["big_anyhit"] <= 0:
+        fail(f"counter-mode fractal launched {launches}")
+    acc_p, s_p, off, _ = counter_render(sc, 1 << 15, False)
+    if any(off.values()):
+        fail(f"kernels switched off but launched: {off}")
+    ref = sized(base, *FRACTAL_CPU)
+    acc_g, _, _, _ = counter_render(ref, 1 << 12, True)
+    acc_c, s_c, _, _ = counter_render(ref, 1 << 12, True, device="cpu")
+    m_k, m_p, m_g, m_c = (float(a.mean()) for a in (acc_k, acc_p, acc_g,
+                                                    acc_c))
+    rel = abs(m_k - m_p) / max(abs(m_p), 1e-12)
+    rel_c = abs(m_g - m_c) / max(abs(m_c), 1e-12)
+    # the share of pixels that agree (the rest are grazing flips)
+    px = lambda a, b: float(np.isclose(a, b, rtol=1e-3, atol=1e-4).all(
+        axis=1).mean())
+    if not (np.isfinite(acc_k).all() and rel <= 5e-3 and rel_c <= 5e-3):
+        fail(f"counter-mode fractal: kernels {m_k}, plain {m_p} (rel "
+             f"{rel}); card {m_g}, CPU {m_c} (rel {rel_c})")
+    say("render fractal counter", size=f"{FRACTAL_AB[0]}x{FRACTAL_AB[1]}",
+        kernel_s=f"{s_k:.3f}", plain_s=f"{s_p:.3f}",
+        mean_kernels=f"{m_k:.6f}", mean_plain=f"{m_p:.6f}", rel=f"{rel:.2e}",
+        pixels_agree=f"{px(acc_k, acc_p):.4f}",
+        cpu_shape="x".join(map(str, FRACTAL_CPU)), cpu_s=f"{s_c:.3f}",
+        mean_card=f"{m_g:.6f}", mean_cpu=f"{m_c:.6f}", rel_cpu=f"{rel_c:.2e}",
+        pixels_agree_cpu=f"{px(acc_g, acc_c):.4f}",
+        launches=json.dumps(launches, separators=(",", ":")))
+
+
+def phase_ops():
+    """K8 and K9 through the diag_ops entry point (its comparisons and the
+    einsum check are the path whose launches count), then each op's time
+    against torch's: plain is torch's op with host time, library the same
+    call in a CUDA graph."""
+    import torch
+    from actinon_tpu_torch import diag_ops
+    from actinon_tpu_torch.render import kernels
+    kernels.reset_launches()
+    rows = diag_ops.compare("cuda")
+    ein = diag_ops.einsum_check("cuda")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    inp = diag_ops.tool_inputs("cuda")
+    lib = {"div": torch.div, "mul_add": lambda a, b, c: torch.addcmul(c, a,
+                                                                       b)}
+    per = {"diag_unary": [], "diag_expr": []}
+    for r in rows:
+        name = r["name"]
+        if r["kind"] == "unary":
+            args = (inp["x"][name],)
+            run = lambda: diag_ops.unary(name, *args)
+            plain = lambda: diag_ops.unary_plain(name, *args)
+            libf = lambda: getattr(torch, name)(*args)
+            key = "diag_unary"
+        else:
+            args = inp["args"][name]
+            run = lambda: diag_ops.expr(name, *args)
+            plain = lambda: diag_ops.expr_plain(name, *args)
+            libf = lambda: lib[name](*args)
+            key = "diag_expr"
+        if name in ("sqrt", "div") and r["bit_equal"] != 1.0:
+            fail(f"op {name}: {r['bit_equal']} bit-equal to torch's, "
+                 f"where both are IEEE-rounded")
+        t = dict(r, ms=kernel_ms(run), plain_ms=cuda_ms(plain),
+                 library_ms=kernel_ms(libf), n=args[0].numel(),
+                 n_in=len(args))
+        per[key].append(t)
+        say(f"op {name}", bit_equal=f"{r['bit_equal']:.4f}",
+            max_ulp=r["max_ulp"], mean_ulp=f"{r['mean_ulp']:.3f}",
+            max_abs_err=f"{r['max_abs_err']:.3e}", ms=f"{t['ms']:.5f}",
+            plain_ms=f"{t['plain_ms']:.5f}",
+            library_ms=f"{t['library_ms']:.5f}")
+    for name, r in ein.items():
+        say(f"op {name}", max_rel=f"{r['max_rel']:.3e}",
+            mean_rel=f"{r['mean_rel']:.3e}")
+    out = {}
+    for key, num, line in (("diag_unary", "K8", 18), ("diag_expr", "K9", 73)):
+        ts = per[key]
+        mean = lambda k: float(np.mean([t[k] for t in ts]))
+        # bytes: each input read once and the output written once
+        b_ms, b_by = bound(float(np.mean([4 * t["n"] * (t["n_in"] + 1)
+                                          for t in ts])), 0.0)
+        out[key] = dict(name=key, route="cuda",
+                        source="actinon_tpu_torch/csrc/diag_ops.cu",
+                        replaces=f"tools/diag_tpu_ops.py:{line}",
+                        launches=launches[key],
+                        max_abs_err=max(t["max_abs_err"] for t in ts),
+                        ms=mean("ms"), plain_ms=mean("plain_ms"),
+                        bound_ms=b_ms, bound_by=b_by,
+                        library_ms=mean("library_ms"))
+        if launches[key] <= 0:
+            fail(f"the diag_ops entry point never launched {num}")
+    return out
+
+
 def phase_profile():
     """Under torch.profiler: phase 3 again, with each kernel's device time
-    per launch beside its CUDA-graph time; then the headline and the
-    lamp_row renders' device time by kernel and the device's busy share of
-    the wall time (the profiler itself adds host time, so the share is a
-    lower bound)."""
+    per launch beside its CUDA-graph time; then the headline, lamp_row and
+    sphere_fractal renders' device time by kernel and the device's busy
+    share of the wall time (the profiler itself adds host time, so the
+    share is a lower bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -671,7 +923,8 @@ def phase_profile():
             device_ms_per_launch=f"{per_launch:.4f}",
             graph_ms_under_profiler=f"{ks[name]['ms']:.4f}")
     for tag, sc in (("headline", load_scene(SCENE, *HEADLINE)),
-                    ("lamp_row", load_scene(LAMP, *LAMP_SHAPE))):
+                    ("lamp_row", load_scene(LAMP, *LAMP_SHAPE)),
+                    ("sphere_fractal", load_scene(FRACTAL, *FRACTAL_SHAPE))):
         render(f"profile_warmup_{tag}", sc, 1 << 15)
         with profile(activities=acts) as prof:
             t0 = time.time()
@@ -715,8 +968,8 @@ def main(argv):
     runs = render("headline", load_scene(SCENE, *HEADLINE), 1 << 15, reps=2)
     hl = runs[-1]["launches"]
     ks["nee"]["launches"] = hl["nee"]
-    if int(runs[-1]["hash"]) != GLASS_HASH or hl["scene_top2"] \
-            or hl["scene_anyhit"]:
+    if int(runs[-1]["hash"]) != GLASS_HASH \
+            or any(hl[k] for k in SCENE_KEYS):
         fail(f"slice 1 moved: headline hash {runs[-1]['hash']} (want "
              f"{GLASS_HASH}), launches {hl}")
     render("shipped", load_scene(SCENE, *SHIPPED), 1 << 14)
@@ -726,6 +979,15 @@ def main(argv):
     for k in ("scene_top2", "scene_anyhit"):
         ks[k]["launches"] = lamp_runs[-1]["launches"][k]
     phase_lamp_counter(*LAMP_COUNTER)
+    t0 = time.time()
+    fractal = load_scene(FRACTAL, *FRACTAL_SHAPE)
+    say("load sphere_fractal", seconds=f"{time.time() - t0:.1f}")
+    frac_runs, cap = phase_fractal(fractal)
+    ks.update(phase_big_kernels(cap))
+    for k in ("big_top2", "big_anyhit"):
+        ks[k]["launches"] = frac_runs[-1]["launches"][k]
+    phase_fractal_counter(fractal)
+    ks.update(phase_ops())
     wine = os.path.join(CORPUS, "wine_glass.acn")
     if CORPUS and os.path.exists(wine):
         render("wine_glass", load_scene(wine, *HEADLINE), 1 << 15)
@@ -742,7 +1004,8 @@ def main(argv):
             "library_ms")
     print(json.dumps({"kernels": [{k: ks[n][k] for k in keys} for n in (
         "nee", "shadow_any_hit", "object_hit", "scene_top2",
-        "scene_anyhit")]}), flush=True)
+        "scene_anyhit", "big_top2", "big_anyhit", "diag_unary",
+        "diag_expr")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

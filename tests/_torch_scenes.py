@@ -102,6 +102,25 @@ def lamp_scene(ho, direct_samples=3, depth=6, path_samples=0):
     return sc
 
 
+def many_sphere_scene(ho, n=600, seed=3):
+    """A light over n random matter spheres (a copy of
+    tests/test_bigscene.py:_many_sphere_scene, returning the scene): more
+    than BIG_MIN_ROWS spheres, so the big-scene kernels apply."""
+    rng = np.random.default_rng(seed)
+    sc = ho.Scene()
+    light = ho.Sphere(0.4)
+    light.move(ho.v3(0, 0, 15))
+    light.prp.radiance = 50.0
+    sc.push(light)
+    centers = rng.uniform(-8, 8, (n, 3))
+    radii = rng.uniform(0.15, 0.5, n)
+    for c, r in zip(centers, radii):
+        s = ho.Sphere(float(r))
+        s.move(ho.v3(*c))
+        sc.push(s)
+    return sc
+
+
 def rays(n=512, seed=1, spread=7.0):
     """Seeded rays in float32: origins uniform in a cube, unit directions."""
     rng = np.random.default_rng(seed)

@@ -9,8 +9,8 @@ held to the contracts of tests/test_pallas.py and
 tests/test_pallas_scene.py against its plain PyTorch version on the same
 CUDA tensors: shadow booleans agree on >= 99.8 % of rays, object hits
 agree in finiteness on >= 99.8 % and in t within 1e-3 (1 + t), NEE
-radiance is within rel 1e-2 on >= 99 % of lanes; the scene kernels as
-stated above their tests."""
+radiance is within rel 1e-2 on >= 99 % of lanes; the scene, big-scene
+and diagnostic kernels as stated above their tests."""
 
 import os
 
@@ -282,3 +282,139 @@ def test_scene_wrappers_refuse_bad_tensors(scene_tr):
         scene_kernels.scene_anyhit(scene_tr, p, d.t().contiguous().t(), lim)
     with pytest.raises(ValueError, match="shape"):
         scene_kernels.scene_anyhit(scene_tr, p, d, lim[:10])
+
+
+# -- K6 and K7, the big-scene sphere kernels ---------------------------------
+#
+# Contracts of tests/test_bigscene.py against the plain versions on the
+# same CUDA tensors: finiteness equal on >= 99.8 % of rays, block indices
+# equal on >= 99 % of the finite lanes, t within 2e-4 (1 + t) where they
+# agree, any-hit booleans equal on >= 99.8 % of rays.
+
+
+@pytest.fixture(scope="module")
+def big_tr():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from actinon_tpu_torch.render.tracer import Tracer
+    from actinon_tpu_torch.scene import ir as sir
+    from actinon_tpu_torch.scene import objects as ho
+    import _torch_scenes as S
+    tr = Tracer(sir.compile_scene(S.many_sphere_scene(ho, n=2000)),
+                dtype=np.float32, device="cuda")
+    assert tr._bigscene_ok()
+    return tr
+
+
+def _big_rays(n, seed):
+    import _torch_scenes as S
+    p, d = S.rays(n, seed=seed, spread=10.0)
+    lim = np.random.default_rng(seed).uniform(0.5, 20.0, n).astype(
+        np.float32)
+    lim[::7] = np.inf
+    return (torch.as_tensor(x, device="cuda") for x in (p, d, lim))
+
+
+def test_big_top2_kernel_matches_plain(big_tr):
+    from actinon_tpu_torch.render import bigscene, kernels
+    p, d, _ = _big_rays(8192, 31)
+    big = big_tr._bigscene()
+    before = kernels.LAUNCHES["big_top2"]
+    t_k, g_k = bigscene.big_top2(big_tr, p, d)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["big_top2"] == before + 1
+    t_p, g_p = bigscene.big_top2_plain(big.blocks, p, d, table=big.table)
+    fin_k, fin_p = torch.isfinite(t_k), torch.isfinite(t_p)
+    assert float(fin_p[:, 0].float().mean()) > 0.2
+    assert float((fin_k == fin_p).float().mean()) >= 0.998
+    both = fin_k & fin_p
+    assert float((g_k[both] == g_p[both]).float().mean()) >= 0.99
+    same = both & (g_k == g_p)
+    assert bool((torch.abs(t_k[same] - t_p[same])
+                 <= 2e-4 * (1 + torch.abs(t_p[same]))).all())
+    assert bool((g_k[~fin_k] == 0).all())
+
+
+def test_big_anyhit_kernel_matches_plain(big_tr):
+    from actinon_tpu_torch.render import bigscene, kernels
+    p, d, lim = _big_rays(8192, 32)
+    big = big_tr._bigscene()
+    before = kernels.LAUNCHES["big_anyhit"]
+    got = bigscene.big_anyhit(big_tr, p, d, lim)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["big_anyhit"] == before + 1
+    want = bigscene.big_anyhit_plain(big.blocks, p, d, lim, table=big.table)
+    assert want.any() and (~want).any()
+    assert float((got == want).float().mean()) >= 0.998
+
+
+def test_big_wrappers_refuse_bad_tensors(big_tr):
+    from actinon_tpu_torch.render import bigscene
+    p, d, lim = _big_rays(64, 33)
+    with pytest.raises(TypeError):
+        bigscene.big_top2(big_tr, p.double(), d)
+    with pytest.raises(ValueError, match="shape"):
+        bigscene.big_anyhit(big_tr, p, d, lim[:10])
+
+
+def test_big_scene_render_launches_k4_k6_k7(big_tr, tmp_path):
+    """A small render of the sphere scene goes through K6 and K7 (and K4
+    for the light), never K1, K2 or K5, and repeats its fold hash."""
+    from actinon_tpu_torch.render import kernels
+    from actinon_tpu_torch.render.driver import render_scene
+    from actinon_tpu_torch.scene import objects as ho
+    import _torch_scenes as S
+    sc = S.many_sphere_scene(ho, n=2000)
+    cfg = sc.cfg
+    cfg.image_width, cfg.image_height = 32, 24
+    cfg.direct_samples, cfg.trace_depth = 2, 4
+    cfg.camera_position = (0.0, -14.0, 2.0)
+    cfg.camera_view_direction = (0.0, 1.0, 0.0)
+    cfg.camera_top_direction = (0.0, 0.0, 1.0)
+    hashes = []
+    for k in range(2):
+        stats = {}
+        kernels.reset_launches()
+        img = render_scene(sc.clone(), str(tmp_path / f"{k}.pnm"),
+                           force=True, verbose=False, batch=1 << 12,
+                           device="cuda", stats=stats)
+        assert np.isfinite(img).all()
+        L = kernels.LAUNCHES
+        assert L["big_top2"] > 0 and L["big_anyhit"] > 0
+        assert L["scene_top2"] > 0
+        assert L["nee"] == L["shadow"] == L["scene_anyhit"] == 0
+        hashes.append(stats["hash"])
+    assert hashes[0] == hashes[1]
+
+
+# -- K8 and K9, the diagnostic ops -------------------------------------------
+
+
+def test_diag_kernels_match_torch():
+    """Each op launches its kernel once and is held to torch's op on the
+    same tensor: sqrt and division bit-equal (IEEE-rounded in both), the
+    library transcendentals and rsqrt within 4 ulp, a * b + c within one
+    rounding of each term (the kernel's FMA against torch's two
+    roundings)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from actinon_tpu_torch import diag_ops
+    from actinon_tpu_torch.render import kernels
+    inp = diag_ops.tool_inputs("cuda")
+    for name in diag_ops.UNARY:
+        x = inp["x"][name]
+        before = kernels.LAUNCHES["diag_unary"]
+        got = diag_ops.unary(name, x)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["diag_unary"] == before + 1
+        ud = diag_ops.ulp_diff(got, diag_ops.unary_plain(name, x))
+        assert int(ud.max()) <= (0 if name == "sqrt" else 4), name
+    a, b, c = inp["args"]["mul_add"]
+    before = kernels.LAUNCHES["diag_expr"]
+    assert int(diag_ops.ulp_diff(diag_ops.expr("div", a, b), a / b).max()) \
+        == 0
+    got = diag_ops.expr("mul_add", a, b, c)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["diag_expr"] == before + 2
+    err = torch.abs(got - (a * b + c))
+    assert bool((err <= 2.0 ** -23 * (torch.abs(a * b) + torch.abs(c))).all())

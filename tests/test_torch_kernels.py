@@ -174,7 +174,9 @@ def test_cpu_wrappers_launch_nothing(pair):
                            torch.full((8,), 5.0))
     kernels.object_hit(tt, 0, torch.as_tensor(p), torch.as_tensor(d))
     assert kernels.LAUNCHES == {"nee": 0, "shadow": 0, "object_hit": 0,
-                                "scene_top2": 0, "scene_anyhit": 0}
+                                "scene_top2": 0, "scene_anyhit": 0,
+                                "big_top2": 0, "big_anyhit": 0,
+                                "diag_unary": 0, "diag_expr": 0}
 
 
 def test_scene_table_layout(pair):

@@ -72,9 +72,9 @@ def _comps(comps):
     return [(c.oid, list(c.rows), repr(c.tree)) for c in comps]
 
 
-def _assert_tables_equal(jt, tt, matter_only):
-    a = ps.SceneTable(jt, matter_only=matter_only)
-    b = sk.SceneTable(tt, matter_only=matter_only)
+def _assert_tables_equal(jt, tt, matter_only, exclude_rows=None):
+    a = ps.SceneTable(jt, matter_only=matter_only, exclude_rows=exclude_rows)
+    b = sk.SceneTable(tt, matter_only=matter_only, exclude_rows=exclude_rows)
     np.testing.assert_array_equal(b.table, a.table)
     np.testing.assert_array_equal(b.bounds, a.bounds)
     assert b.eps == a.eps
