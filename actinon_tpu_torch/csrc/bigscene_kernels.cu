@@ -13,33 +13,59 @@
 // [G, 8] f32, rows 0..3 = the block's bounding-sphere centre and squared
 // radius (member surfaces + 2 eps).
 //
-// Design.  One thread per ray, 256 threads a block; each thread walks the
-// G blocks in Morton order.  The TPU kernel tiles 256 rays and skips a
-// block only when no ray of the tile touches its bound (a tile-wide
-// pl.when); here the cull is per ray, which is exact and tighter: the
-// bound covers every member's surface plus 2 eps.  K6 keeps the Pallas
-// merge order: per block the best lane b1 (first lane on ties) and the
-// second best b2 with that lane masked out, then the merge formulas of
-// pallas_bigscene.py:205-214, applied where b1 beats the ray's second best
-// (the tile gate any(b1 < t2) of pallas_bigscene.py:192, made per ray;
-// where b1 == t2 exactly the TPU can swap the second index, the port keeps
-// it).  K7 culls with the limit-aware entry test and a thread returns as
-// soon as its ray is blocked.  Table reads: a thread that passes a block
-// reads its four rows x 128 lanes from global memory; threads of a warp
-// that pass the same block read the same addresses, a broadcast through
-// L1.  No atomics: results are deterministic.
+// K6 design: one warp per ray, the 128 sphere lanes of a block across the
+// warp, as the TPU kernel lays them across the vector lanes of a
+// [rays, 128] tile.  8 warps (rays) a thread block.  The block bounds are
+// staged in shared memory, kChunk at a time with cp.async, the next chunk
+// in flight while the warps test the current one; G has no limit.  Per 32
+// blocks, lane j tests block c * 32 + j against the ray, and a ballot gives
+// the warp the passed blocks, visited in ascending (Morton) order.  From
+// there on the warp is uniform: lane j evaluates sphere lanes j, j + 32,
+// j + 64, j + 96 (each table row read as 32 neighbouring floats), keeps a
+// local top-2, and five xor shuffles combine the 32 local pairs into the
+// block's best two.  The Pallas merge (pallas_bigscene.py:205-214) then
+// runs on every lane, applied where the block's best beats the ray's
+// second best (the tile gate any(b1 < t2) of pallas_bigscene.py:192, made
+// per ray; the cull per ray is exact and tighter than the TPU's tile-wide
+// pl.when).  No atomics: results are deterministic.
 //
-// What bounds it on this card: FP32 operations (about 40 a sphere lane, 19
-// a block test), not bytes: a ray reads 24 (K7: 28) bytes and writes 16
-// (K7: 1), and the table (16 KB a block of the 4 rows read) stays in L2.
-// Not done yet: staging blocks in shared memory, and grouping rays so that
-// the threads of a warp pass the same blocks.
+// The tie rule.  The serial rule walks a block's lanes in order and keeps
+// (b1, l1), (b2, l2) with strict compares from (INF, 0), (INF, 0): the
+// first lane wins a tie for b1, the best of the other lanes is b2.  That
+// is the two smallest of the candidates below INF under the total order
+// (t, lane), padded with (INF, 0); INF and NaN candidates never enter.
+// Each lane's local pair comes from the same strict insertion over its
+// four lanes in ascending order.  top2_combine takes the two smallest of
+// two such pairs under (t, lane).  Lane indices are distinct and every
+// real candidate lies below the pad, so equal entries are identical pads:
+// the combine is associative and commutative, every lane ends with the
+// same pair, and that pair is the serial rule's bit for bit, INF slots and
+// their index 0 included.  (An INF slot's index could not reach the
+// output anyway: the merge takes gi2 only where b2 < t2, and a miss keeps
+// gidx 0.)
+//
+// K7: one thread per ray, 256 threads a block, the G blocks in Morton
+// order, the limit-aware cull per ray, a thread returning at its ray's
+// first hit.
+//
+// What bounds them on this card: FP32 operations (about 40 a sphere lane,
+// 19 a block test), not bytes: a ray reads 24 (K7: 28) bytes and writes 16
+// (K7: 1), and the 4 rows read of the table (2 KB a block, 512 KB at G =
+// 256) stay in L2.  K6 reads a passed block once per (ray, block) from
+// L2; staging table blocks in shared memory would pay only where several
+// warps of a thread block pass the same block, which is not measured yet.
+// Why not the tensor cores: over a tile of rays x spheres, s and q are
+// rank-4 products and could be a GEMM, but in f32 that GEMM runs as TF32,
+// which moves roots near eps and flips hits; the repo keeps f32
+// contractions exact (ROADMAP "Numerics", actinon_tpu/__init__.py:21-27).
 //
 // Numerics: f32, no fast-math, the expression order of the Pallas helpers
 // (nvcc contracts to FMA, so results agree with the plain version at f32
 // tolerance, not bit for bit).  Interface: plain C functions, loaded with
 // ctypes.  Each launches on the stream it is given and returns
-// cudaGetLastError().
+// cudaGetLastError().  The kernels' helpers compile as host C++ too
+// (tests/test_torch_bigscene.py runs them there); the warp kernel, which
+// needs the card's shuffles and shared memory, does not.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -93,17 +119,16 @@ __device__ __forceinline__ float sphere_cand(const float* __restrict__ blk,
     return a - eps;
 }
 
-// The ray may touch block g's bound (pallas_bigscene.py:141-156): s on
-// CENTER minus ORIGIN, so forward is s > 0.  has_lim: the any-hit test,
-// where the bound's entry must lie within the limit (280-291).
-__device__ __forceinline__ bool block_cull(const float* __restrict__ bounds,
-                                           int g, const Ray& r, bool has_lim,
-                                           float lim) {
-    const float* b = bounds + 8 * g;
-    const float ex = __ldg(b) - r.px, ey = __ldg(b + 1) - r.py,
-                ez = __ldg(b + 2) - r.pz;
+// The ray may touch the bound of centre (bx, by, bz) and squared radius
+// br2 (pallas_bigscene.py:141-156): s on CENTER minus ORIGIN, so forward
+// is s > 0.  has_lim: the any-hit test, where the bound's entry must lie
+// within the limit (280-291).
+__device__ __forceinline__ bool bound_hit(float bx, float by, float bz,
+                                          float br2, const Ray& r,
+                                          bool has_lim, float lim) {
+    const float ex = bx - r.px, ey = by - r.py, ez = bz - r.pz;
     const float s = (ex * r.dx + ey * r.dy) + ez * r.dz;
-    const float q = ((ex * ex + ey * ey) + ez * ez) - __ldg(b + 3);
+    const float q = ((ex * ex + ey * ey) + ez * ez) - br2;
     const float disc = s * s - q;
     const bool hit = (disc >= 0.0f) && ((s > 0.0f) || (q < 0.0f));
     if (!has_lim) return hit;
@@ -111,55 +136,176 @@ __device__ __forceinline__ bool block_cull(const float* __restrict__ bounds,
     return hit && (te <= lim);
 }
 
+// The ray may touch block g's bound.
+__device__ __forceinline__ bool block_cull(const float* __restrict__ bounds,
+                                           int g, const Ray& r, bool has_lim,
+                                           float lim) {
+    const float* b = bounds + 8 * g;
+    return bound_hit(__ldg(b), __ldg(b + 1), __ldg(b + 2), __ldg(b + 3), r,
+                     has_lim, lim);
+}
+
+// ---- K6's top-2 helpers (see "The tie rule" above) ----
+
+// Two (t, index) candidates, t1 before t2: a block's best two lanes, or a
+// ray's best two sphere hits (index = gidx).
+struct Top2 {
+    float t1, t2;
+    int i1, i2;
+};
+
+__device__ __forceinline__ Top2 top2_empty() {
+    return Top2{finf(), finf(), 0, 0};
+}
+
+// (a, ia) comes before (b, ib) under the order (t, index).
+__device__ __forceinline__ bool top2_before(float a, int ia, float b,
+                                            int ib) {
+    return a < b || (a == b && ia < ib);
+}
+
+// One step of the serial rule: candidate a of index i, pushed after every
+// index that v already saw, with strict compares.
+__device__ __forceinline__ void top2_push(Top2& v, float a, int i) {
+    if (a < v.t1) {
+        v.t2 = v.t1;
+        v.i2 = v.i1;
+        v.t1 = a;
+        v.i1 = i;
+    } else if (a < v.t2) {
+        v.t2 = a;
+        v.i2 = i;
+    }
+}
+
+// The best two of the union of two disjoint candidate sets, under
+// (t, index): what each xor-shuffle step applies.
+__device__ __forceinline__ Top2 top2_combine(const Top2& x, const Top2& y) {
+    if (top2_before(y.t1, y.i1, x.t1, x.i1)) {
+        const bool xs = top2_before(x.t1, x.i1, y.t2, y.i2);
+        return Top2{y.t1, xs ? x.t1 : y.t2, y.i1, xs ? x.i1 : y.i2};
+    }
+    const bool ys = top2_before(y.t1, y.i1, x.t2, x.i2);
+    return Top2{x.t1, ys ? y.t1 : x.t2, x.i1, ys ? y.i1 : x.i2};
+}
+
+// Lane j's local best two of one block: sphere lanes j, j + 32, j + 64,
+// j + 96, in ascending order.
+__device__ __forceinline__ Top2 lane_top2(const float* __restrict__ blk,
+                                          int j, const Ray& r, float eps) {
+    Top2 v = top2_empty();
+#pragma unroll
+    for (int k = 0; k < LB / 32; ++k)
+        top2_push(v, sphere_cand(blk, j + 32 * k, r, eps), j + 32 * k);
+    return v;
+}
+
+// The Pallas merge (pallas_bigscene.py:205-214) of block g's best two b
+// (lane indices) into the ray's pair, where b's best beats the ray's
+// second best.
+__device__ __forceinline__ void top2_merge(Top2& ray, const Top2& b, int g) {
+    if (!(b.t1 < ray.t2)) return;
+    const int gi1 = g * LB + b.i1, gi2 = g * LB + b.i2;
+    const float hi_t = fmaxf(ray.t1, b.t1);
+    const int hi_i = b.t1 < ray.t1 ? ray.i1 : gi1;
+    const float w2 = fminf(ray.t2, b.t2);
+    const int w2i = b.t2 < ray.t2 ? gi2 : ray.i2;
+    ray.i1 = b.t1 < ray.t1 ? gi1 : ray.i1;
+    ray.t1 = fminf(ray.t1, b.t1);
+    ray.t2 = fminf(hi_t, w2);
+    ray.i2 = hi_t <= w2 ? hi_i : w2i;
+}
+
 // ---- kernels ----
 
-__global__ void __launch_bounds__(256)
+constexpr int kTop2Warps = 8;   // K6: rays (one warp each) a thread block
+constexpr int kChunk = 128;     // K6: block bounds a shared-memory stage holds
+
+#ifdef __CUDACC__
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// Stage bounds [g0, g0 + m): the first four words (centre, r2) of each
+// 32-byte row, one 16-byte cp.async a bound, as one commit group.
+__device__ __forceinline__ void stage_bounds(float (*dst)[4],
+                                             const float* __restrict__ bounds,
+                                             int g0, int m) {
+    for (int k = threadIdx.x; k < m; k += blockDim.x) {
+        const unsigned s = (unsigned)__cvta_generic_to_shared(dst[k]);
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                     "l"(bounds + 8 * (size_t)(g0 + k)));
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void stage_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ Top2 shfl_xor(const Top2& v, int m) {
+    return Top2{__shfl_xor_sync(kFull, v.t1, m),
+                __shfl_xor_sync(kFull, v.t2, m),
+                __shfl_xor_sync(kFull, v.i1, m),
+                __shfl_xor_sync(kFull, v.i2, m)};
+}
+
+__global__ void __launch_bounds__(kTop2Warps * 32)
 big_top2_kernel(const float* __restrict__ table,
                 const float* __restrict__ bounds, int G,
                 const float* __restrict__ p, const float* __restrict__ d,
                 float* __restrict__ t_out, int* __restrict__ i_out, int n,
                 float eps) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const float inf = finf();
-    const Ray r = load_ray(p, d, i);
-    float t1 = inf, t2 = inf;
-    int i1 = 0, i2 = 0;
-    for (int g = 0; g < G; ++g) {
-        if (!block_cull(bounds, g, r, false, 0.0f)) continue;
-        const float* blk = table + (size_t)g * 8 * LB;
-        // the block's best and second-best lanes, first lane on ties
-        float b1 = inf, b2 = inf;
-        int l1 = 0, l2 = 0;
-        for (int lane = 0; lane < LB; ++lane) {
-            const float a = sphere_cand(blk, lane, r, eps);
-            if (a < b1) {
-                b2 = b1;
-                l2 = l1;
-                b1 = a;
-                l1 = lane;
-            } else if (a < b2) {
-                b2 = a;
-                l2 = lane;
+    __shared__ __align__(16) float stage[2][kChunk][4];
+    const int lane = threadIdx.x & 31;
+    const int i = blockIdx.x * kTop2Warps + (threadIdx.x >> 5);
+    // a warp past the last ray still stages and meets the barriers
+    const bool live = i < n;
+    const Ray r = load_ray(p, d, live ? i : 0);
+    Top2 ray = top2_empty();
+    const int n_chunks = (G + kChunk - 1) / kChunk;
+    stage_bounds(stage[0], bounds, 0, min(kChunk, G));
+    for (int c = 0; c < n_chunks; ++c) {
+        const int g0 = c * kChunk, m = min(kChunk, G - g0);
+        if (c + 1 < n_chunks) {
+            stage_bounds(stage[(c + 1) & 1], bounds, g0 + kChunk,
+                         min(kChunk, G - g0 - kChunk));
+            stage_wait<1>();
+        } else {
+            stage_wait<0>();
+        }
+        __syncthreads();
+        if (live) {
+            const float(*sb)[4] = stage[c & 1];
+            for (int s = 0; s < m; s += 32) {
+                const int j = s + lane;
+                const bool pass = j < m && bound_hit(sb[j][0], sb[j][1],
+                                                     sb[j][2], sb[j][3], r,
+                                                     false, 0.0f);
+                for (unsigned mask = __ballot_sync(kFull, pass); mask;
+                     mask &= mask - 1) {
+                    const int g = g0 + s + __ffs(mask) - 1;
+                    Top2 v = lane_top2(table + (size_t)g * 8 * LB, lane, r,
+                                       eps);
+#pragma unroll
+                    for (int o = 16; o > 0; o >>= 1)
+                        v = top2_combine(v, shfl_xor(v, o));
+                    top2_merge(ray, v, g);
+                }
             }
         }
-        if (!(b1 < t2)) continue;
-        // the Pallas merge (pallas_bigscene.py:205-214)
-        const int gi1 = g * LB + l1, gi2 = g * LB + l2;
-        const float hi_t = fmaxf(t1, b1);
-        const int hi_i = b1 < t1 ? i1 : gi1;
-        const float w2 = fminf(t2, b2);
-        const int w2i = b2 < t2 ? gi2 : i2;
-        i1 = b1 < t1 ? gi1 : i1;
-        t1 = fminf(t1, b1);
-        t2 = fminf(hi_t, w2);
-        i2 = hi_t <= w2 ? hi_i : w2i;
+        // the stage just read is refilled by the next chunk's prefetch
+        __syncthreads();
     }
-    t_out[2 * i] = t1;
-    t_out[2 * i + 1] = t2;
-    i_out[2 * i] = i1;
-    i_out[2 * i + 1] = i2;
+    if (live && lane == 0) {
+        t_out[2 * i] = ray.t1;
+        t_out[2 * i + 1] = ray.t2;
+        i_out[2 * i] = ray.i1;
+        i_out[2 * i + 1] = ray.i2;
+    }
 }
+
+#endif  // __CUDACC__
 
 __global__ void __launch_bounds__(256)
 big_anyhit_kernel(const float* __restrict__ table,
@@ -186,9 +332,11 @@ big_anyhit_kernel(const float* __restrict__ table,
     out[i] = 0;
 }
 
-constexpr int kBlock = 256;
+constexpr int kBlock = 256;     // K7: rays (one thread each) a thread block
 
-inline int grid_of(int n) { return (n + kBlock - 1) / kBlock; }
+inline int grid_of(int n, int per_block) {
+    return (n + per_block - 1) / per_block;
+}
 
 }  // namespace
 
@@ -197,15 +345,18 @@ extern "C" {
 int actinon_big_top2(const float* table, const float* bounds, int G,
                      const float* p, const float* d, float* t_out,
                      int* i_out, int n, float eps, void* stream) {
-    big_top2_kernel<<<grid_of(n), kBlock, 0, (cudaStream_t)stream>>>(
-        table, bounds, G, p, d, t_out, i_out, n, eps);
+    // cp.async copies 16-byte bound rows
+    if ((uintptr_t)bounds % 16 != 0) return (int)cudaErrorMisalignedAddress;
+    big_top2_kernel<<<grid_of(n, kTop2Warps), kTop2Warps * 32, 0,
+                      (cudaStream_t)stream>>>(table, bounds, G, p, d, t_out,
+                                              i_out, n, eps);
     return (int)cudaGetLastError();
 }
 
 int actinon_big_anyhit(const float* table, const float* bounds, int G,
                        const float* p, const float* d, const float* lim,
                        uint8_t* out, int n, float eps, void* stream) {
-    big_anyhit_kernel<<<grid_of(n), kBlock, 0, (cudaStream_t)stream>>>(
+    big_anyhit_kernel<<<grid_of(n, kBlock), kBlock, 0, (cudaStream_t)stream>>>(
         table, bounds, G, p, d, lim, out, n, eps);
     return (int)cudaGetLastError();
 }

@@ -16,36 +16,55 @@
 // an int32 shape descriptor (SH_* records, then slots, postfix CSG
 // programs and the host's Batcher comparator pairs).
 //
-// Design.  One thread per ray, 128 threads a block.  Each thread walks the
-// shapes in table order and each shape's member blocks of 128; a block
-// whose bound the ray misses (per ray: exact, because every member's
-// envelope lies inside the bound) is skipped.  Member parameters are read
-// from the row-major table, and every thread of a warp reads the same
-// member at the same time, so each load is a broadcast.  Per member, the
-// f32 expressions of the Pallas helpers: the generalized-quadric roots and
-// root policy, the envelope interval, the bidirectional sphere march (a
-// loop of at most `cycles` steps that ends at the crossing, at the
-// envelope exit, or at the shadow limit), 4 sequential marches per SDF
-// slot of a cluster, and the sorted incremental toggle walk: the host's
-// comparator pairs sort up to 64 crossings in a local array, then one
-// sweep toggles a 32-bit inside mask and evaluates the postfix CSG program
-// until the first flip.  The K4 merge keeps the Pallas order: per member
-// block the block's best and second-best (first lane on ties), then the
-// merge formulas of pallas_scene.py:870-881.  K5 stops a ray at its first
-// hit.  No atomics: results are deterministic.
+// Per member, the f32 expressions of the Pallas helpers: the
+// generalized-quadric roots and root policy, the envelope interval, the
+// bidirectional sphere march (a loop of at most `cycles` steps that ends
+// at the crossing, at the envelope exit, or at the shadow limit), 4
+// sequential marches per SDF slot of a cluster, and the sorted incremental
+// toggle walk: the host's comparator pairs sort up to 64 crossings in a
+// local array, then one sweep toggles a 32-bit inside mask and evaluates
+// the postfix CSG program until the first flip.  Each ray walks the shapes
+// in table order and each shape's member blocks of 128; a block whose
+// bound the ray misses (per ray: exact, because every member's envelope
+// lies inside the bound) is skipped.  No atomics: results are
+// deterministic.
 //
-// What bounds it on this card: FP32 operations — the march steps and the
-// walk — not bytes (a ray reads 28 bytes and writes at most 16, and the
-// table is read from L1/L2 as broadcasts).  The design keeps the work to
-// what each ray needs: per-ray block culls, member envelope gates before
-// any root or march, early-exit marches with the envelope-exit and limit
-// bails, and a sweep that ends at the first flip.  Not done yet: staging
-// shape blocks in shared memory, and regrouping rays so that the lanes of
-// a warp march together (marching lanes diverge).
+// K4 design: one warp per ray, the 128 member lanes of a block across the
+// warp, as the TPU kernel lays them across the vector lanes of a
+// [rays, 128] tile; 4 warps (rays) a thread block.  Each thread block
+// first copies the int32 descriptor and the bounds' (centre, r2) into
+// shared memory, so every descriptor field, slot record, postfix program
+// and comparator pair that member_boundary reads comes from there.  The
+// block cull is per ray, so every lane computes it alike.  Lane j
+// evaluates members j, j + 32, j + 64, j + 96 of a block (each feature row
+// read as 32 neighbouring floats) and keeps a local top-2 of (t, code);
+// five xor shuffles combine the 32 local pairs into the block's best two,
+// then every lane runs the Pallas merge (pallas_scene.py:870-881).  The
+// tie rule is the serial one (members in order, strict compares, first
+// lane on ties), bit for bit: see csrc/bigscene_kernels.cu, whose argument
+// holds here with the code for the lane index (a code grows with its lane
+// within a block) and (INF, -1) for the pad; a light member masked for a
+// matter ray is no candidate, as in the serial walk.  What this does not
+// do: a warp still waits for its longest march while its gated-out lanes
+// idle, and a cluster member's 64 crossings still sort in local memory
+// (the ts/lf arrays, with small spills); those belong with K5's redesign.
+//
+// K5: one thread per ray, 128 threads a block, the same walk, the member
+// lanes of a block in a loop, the descriptor read from global memory; a
+// ray stops at its first hit.
+//
+// What bounds them on this card: FP32 operations — the march steps and the
+// walk — not bytes (a ray reads 28 bytes and writes at most 16, the table
+// stays in L2).  The design keeps the work to what each ray needs: per-ray
+// block culls, member envelope gates before any root or march, early-exit
+// marches with the envelope-exit and limit bails, and a sweep that ends at
+// the first flip.
 //
 // Numerics: f32, no fast-math.  Interface: plain C functions, loaded with
 // ctypes.  Each launches on the stream it is given and returns
-// cudaGetLastError().
+// cudaGetLastError().  The kernels' helpers compile as host C++ too
+// (tests/test_torch_scene_kernels.py runs them there); the warp kernel,
+// which needs the card's shuffles and shared memory, does not.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -377,16 +396,14 @@ __device__ float member_boundary(const int* __restrict__ desc,
     return best < F32_BIG ? best - E.eps : inf;
 }
 
-// The ray may touch block bid's bound (r2 < 0: unbounded).  has_lim: the
-// any-hit test, where the bound's entry must lie within the limit.
-__device__ __forceinline__ bool block_cull(const float* __restrict__ bounds,
-                                           int bid, const Ray& r,
-                                           bool has_lim, float lim) {
-    const float* b = bounds + 8 * bid;
-    const float r2 = __ldg(b + 3);
+// The ray may touch the bound of centre (bx, by, bz) and squared radius r2
+// (r2 < 0: unbounded).  has_lim: the any-hit test, where the bound's entry
+// must lie within the limit.
+__device__ __forceinline__ bool bound_hit(float bx, float by, float bz,
+                                          float r2, const Ray& r,
+                                          bool has_lim, float lim) {
     if (r2 < 0.0f) return true;
-    const float ex = __ldg(b) - r.px, ey = __ldg(b + 1) - r.py,
-                ez = __ldg(b + 2) - r.pz;
+    const float ex = bx - r.px, ey = by - r.py, ez = bz - r.pz;
     const float s = (ex * r.dx + ey * r.dy) + ez * r.dz;
     const float q = ((ex * ex + ey * ey) + ez * ez) - r2;
     const float disc = s * s - q;
@@ -394,6 +411,15 @@ __device__ __forceinline__ bool block_cull(const float* __restrict__ bounds,
     if (!has_lim) return hit;
     const float te = fmaxf(s - sqrtf(disc >= 0.0f ? disc : 0.0f), 0.0f);
     return hit && (te <= lim);
+}
+
+// The ray may touch block bid's bound.
+__device__ __forceinline__ bool block_cull(const float* __restrict__ bounds,
+                                           int bid, const Ray& r,
+                                           bool has_lim, float lim) {
+    const float* b = bounds + 8 * bid;
+    return bound_hit(__ldg(b), __ldg(b + 1), __ldg(b + 2), __ldg(b + 3), r,
+                     has_lim, lim);
 }
 
 __device__ __forceinline__ Eps make_eps(float eps) {
@@ -406,71 +432,153 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ p,
                d[3 * i], d[3 * i + 1], d[3 * i + 2]};
 }
 
+// ---- K4's top-2 helpers (the tie rule: csrc/bigscene_kernels.cu) ----
+
+// Two (t, code) candidates, t1 before t2: a block's best two members, or
+// a ray's best two.
+struct Top2 {
+    float t1, t2;
+    int i1, i2;
+};
+
+__device__ __forceinline__ Top2 top2_empty() {
+    return Top2{finf(), finf(), -1, -1};
+}
+
+// (a, ia) comes before (b, ib) under the order (t, code).
+__device__ __forceinline__ bool top2_before(float a, int ia, float b,
+                                            int ib) {
+    return a < b || (a == b && ia < ib);
+}
+
+// One step of the serial rule: candidate a of code i, pushed after every
+// member that v already saw, with strict compares.
+__device__ __forceinline__ void top2_push(Top2& v, float a, int i) {
+    if (a < v.t1) {
+        v.t2 = v.t1;
+        v.i2 = v.i1;
+        v.t1 = a;
+        v.i1 = i;
+    } else if (a < v.t2) {
+        v.t2 = a;
+        v.i2 = i;
+    }
+}
+
+// The best two of the union of two disjoint candidate sets, under
+// (t, code): what each xor-shuffle step applies.
+__device__ __forceinline__ Top2 top2_combine(const Top2& x, const Top2& y) {
+    if (top2_before(y.t1, y.i1, x.t1, x.i1)) {
+        const bool xs = top2_before(x.t1, x.i1, y.t2, y.i2);
+        return Top2{y.t1, xs ? x.t1 : y.t2, y.i1, xs ? x.i1 : y.i2};
+    }
+    const bool ys = top2_before(y.t1, y.i1, x.t2, x.i2);
+    return Top2{x.t1, ys ? y.t1 : x.t2, x.i1, ys ? y.i1 : x.i2};
+}
+
+// Lane j's local best two of member block b of shape sh: members j,
+// j + 32, j + 64, j + 96 below the block's member count, in ascending
+// order; a light member is skipped where mask_light.
+__device__ __forceinline__ Top2 lane_top2(const int* __restrict__ desc,
+                                          const int* __restrict__ sh,
+                                          const float* __restrict__ blk,
+                                          int b, int j, const Ray& r,
+                                          bool mask_light, const Eps& E) {
+    Top2 v = top2_empty();
+    const int n_lanes = min(LB, sh[SH_M] - b * LB);
+    for (int lane = j; lane < n_lanes; lane += 32) {
+        const Lane L{blk + lane};
+        if (mask_light && L[1] > 0.0f) continue;
+        int leaf;
+        const float a = member_boundary(desc, sh, L, r, false, 0.0f, E,
+                                        leaf);
+        top2_push(v, a, (sh[SH_ID] << 24) | ((b * LB + lane) << 8) | leaf);
+    }
+    return v;
+}
+
+// The Pallas merge (pallas_scene.py:870-881) of a block's best two b into
+// the ray's pair.
+__device__ __forceinline__ void top2_merge(Top2& ray, const Top2& b) {
+    const float hi_t = fmaxf(ray.t1, b.t1);
+    const int hi_i = b.t1 < ray.t1 ? ray.i1 : b.i1;
+    const float w2 = fminf(ray.t2, b.t2);
+    const int w2i = b.t2 < ray.t2 ? b.i2 : ray.i2;
+    ray.i1 = b.t1 < ray.t1 ? b.i1 : ray.i1;
+    ray.t1 = fminf(ray.t1, b.t1);
+    ray.t2 = fminf(hi_t, w2);
+    ray.i2 = hi_t <= w2 ? hi_i : w2i;
+}
+
 // ---- kernels ----
 
-__global__ void __launch_bounds__(128)
+constexpr int kTop2Warps = 4;   // K4: rays (one warp each) a thread block
+
+// K4's dynamic shared memory: the descriptor, padded to 16 bytes, then
+// (centre, r2) of each bound.
+inline size_t top2_shared_bytes(int n_desc, int n_bounds) {
+    return 4 * ((size_t)(n_desc + 3) / 4 * 4 + 4 * (size_t)n_bounds);
+}
+
+#ifdef __CUDACC__
+
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ Top2 shfl_xor(const Top2& v, int m) {
+    return Top2{__shfl_xor_sync(kFull, v.t1, m),
+                __shfl_xor_sync(kFull, v.t2, m),
+                __shfl_xor_sync(kFull, v.i1, m),
+                __shfl_xor_sync(kFull, v.i2, m)};
+}
+
+__global__ void __launch_bounds__(kTop2Warps * 32)
 scene_top2_kernel(const float* __restrict__ table,
                   const float* __restrict__ bounds,
                   const int* __restrict__ desc, const float* __restrict__ p,
                   const float* __restrict__ d, const float* __restrict__ lm,
                   float* __restrict__ t_out, int* __restrict__ c_out, int n,
-                  float eps) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const float inf = finf();
+                  float eps, int n_desc, int n_bounds) {
+    extern __shared__ __align__(16) int shared[];
+    int* sdesc = shared;
+    float* sbnd = reinterpret_cast<float*>(shared + (n_desc + 3) / 4 * 4);
+    for (int k = threadIdx.x; k < n_desc; k += blockDim.x)
+        sdesc[k] = desc[k];
+    for (int k = threadIdx.x; k < 4 * n_bounds; k += blockDim.x)
+        sbnd[k] = bounds[8 * (k >> 2) + (k & 3)];
+    __syncthreads();
+    const int i = blockIdx.x * kTop2Warps + (threadIdx.x >> 5);
+    if (i >= n) return;   // the whole warp: no barrier follows
+    const int lane = threadIdx.x & 31;
     const Ray r = load_ray(p, d, i);
     const bool lane_matter = lm[i] > 0.0f;
     const Eps E = make_eps(eps);
-    float t1 = inf, t2 = inf;
-    int i1 = -1, i2 = -1;
-    const int n_shapes = desc[0];
+    Top2 ray = top2_empty();
+    const int n_shapes = sdesc[0];
     for (int s = 0; s < n_shapes; ++s) {
-        const int* sh = desc + 1 + s * SH_SIZE;
+        const int* sh = sdesc + 1 + s * SH_SIZE;
         const bool mask_light = sh[SH_LIGHT] && lane_matter;
-        const int M = sh[SH_M];
         for (int b = 0; b < sh[SH_NBLK]; ++b) {
-            if (!block_cull(bounds, sh[SH_BID0] + b, r, false, 0.0f))
+            const float* bb = sbnd + 4 * (sh[SH_BID0] + b);
+            if (!bound_hit(bb[0], bb[1], bb[2], bb[3], r, false, 0.0f))
                 continue;
             const float* blk = table + (size_t)(sh[SH_ROW0]
                                                 + b * sh[SH_RPB]) * LB;
-            // the block's best and second-best lanes, first lane on ties
-            float b1 = inf, b2 = inf;
-            int g1 = -1, g2 = -1;
-            const int n_lanes = min(LB, M - b * LB);
-            for (int lane = 0; lane < n_lanes; ++lane) {
-                const Lane L{blk + lane};
-                if (mask_light && L[1] > 0.0f) continue;
-                int leaf;
-                const float a = member_boundary(desc, sh, L, r, false, 0.0f,
-                                                E, leaf);
-                const int code = (sh[SH_ID] << 24)
-                                 | ((b * LB + lane) << 8) | leaf;
-                if (a < b1) {
-                    b2 = b1;
-                    g2 = g1;
-                    b1 = a;
-                    g1 = code;
-                } else if (a < b2) {
-                    b2 = a;
-                    g2 = code;
-                }
-            }
-            // the Pallas merge (pallas_scene.py:870-881)
-            const float hi_t = fmaxf(t1, b1);
-            const int hi_i = b1 < t1 ? i1 : g1;
-            const float w2 = fminf(t2, b2);
-            const int w2i = b2 < t2 ? g2 : i2;
-            i1 = b1 < t1 ? g1 : i1;
-            t1 = fminf(t1, b1);
-            t2 = fminf(hi_t, w2);
-            i2 = hi_t <= w2 ? hi_i : w2i;
+            Top2 v = lane_top2(sdesc, sh, blk, b, lane, r, mask_light, E);
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1)
+                v = top2_combine(v, shfl_xor(v, o));
+            top2_merge(ray, v);
         }
     }
-    t_out[2 * i] = t1;
-    t_out[2 * i + 1] = t2;
-    c_out[2 * i] = is_finite(t1) ? i1 : -1;
-    c_out[2 * i + 1] = is_finite(t2) ? i2 : -1;
+    if (lane == 0) {
+        t_out[2 * i] = ray.t1;
+        t_out[2 * i + 1] = ray.t2;
+        c_out[2 * i] = is_finite(ray.t1) ? ray.i1 : -1;
+        c_out[2 * i + 1] = is_finite(ray.t2) ? ray.i2 : -1;
+    }
 }
+
+#endif  // __CUDACC__
 
 __global__ void __launch_bounds__(128)
 scene_anyhit_kernel(const float* __restrict__ table,
@@ -509,20 +617,36 @@ scene_anyhit_kernel(const float* __restrict__ table,
     out[i] = blocked ? 1 : 0;
 }
 
-constexpr int kBlock = 128;
+constexpr int kBlock = 128;     // K5: rays (one thread each) a thread block
+constexpr size_t kMaxShared = 232448;   // what a thread block may have
 
-inline int grid_of(int n) { return (n + kBlock - 1) / kBlock; }
+inline int grid_of(int n, int per_block) {
+    return (n + per_block - 1) / per_block;
+}
 
 }  // namespace
 
 extern "C" {
 
+// n_desc: the descriptor's int32 words; n_bounds: the rows of bounds.
+// Refuses (cudaErrorInvalidValue) a descriptor and bounds that do not fit
+// a thread block's shared memory.
 int actinon_scene_top2(const float* table, const float* bounds,
                        const int* desc, const float* p, const float* d,
                        const float* lm, float* t_out, int* c_out, int n,
-                       float eps, void* stream) {
-    scene_top2_kernel<<<grid_of(n), kBlock, 0, (cudaStream_t)stream>>>(
-        table, bounds, desc, p, d, lm, t_out, c_out, n, eps);
+                       float eps, int n_desc, int n_bounds, void* stream) {
+    const size_t shared = top2_shared_bytes(n_desc, n_bounds);
+    if (shared > kMaxShared) return (int)cudaErrorInvalidValue;
+    if (shared > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            scene_top2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)shared);
+        if (e != cudaSuccess) return (int)e;
+    }
+    scene_top2_kernel<<<grid_of(n, kTop2Warps), kTop2Warps * 32, shared,
+                        (cudaStream_t)stream>>>(
+        table, bounds, desc, p, d, lm, t_out, c_out, n, eps, n_desc,
+        n_bounds);
     return (int)cudaGetLastError();
 }
 
@@ -530,7 +654,8 @@ int actinon_scene_anyhit(const float* table, const float* bounds,
                          const int* desc, const float* p, const float* d,
                          const float* lim, uint8_t* out, int n, float eps,
                          void* stream) {
-    scene_anyhit_kernel<<<grid_of(n), kBlock, 0, (cudaStream_t)stream>>>(
+    scene_anyhit_kernel<<<grid_of(n, kBlock), kBlock, 0,
+                          (cudaStream_t)stream>>>(
         table, bounds, desc, p, d, lim, out, n, eps);
     return (int)cudaGetLastError();
 }

@@ -41,7 +41,14 @@ INF = math.inf
 F32_BIG = float(np.float32(3e38))
 LB = 128          # spheres per block (lanes)
 TR = 256          # rays per tile of the Pallas kernels; the CUDA kernels
-                  # take one ray per thread and do not tile by it
+                  # do not tile by it (K6: a warp a ray, K7: a thread)
+# K6's launch, as kTop2Warps and kChunk of csrc/bigscene_kernels.cu set
+# it: rays (one warp each) a thread block, block bounds a shared-memory
+# stage holds, and two stages of (centre, r2) at 16 bytes a bound
+TOP2_WARPS = 8
+BOUND_CHUNK = 128
+TOP2_LAUNCH = dict(threads=32 * TOP2_WARPS, rays_per_block=TOP2_WARPS,
+                   shared_bytes=2 * BOUND_CHUNK * 16)
 
 
 # ---------------------------------------------------------------------------

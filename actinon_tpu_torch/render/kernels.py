@@ -306,7 +306,7 @@ def _lib():
             lib.actinon_nee.argtypes = [P, P, P, P, I, I, P, P, P, P, P, P,
                                         P, P, P, P, I, F, P]
             lib.actinon_scene_top2.argtypes = [P, P, P, P, P, P, P, P, I,
-                                               F, P]
+                                               F, I, I, P]
             lib.actinon_scene_anyhit.argtypes = [P, P, P, P, P, P, P, I, F,
                                                  P]
             lib.actinon_big_top2.argtypes = [P, P, I, P, P, P, P, I, F, P]

@@ -57,6 +57,9 @@ AN_ROWS = 20      # M 9, m0 3, c2 3, c1 3, rr 1, kind 1
 SDF_ROWS = 13     # m 9, m0 3, param 1
 MAX_SHAPES = 128  # shape << 24 stays a positive int32
 MAX_MEMBERS = 1 << 16   # member << 8 holds 16 bits
+TOP2_WARPS = 4    # K4: rays (one warp each) a thread block; must match
+                  # kTop2Warps of csrc/scene_kernels.cu
+SHARED_MAX = 232448   # shared memory a thread block may have on sm_90
 
 # shape descriptor for csrc/scene_kernels.cu (int32 records after a
 # one-word header holding the shape count); must match the source
@@ -810,12 +813,28 @@ def scene_anyhit_plain(st: SceneTable, p, d, limit, work=None):
 # the wrappers
 
 
+def top2_launch(st: SceneTable) -> dict:
+    """K4's launch geometry over the table st: threads and rays (one
+    warp each) a thread block, and the dynamic shared memory that holds
+    the descriptor, padded to 16 bytes, and (centre, r2) of each bound
+    (csrc/scene_kernels.cu `top2_shared_bytes`)."""
+    words = -(-st.desc_t.numel() // 4) * 4 + 4 * st.bounds_t.shape[0]
+    return dict(threads=32 * TOP2_WARPS, rays_per_block=TOP2_WARPS,
+                shared_bytes=4 * words)
+
+
 def scene_top2(tr, p, d, lane_matter):
     """K4 over the tracer's full scene table: (t [N,2] f32, code [N,2]
-    int32).  p, d [N,3] and lane_matter [N] f32."""
+    int32).  p, d [N,3] and lane_matter [N] f32.  Raises where the
+    descriptor and bounds do not fit a thread block's shared memory."""
     st, _ = tr._scene_tables()
     if p.device.type == "cpu":
         return scene_top2_plain(st, p, d, lane_matter)
+    shared = top2_launch(st)["shared_bytes"]
+    if shared > SHARED_MAX:
+        raise ValueError(f"scene_top2: the descriptor and bounds need "
+                         f"{shared} bytes of shared memory, a thread "
+                         f"block has {SHARED_MAX}")
     N = p.shape[0]
     kernels._check(p, (N, 3), torch.float32, "p")
     kernels._check(d, (N, 3), torch.float32, "d")
@@ -827,7 +846,8 @@ def scene_top2(tr, p, d, lane_matter):
     rc = kernels._lib().actinon_scene_top2(
         st.table_t.data_ptr(), st.bounds_t.data_ptr(), st.desc_t.data_ptr(),
         p.data_ptr(), d.data_ptr(), lane_matter.data_ptr(), t.data_ptr(),
-        c.data_ptr(), N, float(st.eps), kernels._stream())
+        c.data_ptr(), N, float(st.eps), st.desc_t.numel(),
+        st.bounds_t.shape[0], kernels._stream())
     kernels._launched("scene_top2", rc)
     return t, c
 

@@ -7,7 +7,9 @@
 Phases, each printing one line of numbers:
 
   1. card    — torch's device name and nvidia-smi's name and power limit;
-  2. build   — nvcc builds csrc/*.cu from this checkout, in one call;
+  2. build   — nvcc builds csrc/*.cu from this checkout, in one call, and
+               one line per kernel of what ptxas reports (registers,
+               stack, spills, static shared memory);
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                same CUDA tensors (seeded rays over the smoke scene, the
                main path's shapes), with each kernel's device time per
@@ -25,24 +27,27 @@ Phases, each printing one line of numbers:
                port's plain render on the CPU at a small size;
   7. lamp_row render — the composite-heavy smoke scene lamp_row.acn at
                bench.py's hanging_lamp shape (160x120, direct=6, path=0,
-               depth=25, batch 1<<15), twice: equal fold hashes, and the
-               scene kernels K4 and K5 launched;
+               depth=25, batch 1<<15), twice: equal fold hashes that
+               repeat LAMP_HASH, and the scene kernels K4 and K5 launched;
   8. scene kernels — K4 and K5 against their plain versions on the inputs
                of the lamp_row render's largest calls (the drain batch for
                K4, one NEE chunk of flattened shadow rays for K5), with
-               device time, plain time and the bound;
+               device time, plain time, the bound and K4's launch geometry
+               (threads and rays a thread block, shared bytes);
   9. counter-mode lamp_row — the image mean with the kernels and without
                them agrees within 5e-3, and the card's render agrees with
                the port's plain render on the CPU;
  10. fractal render — the big-scene smoke scene sphere_fractal.acn at
                bench.py's many_spheres shape (160x120, direct=10, path=0,
-               depth=11, batch 1<<15), twice: equal fold hashes, at least
-               512 big-scene sphere rows, K6 and K7 launched, K4 launched
-               (the floor and the light), K1, K2 and K5 not;
+               depth=11, batch 1<<15), twice: equal fold hashes that
+               repeat FRACTAL_HASH, at least 512 big-scene sphere rows, K6
+               and K7 launched, K4 launched (the floor and the light), K1,
+               K2 and K5 not;
  11. big-scene kernels — K6 and K7 against their plain versions on the
                inputs of the fractal render's largest calls (the drain
                batch for K6, one NEE chunk of flattened shadow rays for K7),
-               with device time, plain time and the bound;
+               with device time, plain time, the bound and K6's launch
+               geometry;
  12. counter-mode fractal — the image mean with the kernels and without
                them on the card (64x48 at the render's samples and depth),
                and the card against the port's plain render on the CPU
@@ -61,14 +66,18 @@ Phases, each printing one line of numbers:
 The glass_table phases hold slice 1 still: the headline hash repeats
 GLASS_HASH, and no scene or big-scene kernel launches there.  lamp_row
 (528 beads) crosses the big-scene gate, so its phases launch K4-K7.
+--profile adds, per render, each kernel's launches and device time.
 
 Any failure exits non-zero.  The line before the last is one JSON object
 with every kernel's numbers; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -91,6 +100,8 @@ FRACTAL_SHAPE = (160, 120, 10, 0, 11)  # bench.py:82 many_spheres, not cut
 FRACTAL_AB = (64, 48)              # counter-mode size, kernels vs none
 FRACTAL_CPU = (64, 48, 1, 0, 3)    # counter-mode shape, card vs CPU
 GLASS_HASH = 7572424404618532405   # glass_table headline hash on the H100
+LAMP_HASH = 11545389823726910507   # lamp_row at LAMP_SHAPE on the H100
+FRACTAL_HASH = 13759777862295610734  # sphere_fractal at FRACTAL_SHAPE
 
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): FP32 outside the tensor
 # cores, and HBM bandwidth
@@ -128,6 +139,10 @@ OPS_SPHERE = 33        # a sphere lane's candidate (31) and its compare
 
 
 SCENE_KEYS = ("scene_top2", "scene_anyhit", "big_top2", "big_anyhit")
+# the CUDA kernels' symbols (csrc/*.cu), K1-K9
+KERNEL_SYMS = ("nee_kernel", "shadow_kernel", "object_hit_kernel",
+               "scene_top2_kernel", "scene_anyhit_kernel", "big_top2_kernel",
+               "big_anyhit_kernel", "diag_kernel")
 
 
 def fail(msg):
@@ -342,6 +357,32 @@ def phase_card():
     return name, line
 
 
+def ptxas_usage(log):
+    """{kernel: registers, stack, spill and shared bytes} from the
+    `-Xptxas -v` lines of an nvcc log, for the kernels of KERNEL_SYMS."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\S+?)'?(?: for|$)", line)
+        if m:
+            cur = next((k for k in KERNEL_SYMS if k in m.group(1)), None)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(cur, {}).update(
+                stack=int(m[1]), spill_stores=int(m[2]),
+                spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.setdefault(cur, {}).update(
+                registers=int(m[1]), smem=int(smem[1]) if smem else 0)
+    return out
+
+
 def phase_build():
     from actinon_tpu_torch.render import kernels
     nvcc = subprocess.run([kernels._nvcc(), "--version"],
@@ -349,10 +390,15 @@ def phase_build():
     ver = nvcc.stdout.strip().splitlines()[-1] if nvcc.returncode == 0 \
         else "unknown"
     t0 = time.time()
-    path = kernels.build(verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        path = kernels.build(verbose=True)
+    print(log.getvalue(), end="", flush=True)
     kernels._lib()
     say("build", seconds=f"{time.time() - t0:.2f}", nvcc=repr(ver),
         lib=os.path.basename(path))
+    for name, u in ptxas_usage(log.getvalue()).items():
+        say(f"ptxas {name}", **u)
 
 
 def phase_kernels(n_lanes):
@@ -608,6 +654,8 @@ def phase_lamp():
     if min(launches[k] for k in ("scene_top2", "scene_anyhit", "big_top2",
                                  "big_anyhit")) <= 0:
         fail(f"lamp_row render launched {launches}")
+    if int(runs[-1]["hash"]) != LAMP_HASH:
+        fail(f"lamp_row hash {runs[-1]['hash']} (want {LAMP_HASH})")
     return runs, cap
 
 
@@ -647,7 +695,7 @@ def phase_scene_kernels(cap):
         finite_agree=f"{fin_agree:.6f}", codes_agree=f"{code_agree:.6f}",
         max_abs_err=f"{max_err:.3e}", ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.5f}", bound_by=b_by,
-        steps=work.steps, sweeps=work.sweeps)
+        steps=work.steps, sweeps=work.sweeps, **sk.top2_launch(st))
     out["scene_top2"] = dict(
         name="scene_top2", route="cuda",
         source="actinon_tpu_torch/csrc/scene_kernels.cu",
@@ -718,6 +766,8 @@ def phase_fractal(base):
     if L["big_top2"] <= 0 or L["big_anyhit"] <= 0 or L["scene_top2"] <= 0 \
             or L["nee"] or L["shadow"] or L["scene_anyhit"]:
         fail(f"sphere_fractal render launched {L}")
+    if int(runs[-1]["hash"]) != FRACTAL_HASH:
+        fail(f"sphere_fractal hash {runs[-1]['hash']} (want {FRACTAL_HASH})")
     tr = cap["big_top2"][0]
     n_big = len(tr.big_rows)
     if n_big < tr.BIG_MIN_ROWS:
@@ -764,7 +814,7 @@ def phase_big_kernels(cap):
         idx_agree=f"{idx_agree:.6f}", max_abs_err=f"{max_err:.3e}",
         ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.5f}",
         bound_by=b_by, block_tests=work.culls, blocks_evaluated=work.blocks,
-        lanes=work.lanes, merges=work.merges)
+        lanes=work.lanes, merges=work.merges, **bs.TOP2_LAUNCH)
     out["big_top2"] = dict(
         name="big_top2", route="cuda",
         source="actinon_tpu_torch/csrc/bigscene_kernels.cu",
@@ -939,6 +989,11 @@ def phase_profile():
         for e in sorted(kern, key=dev, reverse=True)[:12]:
             print(f"  device_ms={dev(e) / 1e3:.3f} calls={e.count} "
                   f"name={e.key[:90]!r}", flush=True)
+        for sym in KERNEL_SYMS:
+            ev = [e for e in kern if sym in e.key]
+            if ev:
+                say(f"profile {tag} {sym}", launches=sum(e.count for e in ev),
+                    device_ms=f"{sum(map(dev, ev)) / 1e3:.3f}")
 
 
 def main(argv):

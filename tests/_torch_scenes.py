@@ -121,6 +121,82 @@ def many_sphere_scene(ho, n=600, seed=3):
     return sc
 
 
+# Scenes and rays built for exact ties: centres on the integer lattice,
+# radii 0.25 and 0.375, unit axis directions and integer or half-integer
+# origins.  Every product, sum, square root and quotient of a sphere's
+# roots is then exact in f32, so a kernel and its plain version agree bit
+# for bit whatever their contraction to FMA, and copies of one sphere tie
+# exactly.
+
+TIE_SHAPE = (5, 6, 5)      # the lattice of tie_scene (K4)
+TIE_BIG_SHAPE = (24, 24, 16)   # the lattice of tie_blocks (K6)
+
+
+def lattice_sites(shape):
+    """[prod(shape), 3] integer lattice sites (float64), x slowest."""
+    g = np.meshgrid(*(np.arange(k, dtype=np.float64) for k in shape),
+                    indexing="ij")
+    return np.stack(g, -1).reshape(-1, 3)
+
+
+def tie_centres(shape, seed=5):
+    """Sphere centres on the lattice of `shape`: one to three copies of
+    each site, the copies in a row (so that they stay neighbours in Morton
+    order), one more sphere where the count would fill its last block of
+    128 exactly."""
+    sites = lattice_sites(shape)
+    copies = np.random.default_rng(seed).integers(1, 4, len(sites))
+    c = np.repeat(sites, copies, axis=0)
+    return c if len(c) % 128 else np.concatenate([c, sites[:1]])
+
+
+def tie_scene(ho):
+    """Two copies of a matter sphere of radius 0.25 at each site of the
+    TIE_SHAPE lattice and a sphere light of radius 0.25 on the column
+    x = y = 2 above it (301 members of one singles shape: three blocks,
+    the last partial; more than 192 members, so the scene kernels, and
+    fewer than 512 spheres, so not the big-scene ones), and four pairs of
+    identical composites (a sphere of radius 0.375 less one of 0.125) at
+    x = 6 beside the lattice."""
+    sc = ho.Scene()
+    light = ho.Sphere(0.25)
+    light.move(ho.v3(2.0, 2.0, TIE_SHAPE[2] + 1.0))
+    light.prp.radiance = 20.0
+    sc.push(light)
+    for c in np.repeat(lattice_sites(TIE_SHAPE), 2, axis=0):
+        s = ho.Sphere(0.25)
+        s.move(ho.v3(*c))
+        sc.push(s)
+    for y, z in ((0, 0), (1, 3), (4, 2), (5, 4)):
+        for _ in range(2):
+            comp = ho.PairInside(ho.Sphere(0.375), ho.Neg(ho.Sphere(0.125)))
+            comp.move(ho.v3(6.0, float(y), float(z)))
+            sc.push(comp)
+    return sc
+
+
+def axis_rays(n, shape, seed):
+    """n unit rays along the lattice axes, down the columns of sites of
+    `shape` (a tenth of them half a cell off, between the columns), from
+    2.5 outside the lattice (or 1.5 past x = 6 on x) or from half-way
+    between two sites, in float32."""
+    rng = np.random.default_rng(seed)
+    hi = np.asarray(shape, np.float32) - 1
+    rows = np.arange(n)
+    axis = rng.integers(0, 3, n)
+    sign = rng.choice(np.float32([-1.0, 1.0]), n)
+    p = np.floor(rng.uniform(size=(n, 3)) * (hi + 1)).astype(np.float32)
+    off = rng.uniform(size=n) < 0.1
+    p[rows[off], (axis[off] + 1) % 3] += 0.5
+    far = np.where(axis == 0, 7.5, hi[axis] + 2.5).astype(np.float32)
+    outside = np.where(sign > 0, np.float32(-2.5), far)
+    p[rows, axis] = np.where(rng.uniform(size=n) < 0.7, outside,
+                             p[rows, axis] + 0.5)
+    d = np.zeros((n, 3), np.float32)
+    d[rows, axis] = sign
+    return p, d
+
+
 def rays(n=512, seed=1, spread=7.0):
     """Seeded rays in float32: origins uniform in a cube, unit directions."""
     rng = np.random.default_rng(seed)

@@ -14,7 +14,8 @@ CPU.
     on a CPU tensor) against the JAX tracer with `use_bigscene_interpret`,
     with and without the scene route, and on a coherent camera tile;
   * the CUDA source of K6/K7 compiled as host C++ against the plain
-    versions;
+    versions (K6's warp helpers lane by lane with the shuffle butterfly in
+    a loop, K7's kernel thread by thread);
   * set_geom rebuilds the blocks; a counter-mode render takes the same
     image through the big route as through the plain one;
   * the plain diag ops against the JAX tool's math on the CPU.
@@ -23,8 +24,6 @@ CPU.
 import ctypes
 import importlib.util
 import os
-import shutil
-import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -44,8 +43,8 @@ from actinon_tpu_torch.scene import ir as tsir
 from actinon_tpu_torch.scene import objects as tho
 
 import _torch_scenes as S
-from test_torch_scene_kernels import HOST_SHIM, _assert_tables_equal, \
-    _lamp_row_pair
+from test_torch_scene_kernels import WARP_REDUCE, _assert_tables_equal, \
+    _lamp_row_pair, host_library
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -269,42 +268,60 @@ def test_counter_render_big_route_matches_plain():
 
 # -- the CUDA source of K6/K7 on the host ------------------------------------
 
-HOST_DRIVER = r"""
-#define LOOP(call) blockDim.x = 256; \
-    for (int b = 0; b < (n + 255) / 256; ++b) \
-        for (int t = 0; t < 256; ++t) { \
-            blockIdx.x = b; threadIdx.x = t; call; }
+HOST_DRIVER = WARP_REDUCE + r"""
+// K6: a ray's walk as the warp kernel takes it: per 32 blocks the lanes'
+// culls as the ballot's mask, the passed blocks in ascending order, each
+// block's 32 lanes in turn, then the butterfly and the merge
 extern "C" void host_top2(const float* tab, const float* bnd, int G,
                           const float* p, const float* d, float* t_out,
                           int* i_out, int n, float eps) {
-    LOOP(big_top2_kernel(tab, bnd, G, p, d, t_out, i_out, n, eps))
+    for (int i = 0; i < n; ++i) {
+        const Ray r = load_ray(p, d, i);
+        Top2 ray = top2_empty();
+        for (int s = 0; s < G; s += 32) {
+            unsigned mask = 0;
+            for (int j = 0; j < 32; ++j)
+                if (s + j < G && block_cull(bnd, s + j, r, false, 0.0f))
+                    mask |= 1u << j;
+            for (; mask; mask &= mask - 1) {
+                const int g = s + __builtin_ctz(mask);
+                Top2 v[32];
+                for (int j = 0; j < 32; ++j)
+                    v[j] = lane_top2(tab + (size_t)g * 8 * LB, j, r, eps);
+                top2_merge(ray, warp_reduce(v), g);
+            }
+        }
+        t_out[2 * i] = ray.t1;
+        t_out[2 * i + 1] = ray.t2;
+        i_out[2 * i] = ray.i1;
+        i_out[2 * i + 1] = ray.i2;
+    }
 }
+// K7: one call per thread
 extern "C" void host_anyhit(const float* tab, const float* bnd, int G,
                             const float* p, const float* d, const float* lim,
                             uint8_t* out, int n, float eps) {
-    LOOP(big_anyhit_kernel(tab, bnd, G, p, d, lim, out, n, eps))
+    blockDim.x = 256;
+    for (int b = 0; b < (n + 255) / 256; ++b)
+        for (int t = 0; t < 256; ++t) {
+            blockIdx.x = b; threadIdx.x = t;
+            big_anyhit_kernel(tab, bnd, G, p, d, lim, out, n, eps);
+        }
 }
 """
 
 
 def test_cuda_source_on_host_matches_plain(pair, tmp_path):
-    """csrc/bigscene_kernels.cu's kernels compiled as host C++, one call
-    per thread, on the tables as the wrappers pass them: the results of
-    the plain versions (the contract of K6/K7 on the card)."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler")
-    src = open(os.path.join(ROOT, "actinon_tpu_torch", "csrc",
-                            "bigscene_kernels.cu")).read()
-    assert src in {open(s).read() for s in kernels.SOURCES}
-    src = src.replace("#include <cuda_runtime.h>", "")
-    src = src[:src.index('extern "C" {')]
-    cpp = tmp_path / "host_bigscene.cpp"
-    cpp.write_text(HOST_SHIM + src + HOST_DRIVER)
-    so = tmp_path / "libhostbig.so"
-    subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-o",
-                    str(so), str(cpp)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
+    """csrc/bigscene_kernels.cu compiled as host C++, on the tables as the
+    wrappers pass them: K6's helpers driven as the warp kernel drives
+    them (the ballot's cull mask, 32 lanes a block, the shuffle
+    butterfly, the merge), K7's kernel one call per thread; the results
+    of the plain versions (the contract of K6/K7 on the card).  The
+    launch constants the wrapper reports are the source's."""
+    lib, src = host_library("bigscene_kernels.cu", HOST_DRIVER, tmp_path)
+    assert f"kTop2Warps = {bs.TOP2_WARPS};" in src
+    assert f"kChunk = {bs.BOUND_CHUNK};" in src
+    assert bs.BOUND_CHUNK % 32 == 0   # a ballot's 32 blocks lie in one stage
     _, tt = pair
     big = _big_tracer(tt)._bigscene()
     n = 1024
@@ -318,6 +335,7 @@ def test_cuda_source_on_host_matches_plain(pair, tmp_path):
     g = torch.empty((n, 2), dtype=torch.int32)
     lib.host_top2(ptr(big.table), ptr(big.bounds), G, ptr(P), ptr(D), ptr(t),
                   ptr(g), ctypes.c_int(n), eps)
+    assert lib.host_split() == 0
     t_p, g_p = bs.big_top2_plain(big.blocks, P, D)
     fin = torch.isfinite(t_p)
     assert float(fin[:, 0].float().mean()) > 0.1
@@ -334,6 +352,34 @@ def test_cuda_source_on_host_matches_plain(pair, tmp_path):
     want = bs.big_anyhit_plain(big.blocks, P, D, LIM)
     assert want.any() and (~want).any()
     assert float((out == want).float().mean()) >= 0.998
+
+
+def test_cuda_source_on_host_exact_on_ties(tmp_path):
+    """K6's warp helpers on the host, driven as above, against the plain
+    version on the tie lattice (one to three copies of each sphere, more
+    blocks than one bound stage holds, a partial last block), where every
+    root is exact in f32: t bit for bit and every index equal."""
+    lib, _ = host_library("bigscene_kernels.cu", HOST_DRIVER, tmp_path)
+    c = S.tie_centres(S.TIE_BIG_SHAPE)
+    blocks = bs.SphereBlocks(np.arange(len(c)), c, np.full(len(c), 0.25),
+                             1e-4)
+    assert blocks.G > bs.BOUND_CHUNK and blocks.n % bs.LB
+    table, bounds = blocks.upload("cpu")
+    n = 2048
+    P, D = _t(*S.axis_rays(n, S.TIE_BIG_SHAPE, seed=7))
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    t = torch.empty((n, 2), dtype=torch.float32)
+    g = torch.empty((n, 2), dtype=torch.int32)
+    lib.host_top2(ptr(table), ptr(bounds), ctypes.c_int(blocks.G), ptr(P),
+                  ptr(D), ptr(t), ptr(g), ctypes.c_int(n),
+                  ctypes.c_float(float(blocks.eps)))
+    assert lib.host_split() == 0
+    t_p, g_p = bs.big_top2_plain(blocks, P, D, table=table)
+    fin = torch.isfinite(t_p[:, 0])
+    assert 0.5 < float(fin.float().mean()) < 1.0
+    assert bool(((t_p[:, 0] == t_p[:, 1]) & fin).any())
+    assert torch.equal(t.view(torch.int32), t_p.view(torch.int32))
+    assert torch.equal(g, g_p)
 
 
 # -- K8/K9: the diagnostic ops -----------------------------------------------

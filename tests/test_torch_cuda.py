@@ -387,6 +387,113 @@ def test_big_scene_render_launches_k4_k6_k7(big_tr, tmp_path):
     assert hashes[0] == hashes[1]
 
 
+# -- K4 and K6, the warp kernels, on exact ties and ragged sizes ------------
+#
+# On the tie lattices of tests/_torch_scenes.py every root is exact in
+# f32, so each warp kernel must equal its plain version bit for bit: t,
+# and every index or code, on copies of one sphere or member that tie
+# exactly, and on ray counts that leave warps and thread blocks partly
+# empty.  K6's lattice has more blocks than one bound stage holds and a
+# partial last block; K4's singles shape spans three member blocks.
+
+RAGGED = [1, 31, 33, 32773]
+
+
+@pytest.fixture(scope="module")
+def tie_big():
+    """A stand-in tracer whose `_bigscene` holds the tie lattice's
+    blocks on the card (what big_top2 reads of a tracer)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from types import SimpleNamespace
+    from actinon_tpu_torch.render import bigscene
+    import _torch_scenes as S
+    c = S.tie_centres(S.TIE_BIG_SHAPE)
+    blocks = bigscene.SphereBlocks(np.arange(len(c)), c,
+                                   np.full(len(c), 0.25), 1e-4)
+    assert blocks.G > bigscene.BOUND_CHUNK and blocks.n % bigscene.LB
+    table, bounds = blocks.upload("cuda")
+    big = SimpleNamespace(blocks=blocks, table=table, bounds=bounds)
+    return SimpleNamespace(_bigscene=lambda: big)
+
+
+@pytest.mark.parametrize("n", RAGGED)
+def test_big_top2_kernel_exact_on_ties(tie_big, n):
+    from actinon_tpu_torch.render import bigscene
+    import _torch_scenes as S
+    big = tie_big._bigscene()
+    p, d = (torch.as_tensor(x, device="cuda")
+            for x in S.axis_rays(n, S.TIE_BIG_SHAPE, seed=n))
+    t_k, g_k = bigscene.big_top2(tie_big, p, d)
+    torch.cuda.synchronize()
+    t_p, g_p = bigscene.big_top2_plain(big.blocks, p, d, table=big.table)
+    assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+    assert torch.equal(g_k, g_p)
+    if n > 1000:
+        fin = torch.isfinite(t_p[:, 0])
+        assert bool(((t_p[:, 0] == t_p[:, 1]) & fin).any())
+
+
+@pytest.fixture(scope="module")
+def tie_scene_tr():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from actinon_tpu_torch.render.tracer import Tracer
+    from actinon_tpu_torch.scene import ir as sir
+    from actinon_tpu_torch.scene import objects as ho
+    import _torch_scenes as S
+    tr = Tracer(sir.compile_scene(S.tie_scene(ho)), dtype=np.float32,
+                device="cuda")
+    assert tr._prefer_scene_query() and not tr._bigscene_ok()
+    st, _ = tr._scene_tables()
+    assert max(sh.M for sh in st.shapes) > 128 and st.shapes[0].has_light
+    return tr
+
+
+@pytest.mark.parametrize("n", RAGGED)
+def test_scene_top2_kernel_exact_on_ties(tie_scene_tr, n):
+    from actinon_tpu_torch.render import scene_kernels
+    import _torch_scenes as S
+    tr = tie_scene_tr
+    st, _ = tr._scene_tables()
+    p, d = S.axis_rays(n, S.TIE_SHAPE, seed=n)
+    lm = (np.random.default_rng(n).uniform(size=n) < 0.5).astype(np.float32)
+    p, d, lm = (torch.as_tensor(x, device="cuda") for x in (p, d, lm))
+    t_k, c_k = scene_kernels.scene_top2(tr, p, d, lm)
+    torch.cuda.synchronize()
+    t_p, c_p = scene_kernels.scene_top2_plain(st, p, d, lm)
+    assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+    assert torch.equal(c_k, c_p)
+    if n > 1000:
+        fin = torch.isfinite(t_p[:, 0])
+        assert bool(((t_p[:, 0] == t_p[:, 1]) & fin).any())
+
+
+def test_scene_top2_refuses_shared_overflow(tie_scene_tr, monkeypatch):
+    """A descriptor and bounds beyond a thread block's shared memory are
+    refused, by the wrapper and by the C launcher, and nothing launches."""
+    from actinon_tpu_torch.render import kernels, scene_kernels
+    import _torch_scenes as S
+    tr = tie_scene_tr
+    st, _ = tr._scene_tables()
+    p, d = (torch.as_tensor(x, device="cuda")
+            for x in S.axis_rays(64, S.TIE_SHAPE, seed=3))
+    lm = torch.zeros(64, device="cuda")
+    t = torch.empty((64, 2), device="cuda")
+    c = torch.empty((64, 2), dtype=torch.int32, device="cuda")
+    before = kernels.LAUNCHES["scene_top2"]
+    need = scene_kernels.top2_launch(st)["shared_bytes"]
+    monkeypatch.setattr(scene_kernels, "SHARED_MAX", need - 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        scene_kernels.scene_top2(tr, p, d, lm)
+    rc = kernels._lib().actinon_scene_top2(
+        st.table_t.data_ptr(), st.bounds_t.data_ptr(), st.desc_t.data_ptr(),
+        p.data_ptr(), d.data_ptr(), lm.data_ptr(), t.data_ptr(),
+        c.data_ptr(), 64, float(st.eps), 60000, 1, kernels._stream())
+    assert rc != 0
+    assert kernels.LAUNCHES["scene_top2"] == before
+
+
 # -- K8 and K9, the diagnostic ops -------------------------------------------
 
 

@@ -10,8 +10,9 @@ the JAX package's `render/pallas_scene.py`, on the CPU.
     in interpret mode on the same rays: t within rtol/atol 2e-4, codes
     equal on >= 99 % of the finite lanes, any-hit equal on >= 99.8 %;
   * the CUDA source of K4/K5 compiled as host C++ (a shim maps the CUDA
-    keywords, a loop runs the threads) against the plain versions: the
-    kernels' arithmetic and table reads without a card;
+    keywords; K4's warp helpers run lane by lane with the shuffle
+    butterfly in a loop, K5's kernel thread by thread) against the plain
+    versions: the kernels' arithmetic and table reads without a card;
   * the tracer's scene-kernel route (the plain versions standing in for
     the kernels on a CPU tensor) against the JAX XLA tracer, with the
     contract of tests/test_pallas_scene.py:_cmp_hits, and on a coherent
@@ -19,6 +20,7 @@ the JAX package's `render/pallas_scene.py`, on the CPU.
 """
 
 import ctypes
+import os
 import shutil
 import subprocess
 
@@ -310,45 +312,112 @@ struct Idx { unsigned x; };
 static Idx blockIdx, threadIdx, blockDim;
 """
 
-HOST_DRIVER = r"""
-#define LOOP(call) blockDim.x = 128; \
-    for (int b = 0; b < (n + 127) / 128; ++b) \
-        for (int t = 0; t < 128; ++t) { \
-            blockIdx.x = b; threadIdx.x = t; call; }
+# A warp's lanes in turn: the kernels' five __shfl_xor_sync steps, each
+# lane combining its pair with lane j ^ o's; counts the lanes that end
+# with another pair than lane 0 (the kernels assume none).
+WARP_REDUCE = r"""
+static int n_split = 0;
+static Top2 warp_reduce(Top2 v[32]) {
+    for (int o = 16; o > 0; o >>= 1) {
+        Top2 w[32];
+        for (int j = 0; j < 32; ++j) w[j] = top2_combine(v[j], v[j ^ o]);
+        for (int j = 0; j < 32; ++j) v[j] = w[j];
+    }
+    for (int j = 1; j < 32; ++j)
+        n_split += memcmp(&v[j], &v[0], sizeof(Top2)) != 0;
+    return v[0];
+}
+extern "C" int host_split() { return n_split; }
+"""
+
+
+def host_library(name, driver, tmp_path):
+    """csrc/`name` up to its C interface, compiled as host C++ after the
+    shim, with `driver` appended: the loaded library and the source.  The
+    warp kernels (under __CUDACC__) drop out; their helpers and the
+    one-thread kernels stay."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    from actinon_tpu_torch.render import kernels
+    path = next(s for s in kernels.SOURCES if os.path.basename(s) == name)
+    src = open(path).read()
+    body = src.replace("#include <cuda_runtime.h>", "")
+    body = body[:body.index('extern "C" {')]
+    cpp = tmp_path / f"host_{name}.cpp"
+    cpp.write_text(HOST_SHIM + body + driver)
+    so = tmp_path / f"libhost_{name}.so"
+    subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-o",
+                    str(so), str(cpp)], check=True, capture_output=True)
+    return ctypes.CDLL(str(so)), src
+
+
+HOST_DRIVER = WARP_REDUCE + r"""
+// K4: a ray's walk as the warp kernel takes it, the 32 lanes of each
+// passed block in turn, then the butterfly and the merge
 extern "C" void host_top2(const float* tab, const float* bnd, const int* desc,
                           const float* p, const float* d, const float* lm,
                           float* t_out, int* c_out, int n, float eps) {
-    LOOP(scene_top2_kernel(tab, bnd, desc, p, d, lm, t_out, c_out, n, eps))
+    const Eps E = make_eps(eps);
+    for (int i = 0; i < n; ++i) {
+        const Ray r = load_ray(p, d, i);
+        const bool lane_matter = lm[i] > 0.0f;
+        Top2 ray = top2_empty();
+        for (int s = 0; s < desc[0]; ++s) {
+            const int* sh = desc + 1 + s * SH_SIZE;
+            const bool mask_light = sh[SH_LIGHT] && lane_matter;
+            for (int b = 0; b < sh[SH_NBLK]; ++b) {
+                if (!block_cull(bnd, sh[SH_BID0] + b, r, false, 0.0f))
+                    continue;
+                const float* blk = tab + (size_t)(sh[SH_ROW0]
+                                                  + b * sh[SH_RPB]) * LB;
+                Top2 v[32];
+                for (int j = 0; j < 32; ++j)
+                    v[j] = lane_top2(desc, sh, blk, b, j, r, mask_light, E);
+                top2_merge(ray, warp_reduce(v));
+            }
+        }
+        t_out[2 * i] = ray.t1;
+        t_out[2 * i + 1] = ray.t2;
+        c_out[2 * i] = is_finite(ray.t1) ? ray.i1 : -1;
+        c_out[2 * i + 1] = is_finite(ray.t2) ? ray.i2 : -1;
+    }
 }
+extern "C" long host_shared_bytes(int n_desc, int n_bounds) {
+    return (long)top2_shared_bytes(n_desc, n_bounds);
+}
+// K5: one call per thread
 extern "C" void host_anyhit(const float* tab, const float* bnd,
                             const int* desc, const float* p, const float* d,
                             const float* lim, uint8_t* out, int n,
                             float eps) {
-    LOOP(scene_anyhit_kernel(tab, bnd, desc, p, d, lim, out, n, eps))
+    blockDim.x = 128;
+    for (int b = 0; b < (n + 127) / 128; ++b)
+        for (int t = 0; t < 128; ++t) {
+            blockIdx.x = b; threadIdx.x = t;
+            scene_anyhit_kernel(tab, bnd, desc, p, d, lim, out, n, eps);
+        }
 }
 """
 
 
 def test_cuda_source_on_host_matches_plain(mixed, tmp_path):
-    """csrc/scene_kernels.cu's kernels compiled as host C++, one call per
-    thread, on the scene tables as the wrappers pass them: the same
-    results as the plain versions (t within rtol/atol 2e-4, codes equal
-    on >= 99 % of the finite lanes, any-hit equal on >= 99.8 %)."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler")
-    from actinon_tpu_torch.render import kernels
-    src = open(kernels.SOURCES[1]).read()
-    src = src.replace("#include <cuda_runtime.h>", "")
-    src = src[:src.index('extern "C" {')]
-    cpp = tmp_path / "host_scene_kernels.cpp"
-    cpp.write_text(HOST_SHIM + src + HOST_DRIVER)
-    so = tmp_path / "libhost.so"
-    subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-o",
-                    str(so), str(cpp)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
+    """csrc/scene_kernels.cu compiled as host C++, on the scene tables as
+    the wrappers pass them: K4's helpers driven as the warp kernel drives
+    them (32 lanes a block, the shuffle butterfly, the merge), K5's
+    kernel one call per thread; the same results as the plain versions
+    (t within rtol/atol 2e-4, codes equal on >= 99 % of the finite lanes,
+    any-hit equal on >= 99.8 %).  The launch geometry the wrapper reports
+    is the source's."""
+    lib, src = host_library("scene_kernels.cu", HOST_DRIVER, tmp_path)
+    assert f"kTop2Warps = {sk.TOP2_WARPS};" in src
     _, tt = mixed
     st, stm = tt._scene_tables()
+    launch = sk.top2_launch(st)
+    lib.host_shared_bytes.restype = ctypes.c_long
+    assert launch["shared_bytes"] == lib.host_shared_bytes(
+        st.desc_t.numel(), st.bounds_t.shape[0])
+    assert launch["threads"] == 32 * launch["rays_per_block"]
     n = 1024
     p, d = S.rays(n, seed=43)
     lm = (np.arange(n) % 2).astype(np.float32)
@@ -361,6 +430,7 @@ def test_cuda_source_on_host_matches_plain(mixed, tmp_path):
     lib.host_top2(ptr(st.table_t), ptr(st.bounds_t), ptr(st.desc_t), ptr(P),
                   ptr(D), ptr(LM), ptr(t), ptr(c), ctypes.c_int(n),
                   ctypes.c_float(float(st.eps)))
+    assert lib.host_split() == 0
     t_p, c_p = sk.scene_top2_plain(st, P, D, LM)
     fin = torch.isfinite(t_p)
     assert float(fin[:, 0].float().mean()) > 0.3
@@ -376,3 +446,34 @@ def test_cuda_source_on_host_matches_plain(mixed, tmp_path):
     want = sk.scene_anyhit_plain(stm, P, D, LIM)
     assert want.any() and (~want).any()
     assert float((out == want).float().mean()) >= 0.998
+
+
+def test_cuda_source_on_host_exact_on_ties(tmp_path):
+    """K4's warp helpers on the host, driven as above, against the plain
+    version on the tie scene (two copies of each lattice sphere in a
+    301-member singles shape of three blocks, the light masked for half
+    the rays, four pairs of identical composites), where every root is
+    exact in f32: t bit for bit and every code equal."""
+    lib, _ = host_library("scene_kernels.cu", HOST_DRIVER, tmp_path)
+    tr = TTracer(tsir.compile_scene(S.tie_scene(tho)), dtype=np.float32,
+                 device="cpu")
+    st, _ = tr._scene_tables()
+    assert max(sh.M for sh in st.shapes) > sk.LB and st.shapes[0].has_light
+    n = 2048
+    p, d = S.axis_rays(n, S.TIE_SHAPE, seed=11)
+    lm = (np.random.default_rng(13).uniform(size=n) < 0.5).astype(
+        np.float32)
+    P, D, LM = (torch.as_tensor(x) for x in (p, d, lm))
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    t = torch.empty((n, 2), dtype=torch.float32)
+    c = torch.empty((n, 2), dtype=torch.int32)
+    lib.host_top2(ptr(st.table_t), ptr(st.bounds_t), ptr(st.desc_t), ptr(P),
+                  ptr(D), ptr(LM), ptr(t), ptr(c), ctypes.c_int(n),
+                  ctypes.c_float(float(st.eps)))
+    assert lib.host_split() == 0
+    t_p, c_p = sk.scene_top2_plain(st, P, D, LM)
+    fin = torch.isfinite(t_p[:, 0])
+    assert 0.5 < float(fin.float().mean()) < 1.0
+    assert bool(((t_p[:, 0] == t_p[:, 1]) & fin).any())
+    assert torch.equal(t.view(torch.int32), t_p.view(torch.int32))
+    assert torch.equal(c, c_p)
