@@ -29,29 +29,39 @@
 // lies inside the bound) is skipped.  No atomics: results are
 // deterministic.
 //
-// K4 design: one warp per ray, the 128 member lanes of a block across the
-// warp, as the TPU kernel lays them across the vector lanes of a
+// Both kernels: one warp per ray, the 128 member lanes of a block across
+// the warp, as the TPU kernel lays them across the vector lanes of a
 // [rays, 128] tile; 4 warps (rays) a thread block.  Each thread block
 // first copies the int32 descriptor and the bounds' (centre, r2) into
 // shared memory, so every descriptor field, slot record, postfix program
 // and comparator pair that member_boundary reads comes from there.  The
 // block cull is per ray, so every lane computes it alike.  Lane j
 // evaluates members j, j + 32, j + 64, j + 96 of a block (each feature row
-// read as 32 neighbouring floats) and keeps a local top-2 of (t, code);
-// five xor shuffles combine the 32 local pairs into the block's best two,
-// then every lane runs the Pallas merge (pallas_scene.py:870-881).  The
-// tie rule is the serial one (members in order, strict compares, first
-// lane on ties), bit for bit: see csrc/bigscene_kernels.cu, whose argument
-// holds here with the code for the lane index (a code grows with its lane
-// within a block) and (INF, -1) for the pad; a light member masked for a
-// matter ray is no candidate, as in the serial walk.  What this does not
-// do: a warp still waits for its longest march while its gated-out lanes
-// idle, and a cluster member's 64 crossings still sort in local memory
-// (the ts/lf arrays, with small spills); those belong with K5's redesign.
+// read as 32 neighbouring floats).  What this does not do: a warp still
+// waits for its longest march while its gated-out lanes idle, and a
+// cluster member's 64 crossings still sort in local memory (the ts/lf
+// arrays of member_boundary).
 //
-// K5: one thread per ray, 128 threads a block, the same walk, the member
-// lanes of a block in a loop, the descriptor read from global memory; a
-// ray stops at its first hit.
+// K4 keeps a local top-2 of (t, code) per lane; five xor shuffles combine
+// the 32 local pairs into the block's best two, then every lane runs the
+// Pallas merge (pallas_scene.py:870-881).  The tie rule is the serial one
+// (members in order, strict compares, first lane on ties), bit for bit:
+// see csrc/bigscene_kernels.cu, whose argument holds here with the code
+// for the lane index (a code grows with its lane within a block) and
+// (INF, -1) for the pad; a light member masked for a matter ray is no
+// candidate, as in the serial walk.
+//
+// K5 culls 32 blocks at a time, one bound a lane, and a ballot hands the
+// warp the passed blocks in order (a ray no longer tests every bound on
+// every lane); a map in shared memory gives each block its shape.  It
+// tests each member's boundary against the limit with the one-thread
+// design's expression, and the warp stops at the first round of 32
+// members in which any lane is blocked (__any_sync).  The result is an
+// OR, so any order and any exit point give the same boolean: the warp
+// kernel's booleans are the one-thread kernel's on every input.  Its
+// grid is capped at the thread blocks the card holds at once, and each
+// warp strides over the rays, so a large batch of shadow rays stages the
+// descriptor once per resident block, not once per 4 rays.
 //
 // What bounds them on this card: FP32 operations — the march steps and the
 // walk — not bytes (a ray reads 28 bytes and writes at most 16, the table
@@ -413,15 +423,6 @@ __device__ __forceinline__ bool bound_hit(float bx, float by, float bz,
     return hit && (te <= lim);
 }
 
-// The ray may touch block bid's bound.
-__device__ __forceinline__ bool block_cull(const float* __restrict__ bounds,
-                                           int bid, const Ray& r,
-                                           bool has_lim, float lim) {
-    const float* b = bounds + 8 * bid;
-    return bound_hit(__ldg(b), __ldg(b + 1), __ldg(b + 2), __ldg(b + 3), r,
-                     has_lim, lim);
-}
-
 __device__ __forceinline__ Eps make_eps(float eps) {
     return Eps{eps, 4.0f * eps, 8.0f * eps, 1.5f * eps};
 }
@@ -510,14 +511,51 @@ __device__ __forceinline__ void top2_merge(Top2& ray, const Top2& b) {
     ray.i2 = hi_t <= w2 ? hi_i : w2i;
 }
 
+// K5's test of member m of a block: a matter hit within (., lim].
+__device__ __forceinline__ bool member_blocks(const int* __restrict__ desc,
+                                              const int* __restrict__ sh,
+                                              const float* __restrict__ blk,
+                                              int m, const Ray& r, float lim,
+                                              const Eps& E) {
+    int leaf;
+    return member_boundary(desc, sh, Lane{blk + m}, r, true, lim, E, leaf)
+           <= lim;
+}
+
 // ---- kernels ----
 
 constexpr int kTop2Warps = 4;   // K4: rays (one warp each) a thread block
+constexpr int kAnyWarps = 4;    // K5: rays (one warp each) a thread block
 
-// K4's dynamic shared memory: the descriptor, padded to 16 bytes, then
-// (centre, r2) of each bound.
-inline size_t top2_shared_bytes(int n_desc, int n_bounds) {
-    return 4 * ((size_t)(n_desc + 3) / 4 * 4 + 4 * (size_t)n_bounds);
+// The descriptor's words in shared memory, padded to 16 bytes.
+__host__ __device__ __forceinline__ int desc_words(int n_desc) {
+    return (n_desc + 3) / 4 * 4;
+}
+
+// K4's dynamic shared memory: the descriptor, padded, then (centre, r2)
+// of each bound.
+inline size_t desc_shared_bytes(int n_desc, int n_bounds) {
+    return 4 * ((size_t)desc_words(n_desc) + 4 * (size_t)n_bounds);
+}
+
+// K5's: K4's, then each block's shape index.
+inline size_t anyhit_shared_bytes(int n_desc, int n_bounds) {
+    return desc_shared_bytes(n_desc, n_bounds) + 4 * (size_t)n_bounds;
+}
+
+// The member blocks of all shapes: the bounds they own, in shape order.
+__device__ __forceinline__ int anyhit_blocks(const int* desc) {
+    if (desc[0] == 0) return 0;
+    const int* last = desc + 1 + (desc[0] - 1) * SH_SIZE;
+    return last[SH_BID0] + last[SH_NBLK];
+}
+
+// The ray may touch block bid's bound, staged as (centre, r2).
+__device__ __forceinline__ bool bound_cull(const float* sbnd, int bid,
+                                           const Ray& r, bool has_lim,
+                                           float lim) {
+    const float* bb = sbnd + 4 * bid;
+    return bound_hit(bb[0], bb[1], bb[2], bb[3], r, has_lim, lim);
 }
 
 #ifdef __CUDACC__
@@ -531,6 +569,22 @@ __device__ __forceinline__ Top2 shfl_xor(const Top2& v, int m) {
                 __shfl_xor_sync(kFull, v.i2, m)};
 }
 
+// Copies the descriptor and the bounds' (centre, r2) into the thread
+// block's dynamic shared memory (laid out as desc_shared_bytes counts it)
+// and returns the staged bounds; every thread of the block meets the
+// barrier.
+__device__ __forceinline__ const float* stage_desc(
+    int* shared, const int* __restrict__ desc,
+    const float* __restrict__ bounds, int n_desc, int n_bounds) {
+    float* sbnd = reinterpret_cast<float*>(shared + desc_words(n_desc));
+    for (int k = threadIdx.x; k < n_desc; k += blockDim.x)
+        shared[k] = desc[k];
+    for (int k = threadIdx.x; k < 4 * n_bounds; k += blockDim.x)
+        sbnd[k] = bounds[8 * (k >> 2) + (k & 3)];
+    __syncthreads();
+    return sbnd;
+}
+
 __global__ void __launch_bounds__(kTop2Warps * 32)
 scene_top2_kernel(const float* __restrict__ table,
                   const float* __restrict__ bounds,
@@ -539,13 +593,8 @@ scene_top2_kernel(const float* __restrict__ table,
                   float* __restrict__ t_out, int* __restrict__ c_out, int n,
                   float eps, int n_desc, int n_bounds) {
     extern __shared__ __align__(16) int shared[];
-    int* sdesc = shared;
-    float* sbnd = reinterpret_cast<float*>(shared + (n_desc + 3) / 4 * 4);
-    for (int k = threadIdx.x; k < n_desc; k += blockDim.x)
-        sdesc[k] = desc[k];
-    for (int k = threadIdx.x; k < 4 * n_bounds; k += blockDim.x)
-        sbnd[k] = bounds[8 * (k >> 2) + (k & 3)];
-    __syncthreads();
+    const int* sdesc = shared;
+    const float* sbnd = stage_desc(shared, desc, bounds, n_desc, n_bounds);
     const int i = blockIdx.x * kTop2Warps + (threadIdx.x >> 5);
     if (i >= n) return;   // the whole warp: no barrier follows
     const int lane = threadIdx.x & 31;
@@ -558,8 +607,7 @@ scene_top2_kernel(const float* __restrict__ table,
         const int* sh = sdesc + 1 + s * SH_SIZE;
         const bool mask_light = sh[SH_LIGHT] && lane_matter;
         for (int b = 0; b < sh[SH_NBLK]; ++b) {
-            const float* bb = sbnd + 4 * (sh[SH_BID0] + b);
-            if (!bound_hit(bb[0], bb[1], bb[2], bb[3], r, false, 0.0f))
+            if (!bound_cull(sbnd, sh[SH_BID0] + b, r, false, 0.0f))
                 continue;
             const float* blk = table + (size_t)(sh[SH_ROW0]
                                                 + b * sh[SH_RPB]) * LB;
@@ -578,71 +626,112 @@ scene_top2_kernel(const float* __restrict__ table,
     }
 }
 
-#endif  // __CUDACC__
-
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kAnyWarps * 32)
 scene_anyhit_kernel(const float* __restrict__ table,
                     const float* __restrict__ bounds,
                     const int* __restrict__ desc,
                     const float* __restrict__ p, const float* __restrict__ d,
                     const float* __restrict__ lim_in,
-                    uint8_t* __restrict__ out, int n, float eps) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const Ray r = load_ray(p, d, i);
-    // a limit that is not finite reads as 3e38, as in the Pallas kernel
-    const float l = lim_in[i];
-    const float lim = is_finite(l) ? l : F32_BIG;
-    const Eps E = make_eps(eps);
-    bool blocked = false;
+                    uint8_t* __restrict__ out, int n, float eps, int n_desc,
+                    int n_bounds) {
+    extern __shared__ __align__(16) int shared[];
+    // each block's shape, after the descriptor and the bounds
+    int* bshape = shared + desc_words(n_desc) + 4 * n_bounds;
     const int n_shapes = desc[0];
-    for (int s = 0; s < n_shapes && !blocked; ++s) {
+    for (int s = threadIdx.x; s < n_shapes; s += blockDim.x) {
         const int* sh = desc + 1 + s * SH_SIZE;
-        const int M = sh[SH_M];
-        for (int b = 0; b < sh[SH_NBLK] && !blocked; ++b) {
-            if (!block_cull(bounds, sh[SH_BID0] + b, r, true, lim)) continue;
-            const float* blk = table + (size_t)(sh[SH_ROW0]
-                                                + b * sh[SH_RPB]) * LB;
-            const int n_lanes = min(LB, M - b * LB);
-            for (int lane = 0; lane < n_lanes; ++lane) {
-                int leaf;
-                if (member_boundary(desc, sh, Lane{blk + lane}, r, true, lim,
-                                    E, leaf) <= lim) {
-                    blocked = true;
-                    break;
+        for (int b = 0; b < sh[SH_NBLK]; ++b) bshape[sh[SH_BID0] + b] = s;
+    }
+    const int* sdesc = shared;
+    const float* sbnd = stage_desc(shared, desc, bounds, n_desc, n_bounds);
+    const int n_blk = anyhit_blocks(sdesc);
+    const int lane = threadIdx.x & 31;
+    const Eps E = make_eps(eps);
+    for (int i = blockIdx.x * kAnyWarps + (threadIdx.x >> 5); i < n;
+         i += gridDim.x * kAnyWarps) {
+        const Ray r = load_ray(p, d, i);
+        // a limit that is not finite reads as 3e38, as in the Pallas kernel
+        const float l = lim_in[i];
+        const float lim = is_finite(l) ? l : F32_BIG;
+        // blocked and pass are the same on every lane (they come from
+        // __any_sync and __ballot_sync), so every loop is uniform
+        bool blocked = false;
+        for (int c0 = 0; c0 < n_blk && !blocked; c0 += 32) {
+            unsigned pass = __ballot_sync(
+                kFull, c0 + lane < n_blk
+                           && bound_cull(sbnd, c0 + lane, r, true, lim));
+            while (pass != 0u && !blocked) {
+                const int bid = c0 + __ffs(pass) - 1;
+                pass &= pass - 1u;
+                const int* sh = sdesc + 1 + bshape[bid] * SH_SIZE;
+                const int b = bid - sh[SH_BID0];
+                const float* blk = table + (size_t)(sh[SH_ROW0]
+                                                    + b * sh[SH_RPB]) * LB;
+                const int n_lanes = min(LB, sh[SH_M] - b * LB);
+                for (int m0 = 0; m0 < n_lanes && !blocked; m0 += 32) {
+                    const int m = m0 + lane;
+                    blocked = __any_sync(
+                        kFull, m < n_lanes && member_blocks(sdesc, sh, blk,
+                                                            m, r, lim, E));
                 }
             }
         }
+        if (lane == 0) out[i] = blocked ? 1 : 0;
     }
-    out[i] = blocked ? 1 : 0;
 }
 
-constexpr int kBlock = 128;     // K5: rays (one thread each) a thread block
 constexpr size_t kMaxShared = 232448;   // what a thread block may have
 
 inline int grid_of(int n, int per_block) {
     return (n + per_block - 1) / per_block;
 }
 
+// Sets the kernel's dynamic shared memory above the default 48 KB where
+// it needs more; refuses (cudaErrorInvalidValue) more than a thread block
+// may have.
+template <class Kernel>
+int shared_ok(Kernel kernel, size_t shared) {
+    if (shared > kMaxShared) return (int)cudaErrorInvalidValue;
+    if (shared <= 48 * 1024) return 0;
+    return (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+}
+
+// Caps *grid at the thread blocks the card holds at once, so that a
+// large batch stages its tables once per resident block and each warp
+// strides over the rays.
+template <class Kernel>
+int resident_grid(Kernel kernel, int threads, size_t shared, int* grid) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          threads, shared);
+    if (e != cudaSuccess) return (int)e;
+    const int resident = sms * per_sm;
+    if (resident > 0 && *grid > resident) *grid = resident;
+    return 0;
+}
+
+#endif  // __CUDACC__
+
 }  // namespace
 
 extern "C" {
 
 // n_desc: the descriptor's int32 words; n_bounds: the rows of bounds.
-// Refuses (cudaErrorInvalidValue) a descriptor and bounds that do not fit
-// a thread block's shared memory.
+// Each refuses (cudaErrorInvalidValue) a descriptor and bounds that do not
+// fit a thread block's shared memory.
 int actinon_scene_top2(const float* table, const float* bounds,
                        const int* desc, const float* p, const float* d,
                        const float* lm, float* t_out, int* c_out, int n,
                        float eps, int n_desc, int n_bounds, void* stream) {
-    const size_t shared = top2_shared_bytes(n_desc, n_bounds);
-    if (shared > kMaxShared) return (int)cudaErrorInvalidValue;
-    if (shared > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            scene_top2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)shared);
-        if (e != cudaSuccess) return (int)e;
-    }
+    const size_t shared = desc_shared_bytes(n_desc, n_bounds);
+    const int rc = shared_ok(scene_top2_kernel, shared);
+    if (rc != 0) return rc;
     scene_top2_kernel<<<grid_of(n, kTop2Warps), kTop2Warps * 32, shared,
                         (cudaStream_t)stream>>>(
         table, bounds, desc, p, d, lm, t_out, c_out, n, eps, n_desc,
@@ -653,10 +742,16 @@ int actinon_scene_top2(const float* table, const float* bounds,
 int actinon_scene_anyhit(const float* table, const float* bounds,
                          const int* desc, const float* p, const float* d,
                          const float* lim, uint8_t* out, int n, float eps,
-                         void* stream) {
-    scene_anyhit_kernel<<<grid_of(n, kBlock), kBlock, 0,
+                         int n_desc, int n_bounds, void* stream) {
+    const size_t shared = anyhit_shared_bytes(n_desc, n_bounds);
+    int rc = shared_ok(scene_anyhit_kernel, shared);
+    if (rc != 0) return rc;
+    int grid = grid_of(n, kAnyWarps);
+    rc = resident_grid(scene_anyhit_kernel, kAnyWarps * 32, shared, &grid);
+    if (rc != 0) return rc;
+    scene_anyhit_kernel<<<grid, kAnyWarps * 32, shared,
                           (cudaStream_t)stream>>>(
-        table, bounds, desc, p, d, lim, out, n, eps);
+        table, bounds, desc, p, d, lim, out, n, eps, n_desc, n_bounds);
     return (int)cudaGetLastError();
 }
 

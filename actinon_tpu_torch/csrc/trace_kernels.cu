@@ -17,27 +17,46 @@
 // baked in as an immediate.  Here ONE source serves every scene: the
 // geometry is a read-only table (leaf records, composite records with
 // their CSG tree as postfix byte-code, light records) built by
-// render/kernels.py.  Every thread of a warp reads the same table entry
-// at the same time, so the read-only cache serves each read as one
-// broadcast.  One thread handles one ray (K2, K3) or one NEE lane (K1);
-// K1 loops over its lane's own sample count ns at run time (the Pallas
-// kernel's masked samples add exactly 0, so the sums agree).  A
-// composite's crossing walk keeps up to 64 crossing columns per thread in
-// a local array and is O(NC^2), as in pallas_kernels.py:258-302.
+// render/kernels.py.  A composite's crossing walk keeps up to 64 crossing
+// columns per thread in a local array and is O(NC^2), as in
+// pallas_kernels.py:258-302.  The shadow test stops at the first object
+// that blocks: its result is an OR, so the boolean is the same.
 //
-// What bounds it on this card.  K1 and the walk are FP32-ALU bound:
+// K2 and K3: one thread per ray, the table read from global memory; every
+// thread of a warp reads the same table entry at the same time, so the
+// read-only cache serves each read as one broadcast.
+//
+// K1: one warp per NEE lane, 4 lanes a thread block.  Each thread block
+// first copies the flat scene table and the light table into dynamic
+// shared memory (K1-K3 cover at most 192 leaves: about 22 KB), so every
+// table read of the samples' light hits and shadow tests comes from there.
+// A lane's n_lights * ns (light, sample) pairs go across the warp's 32
+// threads in strides of 32; each thread computes its pair's contribution
+// with nee_sample, the per-sample arithmetic of the one-thread design,
+// and writes it to the warp's slice of shared memory.  Thread li then
+// sums light li's contributions in sample order, and thread 0 adds the
+// lights in light order with the same `acc * (color * fac)` steps: the
+// sums are those of a serial loop, in the same order, so the result is
+// the one-thread kernel's bit for bit.  A dead lane (di <= 0) is a warp
+// that writes zeros and stops.  What this does not do: a warp waits for
+// its longest sample (a shadow ray that walks every composite), and a
+// lane with fewer than 32 pairs leaves threads idle (20 of 32 at the
+// headline's 2 lights x 10 samples); packing two lanes a warp is not done.
+//
+// What bounds them on this card.  K1 and the walk are FP32-ALU bound:
 // about 72 bytes of I/O per lane against thousands of flops (per sample:
 // the RNG, sinf/cosf, the light hit and a shadow test over every matter
 // object).  K2 and K3 move 24-32 bytes per ray against a few hundred to a
-// few thousand flops.  The design does nothing about that yet: no tensor
-// cores, no shared-memory staging of the table, no early exit, no
-// sorting of the crossings.  Those are later work.
+// few thousand flops.  No tensor cores, no sorting of the crossings.
 //
 // Numerics: f32, no fast-math; sinf, cosf, sqrtf and 1.0f/sqrtf, as the
 // Pallas kernels compute in exact f32.
 //
 // Interface: plain C functions, loaded with ctypes.  Each launches on the
-// stream it is given and returns cudaGetLastError().
+// stream it is given and returns cudaGetLastError().  The helpers compile
+// as host C++ too (tests/test_torch_kernels.py runs them there); the warp
+// kernel, which needs the card's shared memory and warp barriers, does
+// not.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -259,20 +278,20 @@ __device__ float comp_boundary(const Scene& S, int ci, const Ray& r) {
     return best;
 }
 
-// Any covered matter hit within (., lim].
+// Any covered matter hit within (., lim]: true at the first object that
+// blocks (an OR: any order and any exit point give the same boolean).
 __device__ bool shadow_blocked(const Scene& S, const Ray& r, float lim,
                                float eps) {
-    bool blocked = false;
     const int nss = S.i[H_NSS], nsc = S.i[H_NSC];
     const int* ss = S.i + S.i[H_SS];
     const int* sc = S.i + S.i[H_SC];
     for (int k = 0; k < nss; ++k)
-        blocked |= single_hit(S, ss[k], r, eps) <= lim;
+        if (single_hit(S, ss[k], r, eps) <= lim) return true;
     for (int k = 0; k < nsc; ++k) {
         const float t = comp_boundary(S, sc[k], r);
-        blocked |= is_finite(t) && (t - eps <= lim);
+        if (is_finite(t) && (t - eps <= lim)) return true;
     }
-    return blocked;
+    return false;
 }
 
 // First hit of a leaf (kind 0) or composite (kind 1) object, eps-backed.
@@ -309,6 +328,181 @@ __device__ __forceinline__ void norm3(float& x, float& y, float& z) {
     z *= inv;
 }
 
+// ---- K1's helpers ----
+
+// One NEE lane's inputs.
+struct NeeLane {
+    float px, py, pz, sx, sy, sz, qx, qy, qz, cos_ti, on_a, on_b, di;
+    uint32_t rv;
+    int ns;
+};
+
+__device__ __forceinline__ NeeLane load_nee_lane(
+    int i, const float* __restrict__ pos, const float* __restrict__ surf_d,
+    const float* __restrict__ di_in, const float* __restrict__ cos_ti_in,
+    const float* __restrict__ on_a_in, const float* __restrict__ on_b_in,
+    const float* __restrict__ ray_prj, const uint32_t* __restrict__ rv_in,
+    const int* __restrict__ ns_in) {
+    return NeeLane{pos[3 * i], pos[3 * i + 1], pos[3 * i + 2],
+                   surf_d[3 * i], surf_d[3 * i + 1], surf_d[3 * i + 2],
+                   ray_prj[3 * i], ray_prj[3 * i + 1], ray_prj[3 * i + 2],
+                   cos_ti_in[i], on_a_in[i], on_b_in[i], di_in[i], rv_in[i],
+                   ns_in[i]};
+}
+
+// The samples a lane draws of each light: ns, within the cap (the
+// integrator clamps ns to [1, cap]; the plain version never draws past
+// the cap either).
+__device__ __forceinline__ int nee_samples(const NeeLane& N, int cap) {
+    return max(0, min(N.ns, cap));
+}
+
+// A light's sampling cone at the lane's position: the cone axis f, the
+// cap height cyl, and the transposed con_z(f) frame (columns mx, my, f).
+struct LightFrame {
+    float fx, fy, fz, cyl, mxx, mxy, mxz, myx, myy, myz;
+};
+
+__device__ __forceinline__ LightFrame light_frame(const float* lt,
+                                                  const int* lti,
+                                                  const NeeLane& N) {
+    LightFrame F;
+    // fov cone: sphere / envelope cone, or plane half-space
+    float cos_rs;
+    if (lti[LTI_FOV] == 1) {
+        const float* nn = lt + LT_PN;
+        F.fx = -nn[0];
+        F.fy = -nn[1];
+        F.fz = -nn[2];
+        const float dside = ((lt[LT_POS] - N.px) * (-nn[0])
+                             + (lt[LT_POS + 1] - N.py) * (-nn[1]))
+                            + (lt[LT_POS + 2] - N.pz) * (-nn[2]);
+        cos_rs = dside > 0.0f ? 0.0f : 1.0f;
+    } else {
+        F.fx = lt[LT_CONE] - N.px;
+        F.fy = lt[LT_CONE + 1] - N.py;
+        F.fz = lt[LT_CONE + 2] - N.pz;
+        const float dist2 = (F.fx * F.fx + F.fy * F.fy) + F.fz * F.fz;
+        norm3(F.fx, F.fy, F.fz);
+        const float r2 = lt[LT_R2];
+        const float q = 1.0f - r2 / (dist2 > 0.0f ? dist2 : 1.0f);
+        cos_rs = dist2 > r2 ? sqrtf(q > 0.0f ? q : 0.0f) : -1.0f;
+    }
+    F.cyl = 1.0f - cos_rs;
+    // transposed(con_z(fov_d)) frame: columns mx, my, mz = fov_d
+    const float fx = F.fx, fy = F.fy, fz = F.fz;
+    const float xx = fx * fx, yy = fy * fy, zz = fz * fz;
+    const float exm = (xx <= yy && xx <= zz) ? 1.0f : 0.0f;
+    const float eym = (yy <= xx && yy <= zz) ? 1.0f - exm : 0.0f;
+    const float ezm = fmaxf(1.0f - exm - eym, 0.0f);
+    const float cdot = (exm * fx + eym * fy) + ezm * fz;
+    F.mxx = exm - fx * cdot;
+    F.mxy = eym - fy * cdot;
+    F.mxz = ezm - fz * cdot;
+    norm3(F.mxx, F.mxy, F.mxz);
+    F.myx = fy * F.mxz - fz * F.mxy;
+    F.myy = fz * F.mxx - fx * F.mxz;
+    F.myz = fx * F.mxy - fy * F.mxx;
+    return F;
+}
+
+// Sample j of light li: its estimator term (loc * w) * di where the
+// sample leaves the surface, reaches the light and is not shadowed, else
+// 0.  The RNG counters are 4 (li cap + j) and 4 (li cap + j) + 1.
+__device__ float nee_sample(const Scene& S, const float* lt, const int* lti,
+                            const LightFrame& F, const NeeLane& N, int li,
+                            int j, int cap, float eps) {
+    const float two_pi = 6.283185307179586f;
+    const uint32_t ctr = 4u * (uint32_t)(li * cap + j);
+    const float u1 = uniform(N.rv, ctr);
+    const float u2 = uniform(N.rv, ctr + 1u);
+    const float phi = two_pi * u1;
+    const float z = 1.0f - u2 * F.cyl;
+    const float sc2 = 1.0f - z * z;
+    const float sc = sqrtf(sc2 > 0.0f ? sc2 : 0.0f);
+    const float lx = sinf(phi) * sc;
+    const float ly = cosf(phi) * sc;
+    Ray r;
+    r.px = N.px;
+    r.py = N.py;
+    r.pz = N.pz;
+    r.dx = (F.mxx * lx + F.myx * ly) + F.fx * z;
+    r.dy = (F.mxy * lx + F.myy * ly) + F.fy * z;
+    r.dz = (F.mxz * lx + F.myz * ly) + F.fz * z;
+    float w = (r.dx * N.sx + r.dy * N.sy) + r.dz * N.sz;
+    const float a = object_first_hit(S, lti[LTI_HKIND], lti[LTI_HIDX], r,
+                                     eps);
+    const bool fin = is_finite(a);
+    bool ok = (w > 0.0f) && fin;
+    if (N.on_b > 0.0f) {
+        // Oren-Nayar, trig-free: sin(max(ti, tr)) and tan(min(ti, tr))
+        // from the cosines
+        const float wc = fminf(fmaxf(w, -1.0f), 1.0f);
+        float prx = r.dx - N.sx * w, pry = r.dy - N.sy * w,
+              prz = r.dz - N.sz * w;
+        norm3(prx, pry, prz);
+        const float cos_phi = -((prx * N.qx + pry * N.qy) + prz * N.qz);
+        const float cmin = fminf(N.cos_ti, wc);
+        const float sin_max = sqrtf(fmaxf(1.0f - cmin * cmin, 0.0f));
+        const float cmax = fmaxf(fmaxf(N.cos_ti, wc), 1e-6f);
+        const float tan_min = sqrtf(fmaxf(1.0f - cmax * cmax, 0.0f)) / cmax;
+        w = w * (N.on_a + ((N.on_b * fmaxf(cos_phi, 0.0f)) * sin_max)
+                              * tan_min);
+    }
+    const float lim = fin ? a : 0.0f;
+    ok = ok && !shadow_blocked(S, r, lim, eps);
+    const float a_safe = fin ? a : 0.0f;
+    const float hx = N.px + r.dx * a_safe - lt[LT_POS];
+    const float hy = N.py + r.dy * a_safe - lt[LT_POS + 1];
+    const float hz = N.pz + r.dz * a_safe - lt[LT_POS + 2];
+    const float dsq = (hx * hx + hy * hy) + hz * hz;
+    const float loc = dsq > 0.0f ? lt[LT_RAD] / dsq : 1e30f;
+    return ok ? (loc * w) * N.di : 0.0f;
+}
+
+// Light li's sum of its n samples' terms, in sample order (term j at
+// terms[j]), as the serial loop accumulates it.
+__device__ __forceinline__ float nee_light_sum(const float* terms, int n) {
+    float acc = 0.0f;
+    for (int j = 0; j < n; ++j) acc += terms[j];
+    return acc;
+}
+
+// The lane's radiance: each light's sum acc[li] times its colour and
+// 2 cyl / ns, added in light order.
+__device__ __forceinline__ void nee_lum(const float* LF, const float* acc,
+                                        const float* fac, int n_lights,
+                                        float lum[3]) {
+    lum[0] = lum[1] = lum[2] = 0.0f;
+    for (int li = 0; li < n_lights; ++li) {
+        const float* lt = LF + li * LT_SIZE;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+            lum[ch] += acc[li] * (lt[LT_COLOR + ch] * fac[li]);
+    }
+}
+
+// K1's dynamic shared memory in floats: the scene table's floats and
+// ints, the light table's floats and ints, each padded to 16 bytes, then
+// per warp a slice of n_lights * cap sample terms and n_lights (sum,
+// factor) pairs.
+__host__ __device__ __forceinline__ int pad4(int words) {
+    return (words + 3) / 4 * 4;
+}
+
+__host__ __device__ __forceinline__ int nee_warp_words(int n_lights,
+                                                       int cap) {
+    return pad4(n_lights * cap + 2 * n_lights);
+}
+
+constexpr int kNeeWarps = 4;   // K1: NEE lanes (one warp each) a block
+
+inline size_t nee_shared_bytes(int n_f, int n_i, int n_lights, int cap) {
+    return 4 * ((size_t)pad4(n_f) + pad4(n_i) + pad4(n_lights * LT_SIZE)
+                + pad4(n_lights * LTI_SIZE)
+                + (size_t)kNeeWarps * nee_warp_words(n_lights, cap));
+}
+
 // ---- kernels ----
 
 __global__ void shadow_kernel(Scene S, const float* __restrict__ p,
@@ -338,139 +532,82 @@ __global__ void object_hit_kernel(Scene S, int kind, int idx,
     out[i] = is_finite(a) ? a : finf();
 }
 
-__global__ void nee_kernel(Scene S, const float* __restrict__ LF,
-                           const int* __restrict__ LI, int n_lights,
-                           int cap, const float* __restrict__ pos,
-                           const float* __restrict__ surf_d,
-                           const float* __restrict__ di_in,
-                           const float* __restrict__ cos_ti_in,
-                           const float* __restrict__ on_a_in,
-                           const float* __restrict__ on_b_in,
-                           const float* __restrict__ ray_prj,
-                           const uint32_t* __restrict__ rv_in,
-                           const int* __restrict__ ns_in,
-                           float* __restrict__ out, int n, float eps) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    float lum[3] = {0.0f, 0.0f, 0.0f};
-    const float di = di_in[i];
-    if (di > 0.0f) {
-        const float px = pos[3 * i], py = pos[3 * i + 1], pz = pos[3 * i + 2];
-        const float sx = surf_d[3 * i], sy = surf_d[3 * i + 1],
-                    sz = surf_d[3 * i + 2];
-        const float qx = ray_prj[3 * i], qy = ray_prj[3 * i + 1],
-                    qz = ray_prj[3 * i + 2];
-        const float cos_ti = cos_ti_in[i];
-        const float on_a = on_a_in[i], on_b = on_b_in[i];
-        const bool has_ob = on_b > 0.0f;
-        const uint32_t rv = rv_in[i];
-        const int ns = ns_in[i];
-        const float ns_f = (float)ns;
-        const float two_pi = 6.283185307179586f;
-        for (int li = 0; li < n_lights; ++li) {
-            const float* lt = LF + li * LT_SIZE;
-            const int* lti = LI + li * LTI_SIZE;
-            // fov cone: sphere / envelope cone, or plane half-space
-            float fx, fy, fz, cos_rs;
-            if (lti[LTI_FOV] == 1) {
-                const float* nn = lt + LT_PN;
-                fx = -nn[0];
-                fy = -nn[1];
-                fz = -nn[2];
-                const float dside = ((lt[LT_POS] - px) * (-nn[0])
-                                     + (lt[LT_POS + 1] - py) * (-nn[1]))
-                                    + (lt[LT_POS + 2] - pz) * (-nn[2]);
-                cos_rs = dside > 0.0f ? 0.0f : 1.0f;
-            } else {
-                fx = lt[LT_CONE] - px;
-                fy = lt[LT_CONE + 1] - py;
-                fz = lt[LT_CONE + 2] - pz;
-                const float dist2 = (fx * fx + fy * fy) + fz * fz;
-                norm3(fx, fy, fz);
-                const float r2 = lt[LT_R2];
-                const float q = 1.0f - r2 / (dist2 > 0.0f ? dist2 : 1.0f);
-                cos_rs = dist2 > r2 ? sqrtf(q > 0.0f ? q : 0.0f) : -1.0f;
-            }
-            const float cyl = 1.0f - cos_rs;
-            // transposed(con_z(fov_d)) frame: columns mx, my, mz = fov_d
-            const float xx = fx * fx, yy = fy * fy, zz = fz * fz;
-            const float exm = (xx <= yy && xx <= zz) ? 1.0f : 0.0f;
-            const float eym = (yy <= xx && yy <= zz) ? 1.0f - exm : 0.0f;
-            const float ezm = fmaxf(1.0f - exm - eym, 0.0f);
-            const float cdot = (exm * fx + eym * fy) + ezm * fz;
-            float mxx = exm - fx * cdot, mxy = eym - fy * cdot,
-                  mxz = ezm - fz * cdot;
-            norm3(mxx, mxy, mxz);
-            const float myx = fy * mxz - fz * mxy;
-            const float myy = fz * mxx - fx * mxz;
-            const float myz = fx * mxy - fy * mxx;
-            const int hkind = lti[LTI_HKIND], hidx = lti[LTI_HIDX];
-            const float lpx = lt[LT_POS], lpy = lt[LT_POS + 1],
-                        lpz = lt[LT_POS + 2];
-            const float rad = lt[LT_RAD];
-            float acc = 0.0f;
-            for (int j = 0; j < ns; ++j) {
-                const uint32_t ctr = 4u * (uint32_t)(li * cap + j);
-                const float u1 = uniform(rv, ctr);
-                const float u2 = uniform(rv, ctr + 1u);
-                const float phi = two_pi * u1;
-                const float z = 1.0f - u2 * cyl;
-                const float sc2 = 1.0f - z * z;
-                const float sc = sqrtf(sc2 > 0.0f ? sc2 : 0.0f);
-                const float lx = sinf(phi) * sc;
-                const float ly = cosf(phi) * sc;
-                Ray r;
-                r.px = px;
-                r.py = py;
-                r.pz = pz;
-                r.dx = (mxx * lx + myx * ly) + fx * z;
-                r.dy = (mxy * lx + myy * ly) + fy * z;
-                r.dz = (mxz * lx + myz * ly) + fz * z;
-                float w = (r.dx * sx + r.dy * sy) + r.dz * sz;
-                const float a = object_first_hit(S, hkind, hidx, r, eps);
-                const bool fin = is_finite(a);
-                bool ok = (w > 0.0f) && fin;
-                if (has_ob) {
-                    // Oren-Nayar, trig-free: sin(max(ti, tr)) and
-                    // tan(min(ti, tr)) from the cosines
-                    const float wc = fminf(fmaxf(w, -1.0f), 1.0f);
-                    float prx = r.dx - sx * w, pry = r.dy - sy * w,
-                          prz = r.dz - sz * w;
-                    norm3(prx, pry, prz);
-                    const float cos_phi = -((prx * qx + pry * qy) + prz * qz);
-                    const float cmin = fminf(cos_ti, wc);
-                    const float sin_max = sqrtf(fmaxf(1.0f - cmin * cmin,
-                                                      0.0f));
-                    const float cmax = fmaxf(fmaxf(cos_ti, wc), 1e-6f);
-                    const float tan_min =
-                        sqrtf(fmaxf(1.0f - cmax * cmax, 0.0f)) / cmax;
-                    w = w * (on_a + ((on_b * fmaxf(cos_phi, 0.0f)) * sin_max)
-                                        * tan_min);
-                }
-                const float lim = fin ? a : 0.0f;
-                ok = ok && !shadow_blocked(S, r, lim, eps);
-                const float a_safe = fin ? a : 0.0f;
-                const float hx = px + r.dx * a_safe - lpx;
-                const float hy = py + r.dy * a_safe - lpy;
-                const float hz = pz + r.dz * a_safe - lpz;
-                const float dsq = (hx * hx + hy * hy) + hz * hz;
-                const float loc = dsq > 0.0f ? rad / dsq : 1e30f;
-                acc += ok ? (loc * w) * di : 0.0f;
-            }
-            const float fac = 2.0f * cyl / ns_f;
-#pragma unroll
-            for (int ch = 0; ch < 3; ++ch)
-                lum[ch] += acc * (lt[LT_COLOR + ch] * fac);
-        }
+#ifdef __CUDACC__
+
+__global__ void __launch_bounds__(kNeeWarps * 32)
+nee_kernel(const float* __restrict__ sf, const int* __restrict__ si,
+           int n_f, int n_i, const float* __restrict__ LF,
+           const int* __restrict__ LI, int n_lights, int cap,
+           const float* __restrict__ pos, const float* __restrict__ surf_d,
+           const float* __restrict__ di_in,
+           const float* __restrict__ cos_ti_in,
+           const float* __restrict__ on_a_in,
+           const float* __restrict__ on_b_in,
+           const float* __restrict__ ray_prj,
+           const uint32_t* __restrict__ rv_in,
+           const int* __restrict__ ns_in, float* __restrict__ out, int n,
+           float eps) {
+    extern __shared__ __align__(16) float nee_shared[];
+    float* s_f = nee_shared;
+    int* s_i = reinterpret_cast<int*>(s_f + pad4(n_f));
+    float* s_lf = reinterpret_cast<float*>(s_i + pad4(n_i));
+    int* s_li = reinterpret_cast<int*>(s_lf + pad4(n_lights * LT_SIZE));
+    float* s_warps = reinterpret_cast<float*>(
+        s_li + pad4(n_lights * LTI_SIZE));
+    for (int k = threadIdx.x; k < n_f; k += blockDim.x) s_f[k] = sf[k];
+    for (int k = threadIdx.x; k < n_i; k += blockDim.x) s_i[k] = si[k];
+    for (int k = threadIdx.x; k < n_lights * LT_SIZE; k += blockDim.x)
+        s_lf[k] = LF[k];
+    for (int k = threadIdx.x; k < n_lights * LTI_SIZE; k += blockDim.x)
+        s_li[k] = LI[k];
+    __syncthreads();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int i = blockIdx.x * kNeeWarps + warp;
+    if (i >= n) return;   // the whole warp: no block barrier follows
+    const NeeLane N = load_nee_lane(i, pos, surf_d, di_in, cos_ti_in,
+                                    on_a_in, on_b_in, ray_prj, rv_in, ns_in);
+    if (!(N.di > 0.0f)) {
+        if (lane == 0) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = 0.0f;
+        return;
     }
-    out[3 * i] = lum[0];
-    out[3 * i + 1] = lum[1];
-    out[3 * i + 2] = lum[2];
+    const Scene S{s_f, s_i};
+    const int ns = nee_samples(N, cap);
+    float* terms = s_warps + warp * nee_warp_words(n_lights, cap);
+    float* acc = terms + n_lights * ns;
+    float* fac = acc + n_lights;
+    // the (light, sample) pairs across the warp: term li * ns + j
+    for (int k = lane; k < n_lights * ns; k += 32) {
+        const int li = k / ns, j = k - li * ns;
+        const float* lt = s_lf + li * LT_SIZE;
+        const int* lti = s_li + li * LTI_SIZE;
+        terms[k] = nee_sample(S, lt, lti, light_frame(lt, lti, N), N, li, j,
+                              cap, eps);
+    }
+    __syncwarp();
+    for (int li = lane; li < n_lights; li += 32) {
+        const float* lt = s_lf + li * LT_SIZE;
+        const int* lti = s_li + li * LTI_SIZE;
+        acc[li] = nee_light_sum(terms + li * ns, ns);
+        fac[li] = 2.0f * light_frame(lt, lti, N).cyl / (float)N.ns;
+    }
+    __syncwarp();
+    if (lane == 0) {
+        float lum[3];
+        nee_lum(s_lf, acc, fac, n_lights, lum);
+        out[3 * i] = lum[0];
+        out[3 * i + 1] = lum[1];
+        out[3 * i + 2] = lum[2];
+    }
 }
 
-constexpr int kBlock = 128;
+#endif  // __CUDACC__
 
-inline int grid_of(int n) { return (n + kBlock - 1) / kBlock; }
+constexpr int kBlock = 128;     // K2, K3: rays (one thread each) a block
+constexpr size_t kMaxShared = 232448;   // what a thread block may have
+
+inline int grid_of(int n, int per_block) {
+    return (n + per_block - 1) / per_block;
+}
 
 }  // namespace
 
@@ -479,7 +616,7 @@ extern "C" {
 int actinon_shadow(const float* sf, const int* si, const float* p,
                    const float* d, const float* lim, uint8_t* out, int n,
                    float eps, void* stream) {
-    shadow_kernel<<<grid_of(n), kBlock, 0, (cudaStream_t)stream>>>(
+    shadow_kernel<<<grid_of(n, kBlock), kBlock, 0, (cudaStream_t)stream>>>(
         Scene{sf, si}, p, d, lim, out, n, eps);
     return (int)cudaGetLastError();
 }
@@ -487,20 +624,33 @@ int actinon_shadow(const float* sf, const int* si, const float* p,
 int actinon_object_hit(const float* sf, const int* si, int kind, int idx,
                        const float* p, const float* d, float* out, int n,
                        float eps, void* stream) {
-    object_hit_kernel<<<grid_of(n), kBlock, 0, (cudaStream_t)stream>>>(
+    object_hit_kernel<<<grid_of(n, kBlock), kBlock, 0,
+                        (cudaStream_t)stream>>>(
         Scene{sf, si}, kind, idx, p, d, out, n, eps);
     return (int)cudaGetLastError();
 }
 
-int actinon_nee(const float* sf, const int* si, const float* lf,
-                const int* li, int n_lights, int cap, const float* pos,
-                const float* surf_d, const float* di, const float* cos_ti,
-                const float* on_a, const float* on_b, const float* ray_prj,
-                const uint32_t* rv, const int* ns, float* out, int n,
-                float eps, void* stream) {
-    nee_kernel<<<grid_of(n), kBlock, 0, (cudaStream_t)stream>>>(
-        Scene{sf, si}, lf, li, n_lights, cap, pos, surf_d, di, cos_ti, on_a,
-        on_b, ray_prj, rv, ns, out, n, eps);
+// n_f, n_i: the scene table's float and int32 words.  Refuses
+// (cudaErrorInvalidValue) tables and sample slices that do not fit a
+// thread block's shared memory.
+int actinon_nee(const float* sf, const int* si, int n_f, int n_i,
+                const float* lf, const int* li, int n_lights, int cap,
+                const float* pos, const float* surf_d, const float* di,
+                const float* cos_ti, const float* on_a, const float* on_b,
+                const float* ray_prj, const uint32_t* rv, const int* ns,
+                float* out, int n, float eps, void* stream) {
+    const size_t shared = nee_shared_bytes(n_f, n_i, n_lights, cap);
+    if (shared > kMaxShared) return (int)cudaErrorInvalidValue;
+    if (shared > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            nee_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)shared);
+        if (e != cudaSuccess) return (int)e;
+    }
+    nee_kernel<<<grid_of(n, kNeeWarps), kNeeWarps * 32, shared,
+                 (cudaStream_t)stream>>>(
+        sf, si, n_f, n_i, lf, li, n_lights, cap, pos, surf_d, di, cos_ti,
+        on_a, on_b, ray_prj, rv, ns, out, n, eps);
     return (int)cudaGetLastError();
 }
 

@@ -17,11 +17,14 @@ the JAX package's `kernel_coverage` and `_light_coverage` select is
 flattened into a read-only table (`SceneTable`, `LightTable`: the flat
 leaf/composite table of K1-K3, not the packed table of the scene kernels
 K4/K5 in `render/scene_kernels.py`) that every thread of a warp reads in
-step.  Composites with SDF leaves lie outside this coverage, as in the
-JAX package.  The library of all the port's kernels (this module's,
-`scene_kernels`' K4/K5, `bigscene`'s K6/K7 and `diag_ops`' K8/K9) builds
-at first use with one `nvcc` call, from the sources in this package only,
-into `_build/`; it is keyed by a hash of the sources.
+step.  K1 takes one warp per NEE lane, its (light, sample) pairs across
+the warp, and copies both tables into shared memory once per thread
+block (`nee_launch`).  Composites with SDF leaves lie outside this
+coverage, as in the JAX package.  The library of all the port's kernels
+(this module's, `scene_kernels`' K4/K5, `bigscene`'s K6/K7 and
+`diag_ops`' K8/K9) builds at first use with one `nvcc` call, from the
+sources in this package only, into `_build/`; it is keyed by a hash of
+the sources.
 
 A wrapper takes the plain version when its tensors lie on the CPU, and
 only then.  On a CUDA tensor it launches its kernel or raises; each
@@ -58,6 +61,10 @@ SOURCES = [os.path.join(_PKG, "csrc", f)
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+
+SHARED_MAX = 232448   # shared memory a thread block may have on sm_90
+NEE_WARPS = 4         # K1: NEE lanes (one warp each) a thread block; must
+                      # match kNeeWarps of csrc/trace_kernels.cu
 
 # table layout: must match csrc/trace_kernels.cu
 H_SIZE = 16
@@ -303,12 +310,12 @@ def _lib():
             P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.actinon_shadow.argtypes = [P, P, P, P, P, P, I, F, P]
             lib.actinon_object_hit.argtypes = [P, P, I, I, P, P, P, I, F, P]
-            lib.actinon_nee.argtypes = [P, P, P, P, I, I, P, P, P, P, P, P,
-                                        P, P, P, P, I, F, P]
+            lib.actinon_nee.argtypes = [P, P, I, I, P, P, I, I, P, P, P, P,
+                                        P, P, P, P, P, P, I, F, P]
             lib.actinon_scene_top2.argtypes = [P, P, P, P, P, P, P, P, I,
                                                F, I, I, P]
             lib.actinon_scene_anyhit.argtypes = [P, P, P, P, P, P, P, I, F,
-                                                 P]
+                                                 I, I, P]
             lib.actinon_big_top2.argtypes = [P, P, I, P, P, P, P, I, F, P]
             lib.actinon_big_anyhit.argtypes = [P, P, I, P, P, P, P, I, F, P]
             lib.actinon_diag_op.argtypes = [I, P, P, P, P, I, P]
@@ -426,10 +433,30 @@ def nee_plain(integ, pos, surf_d, di, cos_ti, on_a, on_b, ray_prj, rv, ns):
                             tr._object_hit_plain)
 
 
+def _pad4(words: int) -> int:
+    return -(-words // 4) * 4
+
+
+def nee_launch(integ) -> dict:
+    """K1's launch geometry: threads and NEE lanes (one warp each) a
+    thread block, and the dynamic shared memory that holds the scene and
+    light tables, each padded to 16 bytes, and per warp n_lights * cap
+    sample terms and n_lights (sum, factor) pairs
+    (csrc/trace_kernels.cu `nee_shared_bytes`)."""
+    st, lt = scene_table(integ.tr), light_table(integ)
+    n, cap = lt.n, int(integ.direct_cap)
+    words = (_pad4(st.f.numel()) + _pad4(st.i.numel()) + _pad4(n * LTF_SIZE)
+             + _pad4(n * LTI_SIZE) + NEE_WARPS * _pad4(n * cap + 2 * n))
+    return dict(threads=32 * NEE_WARPS, lanes_per_block=NEE_WARPS,
+                shared_bytes=4 * words)
+
+
 def nee(integ, pos, surf_d, di, cos_ti, on_a, on_b, ray_prj, rv, ns):
     """lum [B,3] of the per-light NEE loop.  pos, surf_d, ray_prj [B,3]
     f32; di (zero where the lane does not shade), cos_ti, on_a, on_b [B]
-    f32; rv [B] uint32 stream ids; ns [B] int32 sample counts."""
+    f32; rv [B] uint32 stream ids; ns [B] int32 sample counts.  Raises
+    where the tables and sample slices do not fit a thread block's
+    shared memory."""
     if pos.device.type == "cpu":
         return nee_plain(integ, pos, surf_d, di, cos_ti, on_a, on_b,
                          ray_prj, rv, ns)
@@ -443,14 +470,20 @@ def nee(integ, pos, surf_d, di, cos_ti, on_a, on_b, ray_prj, rv, ns):
     _check(ns, (B,), torch.int32, "ns")
     if not nee_supported(integ):
         raise ValueError("the scene is outside the NEE kernel's coverage")
+    shared = nee_launch(integ)["shared_bytes"]
+    if shared > SHARED_MAX:
+        raise ValueError(f"nee: the tables and sample slices need {shared} "
+                         f"bytes of shared memory, a thread block has "
+                         f"{SHARED_MAX}")
     out = torch.empty((B, 3), dtype=torch.float32, device=pos.device)
     if B == 0:
         return out
     st = scene_table(integ.tr)
     lt = light_table(integ)
     rc = _lib().actinon_nee(
-        st.f.data_ptr(), st.i.data_ptr(), lt.f.data_ptr(), lt.i.data_ptr(),
-        lt.n, int(integ.direct_cap), pos.data_ptr(), surf_d.data_ptr(),
+        st.f.data_ptr(), st.i.data_ptr(), st.f.numel(), st.i.numel(),
+        lt.f.data_ptr(), lt.i.data_ptr(), lt.n, int(integ.direct_cap),
+        pos.data_ptr(), surf_d.data_ptr(),
         di.data_ptr(), cos_ti.data_ptr(), on_a.data_ptr(), on_b.data_ptr(),
         ray_prj.data_ptr(), rv.data_ptr(), ns.data_ptr(), out.data_ptr(), B,
         float(integ.tr.eps), _stream())

@@ -59,7 +59,8 @@ MAX_SHAPES = 128  # shape << 24 stays a positive int32
 MAX_MEMBERS = 1 << 16   # member << 8 holds 16 bits
 TOP2_WARPS = 4    # K4: rays (one warp each) a thread block; must match
                   # kTop2Warps of csrc/scene_kernels.cu
-SHARED_MAX = 232448   # shared memory a thread block may have on sm_90
+ANY_WARPS = 4     # K5: the same, kAnyWarps
+SHARED_MAX = kernels.SHARED_MAX
 
 # shape descriptor for csrc/scene_kernels.cu (int32 records after a
 # one-word header holding the shape count); must match the source
@@ -813,14 +814,36 @@ def scene_anyhit_plain(st: SceneTable, p, d, limit, work=None):
 # the wrappers
 
 
-def top2_launch(st: SceneTable) -> dict:
-    """K4's launch geometry over the table st: threads and rays (one
-    warp each) a thread block, and the dynamic shared memory that holds
-    the descriptor, padded to 16 bytes, and (centre, r2) of each bound
-    (csrc/scene_kernels.cu `top2_shared_bytes`)."""
-    words = -(-st.desc_t.numel() // 4) * 4 + 4 * st.bounds_t.shape[0]
-    return dict(threads=32 * TOP2_WARPS, rays_per_block=TOP2_WARPS,
+def _launch(st: SceneTable, warps: int) -> dict:
+    """A warp kernel's launch geometry over the table st: threads and
+    rays (one warp each) a thread block, and the dynamic shared memory
+    that holds the descriptor, padded to 16 bytes, and (centre, r2) of
+    each bound (csrc/scene_kernels.cu `desc_shared_bytes`)."""
+    words = kernels._pad4(st.desc_t.numel()) + 4 * st.bounds_t.shape[0]
+    return dict(threads=32 * warps, rays_per_block=warps,
                 shared_bytes=4 * words)
+
+
+def top2_launch(st: SceneTable) -> dict:
+    """K4's launch geometry over the full table st."""
+    return _launch(st, TOP2_WARPS)
+
+
+def anyhit_launch(st: SceneTable) -> dict:
+    """K5's launch geometry over the matter-only table st: K4's, with
+    each block's shape index after the bounds (csrc/scene_kernels.cu
+    `anyhit_shared_bytes`); the grid is capped at the thread blocks the
+    card holds at once, each warp striding over the rays."""
+    got = _launch(st, ANY_WARPS)
+    got["shared_bytes"] += 4 * st.bounds_t.shape[0]
+    return got
+
+
+def _check_shared(name, launch):
+    if launch["shared_bytes"] > SHARED_MAX:
+        raise ValueError(f"{name}: the descriptor and bounds need "
+                         f"{launch['shared_bytes']} bytes of shared memory, "
+                         f"a thread block has {SHARED_MAX}")
 
 
 def scene_top2(tr, p, d, lane_matter):
@@ -830,11 +853,7 @@ def scene_top2(tr, p, d, lane_matter):
     st, _ = tr._scene_tables()
     if p.device.type == "cpu":
         return scene_top2_plain(st, p, d, lane_matter)
-    shared = top2_launch(st)["shared_bytes"]
-    if shared > SHARED_MAX:
-        raise ValueError(f"scene_top2: the descriptor and bounds need "
-                         f"{shared} bytes of shared memory, a thread "
-                         f"block has {SHARED_MAX}")
+    _check_shared("scene_top2", top2_launch(st))
     N = p.shape[0]
     kernels._check(p, (N, 3), torch.float32, "p")
     kernels._check(d, (N, 3), torch.float32, "d")
@@ -855,10 +874,12 @@ def scene_top2(tr, p, d, lane_matter):
 def scene_anyhit(tr, p, d, limit):
     """K5 over the tracer's matter-only scene table: blocked [N] bool.
     p, d [N,3] and limit [N] f32 (a limit that is not finite reads as
-    3e38 inside the kernel)."""
+    3e38 inside the kernel).  Raises where the descriptor and bounds do
+    not fit a thread block's shared memory."""
     _, st = tr._scene_tables()
     if p.device.type == "cpu":
         return scene_anyhit_plain(st, p, d, limit)
+    _check_shared("scene_anyhit", anyhit_launch(st))
     N = p.shape[0]
     kernels._check(p, (N, 3), torch.float32, "p")
     kernels._check(d, (N, 3), torch.float32, "d")
@@ -869,6 +890,7 @@ def scene_anyhit(tr, p, d, limit):
     rc = kernels._lib().actinon_scene_anyhit(
         st.table_t.data_ptr(), st.bounds_t.data_ptr(), st.desc_t.data_ptr(),
         p.data_ptr(), d.data_ptr(), limit.data_ptr(), out.data_ptr(), N,
-        float(st.eps), kernels._stream())
+        float(st.eps), st.desc_t.numel(), st.bounds_t.shape[0],
+        kernels._stream())
     kernels._launched("scene_anyhit", rc)
     return out

@@ -17,8 +17,12 @@ Phases, each printing one line of numbers:
                and its plain version's time;
   4. headline render — the smoke scene at bench.py's headline shape
                (200x150, direct=10, path=0, depth=25, batch 1<<15)
-               through render_scene, twice: equal fold hashes, and the NEE
-               kernel launched;
+               through render_scene, twice: equal fold hashes that repeat
+               GLASS_HASH, and the NEE kernel launched; then K1 against
+               its plain version on the inputs of the render's largest NEE
+               call, with device time, plain time, the bound and K1's
+               launch geometry (the synthetic lanes of phase 3 stay beside
+               it);
   5. shipped-shape render — bench.py's TRUE_CFG shape (80x60,
                direct=200, path=500, depth=25, batch 1<<14);
   6. counter-mode render — seed_mode="counter" at 64x48: the shadow and
@@ -32,8 +36,8 @@ Phases, each printing one line of numbers:
   8. scene kernels — K4 and K5 against their plain versions on the inputs
                of the lamp_row render's largest calls (the drain batch for
                K4, one NEE chunk of flattened shadow rays for K5), with
-               device time, plain time, the bound and K4's launch geometry
-               (threads and rays a thread block, shared bytes);
+               device time, plain time, the bound and K4's and K5's launch
+               geometry (threads and rays a thread block, shared bytes);
   9. counter-mode lamp_row — the image mean with the kernels and without
                them agrees within 5e-3, and the card's render agrees with
                the port's plain render on the CPU;
@@ -59,7 +63,9 @@ Phases, each printing one line of numbers:
  13. ops     — the diagnostic kernels K8 (sin, cos, sqrt, rsqrt, exp) and
                K9 (a / b, a * b + c) through the diag_ops entry point, each
                op's bit-equal share and max ulp against torch's op (sqrt and
-               division must be bit-equal), and the einsum check;
+               division must be bit-equal), and the einsum check; then each
+               op code's time against its own torch call, in turns over
+               OP_ROUNDS rounds, with its spread;
  14. wine_glass — the corpus scene at the headline shape, when the
                directory named by $ACTINON_CORPUS holds wine_glass.acn.
 
@@ -196,23 +202,37 @@ def cuda_ms(fn, reps=20, warm=3):
     return _event_ms(lambda: [fn() for _ in range(reps)]) / reps
 
 
-def kernel_ms(fn, reps=100):
-    """Device time of one kernel launch: `reps` calls of the wrapper fn()
-    captured in one CUDA graph, the graph replayed twice to warm the card
-    up, then once between a pair of CUDA events, divided by `reps`.  No
-    host time lies between the launches: a 5 us kernel behind a 30 us
-    wrapper still reads 5 us."""
+def graph_ms(fns, rounds=1, reps=100):
+    """Device time of one launch of each of fns, in turns: `reps` calls
+    of each wrapper captured in one CUDA graph, each graph replayed twice
+    to warm the card up, then the graphs replayed in turn (fns[0],
+    fns[1], ..., fns[0], ...) `rounds` times, each replay between a pair
+    of CUDA events and divided by `reps`.  Returns one list of `rounds`
+    times per fn.  No host time lies between the launches: a 5 us kernel
+    behind a 30 us wrapper still reads 5 us."""
     import torch
-    fn()
+    graphs = []
+    for fn in fns:
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        g.replay()
+        graphs.append(g)
     torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
-    g.replay()
-    g.replay()
-    torch.cuda.synchronize()
-    return _event_ms(g.replay) / reps
+    out = [[] for _ in fns]
+    for _ in range(rounds):
+        for k, g in enumerate(graphs):
+            out[k].append(_event_ms(g.replay) / reps)
+    return out
+
+
+def kernel_ms(fn, reps=100):
+    """Device time of one kernel launch (graph_ms, one round)."""
+    return graph_ms([fn], reps=reps)[0][0]
 
 
 # ---------------------------------------------------------------------------
@@ -504,6 +524,16 @@ def phase_kernels(n_lanes):
     args = (t(pos), t(sd), t(di), t(np.cos(theta_i)), t(on_a), t(on_b),
             t(prj), t(rv.view(np.int32)).view(torch.uint32),
             t(ns.astype(np.int32)))
+    out.append(check_nee("nee", integ, args, "nee_synthetic"))
+    return {k["name"]: k for k in out}
+
+
+def check_nee(tag, integ, args, name="nee"):
+    """K1 against its plain version on the NEE inputs args: radiance
+    within rel 1e-2 on >= 99 % of lanes; its device time, its plain
+    version's time and its bound on these inputs."""
+    import torch
+    from actinon_tpu_torch.render import kernels
     got = kernels.nee(integ, *args)
     torch.cuda.synchronize()
     want = kernels.nee_plain(integ, *args)
@@ -511,23 +541,24 @@ def phase_kernels(n_lanes):
     frac = float((rel.max(dim=1).values < 1e-2).float().mean())
     max_err = float(torch.abs(got - want).max())
     if not frac >= 0.99:
-        fail(f"NEE kernel: only {frac} of lanes within rel 1e-2")
+        fail(f"NEE kernel ({tag}): only {frac} of lanes within rel 1e-2")
     ms = kernel_ms(lambda: kernels.nee(integ, *args))
     plain_ms = cuda_ms(lambda: kernels.nee_plain(integ, *args), warm=1)
+    B = args[0].shape[0]
+    live = args[2] > 0
     b_ms, b_by = bound(B * (15 * 4 + 3 * 4),
                        nee_ops(integ, args[0], args[1], args[2], args[5],
                                args[7], args[8]))
-    say("kernel nee", lanes=B, samples=int(ns[di > 0].sum()),
-        lanes_agree=f"{frac:.6f}", max_abs_err=f"{max_err:.3e}",
-        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.5f}",
-        bound_by=b_by)
-    out.append(dict(name="nee", route="cuda",
-                    source="actinon_tpu_torch/csrc/trace_kernels.cu",
-                    replaces="actinon_tpu/render/pallas_kernels.py:467",
-                    max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                    agree=frac, n=B))
-    return {k["name"]: k for k in out}
+    say(f"kernel {tag}", lanes=B, live=int(live.sum()),
+        samples=int(args[8][live].sum()), lanes_agree=f"{frac:.6f}",
+        max_abs_err=f"{max_err:.3e}", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.6f}", bound_by=b_by,
+        **kernels.nee_launch(integ))
+    return dict(name=name, route="cuda",
+                source="actinon_tpu_torch/csrc/trace_kernels.cu",
+                replaces="actinon_tpu/render/pallas_kernels.py:467",
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, agree=frac, n=B)
 
 
 def render(tag, sc, batch, reps=1):
@@ -621,7 +652,8 @@ def phase_counter(w, h):
 def spied_render(module, names, tag, sc, reps):
     """render() with the wrappers `names` of `module` spied on: the inputs
     of each one's largest call are kept (cloned once) for the kernel
-    phases, the shapes and rays the main path gives them."""
+    phases, the shapes and rays the main path gives them.  A wrapper's
+    first argument is the tracer or integrator, then its tensors."""
     cap = {}
     orig = {n: getattr(module, n) for n in names}
 
@@ -719,7 +751,8 @@ def phase_scene_kernels(cap):
     b_ms, b_by = bound(n * (7 * 4 + 1) + tables, scene_ops(work, True))
     say("kernel scene_anyhit", n=n, blocked=int(want.sum()),
         agree=f"{agree:.6f}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        bound_ms=f"{b_ms:.5f}", bound_by=b_by, steps=work.steps)
+        bound_ms=f"{b_ms:.5f}", bound_by=b_by, steps=work.steps,
+        **sk.anyhit_launch(stm))
     out["scene_anyhit"] = dict(
         name="scene_anyhit", route="cuda",
         source="actinon_tpu_torch/csrc/scene_kernels.cu",
@@ -884,11 +917,17 @@ def phase_fractal_counter(base):
         launches=json.dumps(launches, separators=(",", ":")))
 
 
+OP_ROUNDS = 5   # turns of (kernel, torch call) per op in phase_ops
+
+
 def phase_ops():
     """K8 and K9 through the diag_ops entry point (its comparisons and the
-    einsum check are the path whose launches count), then each op's time
-    against torch's: plain is torch's op with host time, library the same
-    call in a CUDA graph."""
+    einsum check are the path whose launches count), then each op code
+    against its own torch call (torch.sin, cos, sqrt, rsqrt, exp;
+    torch.div for a / b; torch.addcmul for a * b + c): one CUDA graph of
+    100 launches each, replayed in turns (kernel, call, kernel, call, ...)
+    OP_ROUNDS times; each op's median and spread (min, max) over the
+    rounds.  plain is torch's op with host time."""
     import torch
     from actinon_tpu_torch import diag_ops
     from actinon_tpu_torch.render import kernels
@@ -918,15 +957,20 @@ def phase_ops():
         if name in ("sqrt", "div") and r["bit_equal"] != 1.0:
             fail(f"op {name}: {r['bit_equal']} bit-equal to torch's, "
                  f"where both are IEEE-rounded")
-        t = dict(r, ms=kernel_ms(run), plain_ms=cuda_ms(plain),
-                 library_ms=kernel_ms(libf), n=args[0].numel(),
+        k_ms, l_ms = graph_ms([run, libf], rounds=OP_ROUNDS)
+        t = dict(r, ms=float(np.median(k_ms)), plain_ms=cuda_ms(plain),
+                 library_ms=float(np.median(l_ms)), n=args[0].numel(),
                  n_in=len(args))
         per[key].append(t)
+        spread = lambda x: f"{min(x):.5f}-{max(x):.5f}"
         say(f"op {name}", bit_equal=f"{r['bit_equal']:.4f}",
             max_ulp=r["max_ulp"], mean_ulp=f"{r['mean_ulp']:.3f}",
             max_abs_err=f"{r['max_abs_err']:.3e}", ms=f"{t['ms']:.5f}",
-            plain_ms=f"{t['plain_ms']:.5f}",
-            library_ms=f"{t['library_ms']:.5f}")
+            ms_spread=spread(k_ms), library_ms=f"{t['library_ms']:.5f}",
+            library_spread=spread(l_ms),
+            library_call=("torch.addcmul" if name == "mul_add" else
+                          f"torch.{name}"), rounds=OP_ROUNDS,
+            plain_ms=f"{t['plain_ms']:.5f}")
     for name, r in ein.items():
         say(f"op {name}", max_rel=f"{r['max_rel']:.3e}",
             mean_rel=f"{r['mean_rel']:.3e}")
@@ -937,6 +981,8 @@ def phase_ops():
         # bytes: each input read once and the output written once
         b_ms, b_by = bound(float(np.mean([4 * t["n"] * (t["n_in"] + 1)
                                           for t in ts])), 0.0)
+        # the JSON line keeps one number a kernel: the mean over its ops
+        # of the per-op medians (the "op" lines above give each op)
         out[key] = dict(name=key, route="cuda",
                         source="actinon_tpu_torch/csrc/diag_ops.cu",
                         replaces=f"tools/diag_tpu_ops.py:{line}",
@@ -952,18 +998,18 @@ def phase_ops():
 
 def phase_profile():
     """Under torch.profiler: phase 3 again, with each kernel's device time
-    per launch beside its CUDA-graph time; then the headline, lamp_row and
-    sphere_fractal renders' device time by kernel and the device's busy
-    share of the wall time (the profiler itself adds host time, so the
-    share is a lower bound)."""
+    per launch beside its CUDA-graph time; then the headline, lamp_row,
+    sphere_fractal and counter-mode glass_table renders' device time by
+    kernel and the device's busy share of the wall time (the profiler
+    itself adds host time, so the share is a lower bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     dev = lambda e: e.self_device_time_total
     with profile(activities=acts) as prof:
         ks = phase_kernels(1 << 15)
-    for name, sym in (("nee", "nee_kernel"), ("shadow_any_hit",
-                                              "shadow_kernel"),
+    for name, sym in (("nee_synthetic", "nee_kernel"),
+                      ("shadow_any_hit", "shadow_kernel"),
                       ("object_hit", "object_hit_kernel")):
         ev = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and sym in e.key]
@@ -972,13 +1018,20 @@ def phase_profile():
         say(f"profile kernel {name}", launches=launches,
             device_ms_per_launch=f"{per_launch:.4f}",
             graph_ms_under_profiler=f"{ks[name]['ms']:.4f}")
-    for tag, sc in (("headline", load_scene(SCENE, *HEADLINE)),
-                    ("lamp_row", load_scene(LAMP, *LAMP_SHAPE)),
-                    ("sphere_fractal", load_scene(FRACTAL, *FRACTAL_SHAPE))):
-        render(f"profile_warmup_{tag}", sc, 1 << 15)
+    runs = [(tag, lambda tag, sc=sc: render(tag, sc, 1 << 15))
+            for tag, sc in (
+                ("headline", load_scene(SCENE, *HEADLINE)),
+                ("lamp_row", load_scene(LAMP, *LAMP_SHAPE)),
+                ("sphere_fractal", load_scene(FRACTAL, *FRACTAL_SHAPE)))]
+    # the counter-mode glass_table render of phase 6: K2 and K3's renders
+    counter = load_scene(SCENE, 64, 48, *HEADLINE[2:])
+    runs.append(("counter", lambda tag: counter_render(counter, 1 << 15,
+                                                       True)))
+    for tag, run in runs:
+        run(f"profile_warmup_{tag}")
         with profile(activities=acts) as prof:
             t0 = time.time()
-            render(f"profile_{tag}", sc, 1 << 15)
+            run(f"profile_{tag}")
             wall = time.time() - t0
         kern = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
@@ -1020,8 +1073,12 @@ def main(argv):
         return 0
     ks = phase_kernels(1 << 15)
 
-    runs = render("headline", load_scene(SCENE, *HEADLINE), 1 << 15, reps=2)
+    from actinon_tpu_torch.render import kernels
+    runs, cap = spied_render(kernels, ("nee",), "headline",
+                             load_scene(SCENE, *HEADLINE), reps=2)
     hl = runs[-1]["launches"]
+    integ, *args = cap.pop("nee")
+    ks["nee"] = check_nee("nee render_batch", integ, tuple(args))
     ks["nee"]["launches"] = hl["nee"]
     if int(runs[-1]["hash"]) != GLASS_HASH \
             or any(hl[k] for k in SCENE_KEYS):

@@ -494,6 +494,133 @@ def test_scene_top2_refuses_shared_overflow(tie_scene_tr, monkeypatch):
     assert kernels.LAUNCHES["scene_top2"] == before
 
 
+# -- K5 and K1, the warp any-hit and NEE kernels ----------------------------
+#
+# K5's booleans are an OR over the members, so the warp kernel with its
+# any-exit must equal its plain version on exact-tie inputs bit for bit,
+# limits exactly at the nearest hit and one ulp before it included.  K1's
+# sums run in a fixed order: two launches give the same bits.
+
+
+def _tie_limits(stm, p, d, seed):
+    """The nearest matter hit exactly, one ulp before it, random limits
+    and, on every fifth ray, none (INF)."""
+    from actinon_tpu_torch.render import scene_kernels
+    n = p.shape[0]
+    t1 = scene_kernels.scene_top2_plain(
+        stm, p, d, torch.ones(n, device=p.device))[0][:, 0]
+    lim = torch.as_tensor(np.random.default_rng(seed).uniform(
+        0.2, 15.0, n).astype(np.float32), device=p.device)
+    fin = torch.isfinite(t1)
+    k = torch.arange(n, device=p.device) % 5
+    lim = torch.where((k == 1) & fin, t1, lim)
+    lim = torch.where((k == 2) & fin, torch.nextafter(t1, torch.zeros_like(
+        t1)), lim)
+    return torch.where(k == 0, torch.full_like(lim, float("inf")), lim)
+
+
+@pytest.mark.parametrize("n", RAGGED)
+def test_scene_anyhit_kernel_exact_on_ties(tie_scene_tr, n):
+    from actinon_tpu_torch.render import kernels, scene_kernels
+    import _torch_scenes as S
+    tr = tie_scene_tr
+    _, stm = tr._scene_tables()
+    p, d = (torch.as_tensor(x, device="cuda")
+            for x in S.axis_rays(n, S.TIE_SHAPE, seed=n + 1))
+    lim = _tie_limits(stm, p, d, seed=n)
+    before = kernels.LAUNCHES["scene_anyhit"]
+    got = scene_kernels.scene_anyhit(tr, p, d, lim)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["scene_anyhit"] == before + 1
+    want = scene_kernels.scene_anyhit_plain(stm, p, d, lim)
+    assert torch.equal(got, want)
+    if n > 1000:
+        assert want.any() and (~want).any()
+
+
+def test_scene_anyhit_refuses_shared_overflow(tie_scene_tr, monkeypatch):
+    from actinon_tpu_torch.render import kernels, scene_kernels
+    import _torch_scenes as S
+    tr = tie_scene_tr
+    _, stm = tr._scene_tables()
+    p, d = (torch.as_tensor(x, device="cuda")
+            for x in S.axis_rays(64, S.TIE_SHAPE, seed=5))
+    lim = torch.full((64,), 5.0, device="cuda")
+    out = torch.empty((64,), dtype=torch.bool, device="cuda")
+    before = kernels.LAUNCHES["scene_anyhit"]
+    need = scene_kernels.anyhit_launch(stm)["shared_bytes"]
+    monkeypatch.setattr(scene_kernels, "SHARED_MAX", need - 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        scene_kernels.scene_anyhit(tr, p, d, lim)
+    rc = kernels._lib().actinon_scene_anyhit(
+        stm.table_t.data_ptr(), stm.bounds_t.data_ptr(),
+        stm.desc_t.data_ptr(), p.data_ptr(), d.data_ptr(), lim.data_ptr(),
+        out.data_ptr(), 64, float(stm.eps), 60000, 1, kernels._stream())
+    assert rc != 0
+    assert kernels.LAUNCHES["scene_anyhit"] == before
+
+
+def _nee_args(integ, B, seed):
+    rng = np.random.default_rng(seed)
+    cap = integ.direct_cap
+    pos = rng.uniform(-4, 4, (B, 3)).astype(np.float32)
+    pos[:, 2] = np.abs(pos[:, 2])
+    sd = rng.normal(0, 1, (B, 3)).astype(np.float32)
+    sd /= np.linalg.norm(sd, axis=-1, keepdims=True)
+    di = np.where(rng.uniform(0, 1, B) > 0.3,
+                  rng.uniform(0, 1.2, B), 0.0).astype(np.float32)
+    on_b = np.where(rng.uniform(0, 1, B) > 0.5, 0.2, 0.0).astype(np.float32)
+    prj = rng.normal(0, 1, (B, 3)).astype(np.float32)
+    prj /= np.linalg.norm(prj, axis=-1, keepdims=True)
+    rv = rng.integers(0, 2 ** 32, B, dtype=np.uint32)
+    ns = np.minimum(np.maximum((cap * di).astype(np.int32), 1), cap)
+    t = lambda x: torch.as_tensor(x, device="cuda")
+    return (t(pos), t(sd), t(di),
+            t(np.cos(rng.uniform(0, np.pi * 0.999, B)).astype(np.float32)),
+            t((1 - on_b).astype(np.float32)), t(on_b), t(prj),
+            t(rv.view(np.int32)).view(torch.uint32), t(ns))
+
+
+def test_warp_kernels_deterministic(integ, tie_scene_tr):
+    """K1 (fixed-order sums) and K5 (an OR) give the same bits on two
+    launches, at sizes that leave the last thread block part empty."""
+    from actinon_tpu_torch.render import kernels, scene_kernels
+    import _torch_scenes as S
+    args = _nee_args(integ, 4097, 17)
+    a, b = kernels.nee(integ, *args), kernels.nee(integ, *args)
+    torch.cuda.synchronize()
+    assert bool((a > 0).any())
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    tr = tie_scene_tr
+    _, stm = tr._scene_tables()
+    p, d = (torch.as_tensor(x, device="cuda")
+            for x in S.axis_rays(8195, S.TIE_SHAPE, seed=7))
+    lim = _tie_limits(stm, p, d, seed=7)
+    assert torch.equal(scene_kernels.scene_anyhit(tr, p, d, lim),
+                       scene_kernels.scene_anyhit(tr, p, d, lim))
+
+
+def test_nee_refuses_shared_overflow(integ, monkeypatch):
+    """Tables beyond a thread block's shared memory are refused, by the
+    wrapper and by the C launcher, and nothing launches."""
+    from actinon_tpu_torch.render import kernels
+    args = _nee_args(integ, 64, 3)
+    st, lt = kernels.scene_table(integ.tr), kernels.light_table(integ)
+    out = torch.empty((64, 3), device="cuda")
+    before = kernels.LAUNCHES["nee"]
+    need = kernels.nee_launch(integ)["shared_bytes"]
+    monkeypatch.setattr(kernels, "SHARED_MAX", need - 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.nee(integ, *args)
+    rc = kernels._lib().actinon_nee(
+        st.f.data_ptr(), st.i.data_ptr(), 60000, st.i.numel(),
+        lt.f.data_ptr(), lt.i.data_ptr(), lt.n, int(integ.direct_cap),
+        *(a.data_ptr() for a in args), out.data_ptr(), 64,
+        float(integ.tr.eps), kernels._stream())
+    assert rc != 0
+    assert kernels.LAUNCHES["nee"] == before
+
+
 # -- K8 and K9, the diagnostic ops -------------------------------------------
 
 

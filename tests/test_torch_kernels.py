@@ -8,8 +8,14 @@ tests/test_pallas.py: shadow booleans agree on >= 99.8 % of rays; NEE
 radiance within rel 1e-2 on >= 99 % of lanes; object hits agree in
 finiteness on >= 99.8 % and in t within 1e-3 (1 + t).  The kernels
 themselves run only on a card: tests/test_torch_cuda.py holds them to
-the same contracts there."""
+the same contracts there.  Here csrc/trace_kernels.cu also compiles as
+host C++ (the shim of tests/test_torch_scene_kernels.py): K1's helpers
+run lane by lane as the warp kernel runs them (the (light, sample) pairs
+in strides of 32, each light's sum in sample order, the lights in light
+order), and K2's kernel, whose shadow test stops at the first blocking
+object, thread by thread."""
 
+import ctypes
 import os
 
 import numpy as np
@@ -27,6 +33,8 @@ from actinon_tpu_torch.render import kernels
 from actinon_tpu_torch.render.integrator import Integrator as TIntegrator
 from actinon_tpu_torch.render.tracer import Tracer as TTracer
 from actinon_tpu_torch.scene import ir as tsir
+
+from test_torch_scene_kernels import host_library
 
 SCENE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "actinon_tpu_torch", "scenes",
@@ -199,3 +207,120 @@ def test_scene_table_layout(pair):
         prog = list(i[i[9] + pstart: i[9] + pstart + plen])
         assert prog == kernels._postfix(comp.tree, [])
         assert sum(op >= 0 for op in prog) == n
+
+
+HOST_DRIVER = r"""
+// K1: each lane as the warp kernel takes it: thread t's pairs t, t + 32,
+// ... of the lane's (light, sample) pairs, then each light's sum in
+// sample order and the lights in light order
+extern "C" void host_nee(const float* sf, const int* si, const float* LF,
+                         const int* LI, int n_lights, int cap,
+                         const float* pos, const float* surf_d,
+                         const float* di, const float* cos_ti,
+                         const float* on_a, const float* on_b,
+                         const float* ray_prj, const uint32_t* rv,
+                         const int* ns_in, float* out, int n, float eps) {
+    const Scene S{sf, si};
+    float* terms = new float[n_lights * cap + 2 * n_lights];
+    for (int i = 0; i < n; ++i) {
+        const NeeLane N = load_nee_lane(i, pos, surf_d, di, cos_ti, on_a,
+                                        on_b, ray_prj, rv, ns_in);
+        float lum[3] = {0.0f, 0.0f, 0.0f};
+        if (N.di > 0.0f) {
+            const int ns = nee_samples(N, cap);
+            float* acc = terms + n_lights * ns;
+            float* fac = acc + n_lights;
+            for (int t = 0; t < 32; ++t)
+                for (int k = t; k < n_lights * ns; k += 32) {
+                    const int li = k / ns, j = k - li * ns;
+                    const float* lt = LF + li * LT_SIZE;
+                    const int* lti = LI + li * LTI_SIZE;
+                    terms[k] = nee_sample(S, lt, lti, light_frame(lt, lti, N),
+                                          N, li, j, cap, eps);
+                }
+            for (int li = 0; li < n_lights; ++li) {
+                acc[li] = nee_light_sum(terms + li * ns, ns);
+                fac[li] = 2.0f * light_frame(LF + li * LT_SIZE,
+                                             LI + li * LTI_SIZE, N).cyl
+                          / (float)N.ns;
+            }
+            nee_lum(LF, acc, fac, n_lights, lum);
+        }
+        for (int ch = 0; ch < 3; ++ch) out[3 * i + ch] = lum[ch];
+    }
+    delete[] terms;
+}
+extern "C" long host_nee_shared_bytes(int n_f, int n_i, int n_lights,
+                                      int cap) {
+    return (long)nee_shared_bytes(n_f, n_i, n_lights, cap);
+}
+// K2: one call per thread
+extern "C" void host_shadow(const float* sf, const int* si, const float* p,
+                            const float* d, const float* lim, uint8_t* out,
+                            int n, float eps) {
+    blockDim.x = 128;
+    for (int b = 0; b < (n + 127) / 128; ++b)
+        for (int t = 0; t < 128; ++t) {
+            blockIdx.x = b; threadIdx.x = t;
+            shadow_kernel(Scene{sf, si}, p, d, lim, out, n, eps);
+        }
+}
+"""
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def test_nee_cuda_source_on_host_matches_plain(pair, tmp_path):
+    """K1's per-sample helper and fixed-order sums, compiled as host C++
+    and driven lane by lane as the warp kernel drives them, against
+    nee_plain: dead lanes exactly 0 in both, live lanes within rel 1e-2
+    on >= 99 %.  The shared memory the wrapper reports is the source's."""
+    _, tt = pair
+    lib, src = host_library("trace_kernels.cu", HOST_DRIVER, tmp_path)
+    assert f"kNeeWarps = {kernels.NEE_WARPS};" in src
+    integ = TIntegrator(tt, batch=B)
+    st, lt = kernels.scene_table(tt), kernels.light_table(integ)
+    cap = integ.direct_cap
+    lib.host_nee_shared_bytes.restype = ctypes.c_long
+    launch = kernels.nee_launch(integ)
+    assert launch["shared_bytes"] == lib.host_nee_shared_bytes(
+        st.f.numel(), st.i.numel(), lt.n, cap)
+    assert launch["threads"] == 32 * launch["lanes_per_block"]
+    args = _torch_args(_nee_inputs(cap, seed=19))
+    out = torch.empty((B, 3), dtype=torch.float32)
+    lib.host_nee(_ptr(st.f), _ptr(st.i), _ptr(lt.f), _ptr(lt.i),
+                 ctypes.c_int(lt.n), ctypes.c_int(cap),
+                 *(_ptr(a) for a in args), _ptr(out), ctypes.c_int(B),
+                 ctypes.c_float(float(tt.eps)))
+    want = kernels.nee_plain(integ, *args)
+    dead = args[2] <= 0
+    assert bool(dead.any()) and bool((want[~dead] > 0).any())
+    assert bool((out[dead] == 0).all()) and bool((want[dead] == 0).all())
+    rel = torch.abs(out - want) / (torch.abs(want) + 1e-4)
+    frac = float((rel[~dead].max(dim=1).values < 1e-2).float().mean())
+    assert frac >= 0.99, f"only {frac} of live lanes agree"
+
+
+def test_shadow_cuda_source_on_host_matches_plain(pair, tmp_path):
+    """K2's kernel, whose shadow test returns at the first blocking
+    object, compiled as host C++ and run thread by thread: the same
+    booleans as shadow_plain on every ray.  The limits are finite, as
+    the callers pass them (0 where the NEE found no light hit): the
+    kernel reads a limit that is not finite as 3e38, as the Pallas kernel
+    does, where the plain version compares with it as it is."""
+    _, tt = pair
+    lib, _ = host_library("trace_kernels.cu", HOST_DRIVER, tmp_path)
+    st = kernels.scene_table(tt)
+    n = 2048
+    p, d = _rays(n, 23)
+    lim = np.random.default_rng(29).uniform(0.1, 12.0, n).astype(np.float32)
+    lim[::9] = 0.0
+    P, D, LIM = (torch.as_tensor(x) for x in (p, d, lim))
+    out = torch.empty((n,), dtype=torch.bool)
+    lib.host_shadow(_ptr(st.f), _ptr(st.i), _ptr(P), _ptr(D), _ptr(LIM),
+                    _ptr(out), ctypes.c_int(n), ctypes.c_float(float(tt.eps)))
+    want = kernels.shadow_plain(tt, P, D, LIM)
+    assert want.any() and (~want).any()
+    assert torch.equal(out, want)

@@ -11,8 +11,9 @@ the JAX package's `render/pallas_scene.py`, on the CPU.
     equal on >= 99 % of the finite lanes, any-hit equal on >= 99.8 %;
   * the CUDA source of K4/K5 compiled as host C++ (a shim maps the CUDA
     keywords; K4's warp helpers run lane by lane with the shuffle
-    butterfly in a loop, K5's kernel thread by thread) against the plain
-    versions: the kernels' arithmetic and table reads without a card;
+    butterfly in a loop, K5's member test in rounds of 32 members with
+    the warp's any-exit) against the plain versions: the kernels'
+    arithmetic and table reads without a card;
   * the tracer's scene-kernel route (the plain versions standing in for
     the kernels on a CPU tensor) against the JAX XLA tracer, with the
     contract of tests/test_pallas_scene.py:_cmp_hits, and on a coherent
@@ -299,7 +300,9 @@ HOST_SHIM = r"""
 #include <stdint.h>
 #include <string.h>
 #include <algorithm>
+using std::max;
 using std::min;
+#define __host__
 #define __device__
 #define __forceinline__ inline
 #define __global__
@@ -353,6 +356,12 @@ def host_library(name, driver, tmp_path):
 
 
 HOST_DRIVER = WARP_REDUCE + r"""
+// the block cull of bound bid as the kernels test their staged bounds
+static bool block_cull(const float* bnd, int bid, const Ray& r, bool has_lim,
+                       float lim) {
+    const float* b = bnd + 8 * bid;
+    return bound_hit(b[0], b[1], b[2], b[3], r, has_lim, lim);
+}
 // K4: a ray's walk as the warp kernel takes it, the 32 lanes of each
 // passed block in turn, then the butterfly and the merge
 extern "C" void host_top2(const float* tab, const float* bnd, const int* desc,
@@ -384,19 +393,78 @@ extern "C" void host_top2(const float* tab, const float* bnd, const int* desc,
     }
 }
 extern "C" long host_shared_bytes(int n_desc, int n_bounds) {
-    return (long)top2_shared_bytes(n_desc, n_bounds);
+    return (long)desc_shared_bytes(n_desc, n_bounds);
 }
-// K5: one call per thread
+extern "C" long host_anyhit_shared_bytes(int n_desc, int n_bounds) {
+    return (long)anyhit_shared_bytes(n_desc, n_bounds);
+}
+// K5: a ray's walk as the warp kernel takes it: the staged bounds culled
+// 32 at a time (the ballot), the passed blocks in order, each round of
+// 32 members of a block in turn, stopping after the first round in which
+// any lane is blocked (__any_sync); serial: shape by shape, the members
+// one at a time up to the first hit (the one-thread design)
 extern "C" void host_anyhit(const float* tab, const float* bnd,
                             const int* desc, const float* p, const float* d,
-                            const float* lim, uint8_t* out, int n,
-                            float eps) {
-    blockDim.x = 128;
-    for (int b = 0; b < (n + 127) / 128; ++b)
-        for (int t = 0; t < 128; ++t) {
-            blockIdx.x = b; threadIdx.x = t;
-            scene_anyhit_kernel(tab, bnd, desc, p, d, lim, out, n, eps);
+                            const float* lim_in, uint8_t* out, int n,
+                            float eps, int serial) {
+    const Eps E = make_eps(eps);
+    const int n_blk = anyhit_blocks(desc);
+    float* sbnd = new float[4 * n_blk + 4];
+    int* bshape = new int[n_blk + 1];
+    for (int k = 0; k < 4 * n_blk; ++k) sbnd[k] = bnd[8 * (k >> 2) + (k & 3)];
+    for (int s = 0; s < desc[0]; ++s) {
+        const int* sh = desc + 1 + s * SH_SIZE;
+        for (int b = 0; b < sh[SH_NBLK]; ++b) bshape[sh[SH_BID0] + b] = s;
+    }
+    for (int i = 0; i < n; ++i) {
+        const Ray r = load_ray(p, d, i);
+        const float l = lim_in[i];
+        const float lim = is_finite(l) ? l : F32_BIG;
+        bool blocked = false;
+        if (serial) {
+            for (int s = 0; s < desc[0] && !blocked; ++s) {
+                const int* sh = desc + 1 + s * SH_SIZE;
+                for (int b = 0; b < sh[SH_NBLK] && !blocked; ++b) {
+                    if (!block_cull(bnd, sh[SH_BID0] + b, r, true, lim))
+                        continue;
+                    const float* blk = tab + (size_t)(sh[SH_ROW0]
+                                                      + b * sh[SH_RPB]) * LB;
+                    const int n_lanes = min(LB, sh[SH_M] - b * LB);
+                    for (int m = 0; m < n_lanes && !blocked; ++m)
+                        blocked = member_blocks(desc, sh, blk, m, r, lim, E);
+                }
+            }
+            out[i] = blocked ? 1 : 0;
+            continue;
         }
+        for (int c0 = 0; c0 < n_blk && !blocked; c0 += 32) {
+            unsigned pass = 0;
+            for (int j = 0; j < 32; ++j)
+                if (c0 + j < n_blk
+                    && bound_cull(sbnd, c0 + j, r, true, lim))
+                    pass |= 1u << j;
+            for (int j = 0; j < 32 && !blocked; ++j) {
+                if (!(pass >> j & 1u)) continue;
+                const int bid = c0 + j;
+                const int* sh = desc + 1 + bshape[bid] * SH_SIZE;
+                const int b = bid - sh[SH_BID0];
+                const float* blk = tab + (size_t)(sh[SH_ROW0]
+                                                  + b * sh[SH_RPB]) * LB;
+                const int n_lanes = min(LB, sh[SH_M] - b * LB);
+                for (int m0 = 0; m0 < n_lanes && !blocked; m0 += 32) {
+                    bool hit[32];
+                    for (int k = 0; k < 32; ++k)
+                        hit[k] = m0 + k < n_lanes
+                                 && member_blocks(desc, sh, blk, m0 + k, r,
+                                                  lim, E);
+                    for (int k = 0; k < 32; ++k) blocked = blocked || hit[k];
+                }
+            }
+        }
+        out[i] = blocked ? 1 : 0;
+    }
+    delete[] sbnd;
+    delete[] bshape;
 }
 """
 
@@ -405,18 +473,24 @@ def test_cuda_source_on_host_matches_plain(mixed, tmp_path):
     """csrc/scene_kernels.cu compiled as host C++, on the scene tables as
     the wrappers pass them: K4's helpers driven as the warp kernel drives
     them (32 lanes a block, the shuffle butterfly, the merge), K5's
-    kernel one call per thread; the same results as the plain versions
+    member test as the warp kernel drives it and as the one-thread
+    member loop did; the same results as the plain versions
     (t within rtol/atol 2e-4, codes equal on >= 99 % of the finite lanes,
     any-hit equal on >= 99.8 %).  The launch geometry the wrapper reports
     is the source's."""
     lib, src = host_library("scene_kernels.cu", HOST_DRIVER, tmp_path)
     assert f"kTop2Warps = {sk.TOP2_WARPS};" in src
+    assert f"kAnyWarps = {sk.ANY_WARPS};" in src
     _, tt = mixed
     st, stm = tt._scene_tables()
     launch = sk.top2_launch(st)
     lib.host_shared_bytes.restype = ctypes.c_long
     assert launch["shared_bytes"] == lib.host_shared_bytes(
         st.desc_t.numel(), st.bounds_t.shape[0])
+    lib.host_anyhit_shared_bytes.restype = ctypes.c_long
+    assert sk.anyhit_launch(stm)["shared_bytes"] \
+        == lib.host_anyhit_shared_bytes(stm.desc_t.numel(),
+                                        stm.bounds_t.shape[0])
     assert launch["threads"] == 32 * launch["rays_per_block"]
     n = 1024
     p, d = S.rays(n, seed=43)
@@ -439,13 +513,23 @@ def test_cuda_source_on_host_matches_plain(mixed, tmp_path):
     np.testing.assert_allclose(t[both].numpy(), t_p[both].numpy(),
                                rtol=2e-4, atol=2e-4)
     assert float((c[both] == c_p[both]).float().mean()) >= 0.99
-    out = torch.empty((n,), dtype=torch.bool)
-    lib.host_anyhit(ptr(stm.table_t), ptr(stm.bounds_t), ptr(stm.desc_t),
-                    ptr(P), ptr(D), ptr(LIM), ptr(out), ctypes.c_int(n),
-                    ctypes.c_float(float(stm.eps)))
     want = sk.scene_anyhit_plain(stm, P, D, LIM)
     assert want.any() and (~want).any()
-    assert float((out == want).float().mean()) >= 0.998
+    for serial in (0, 1):
+        out = _host_anyhit(lib, stm, P, D, LIM, serial)
+        assert float((out == want).float().mean()) >= 0.998
+
+
+def _host_anyhit(lib, stm, P, D, LIM, serial):
+    """K5 on the host: the warp kernel's rounds of 32 members with the
+    any-exit (serial=0), or the one-thread design's member loop."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    out = torch.empty((P.shape[0],), dtype=torch.bool)
+    lib.host_anyhit(ptr(stm.table_t), ptr(stm.bounds_t), ptr(stm.desc_t),
+                    ptr(P), ptr(D), ptr(LIM), ptr(out),
+                    ctypes.c_int(P.shape[0]), ctypes.c_float(float(stm.eps)),
+                    ctypes.c_int(serial))
+    return out
 
 
 def test_cuda_source_on_host_exact_on_ties(tmp_path):
@@ -477,3 +561,45 @@ def test_cuda_source_on_host_exact_on_ties(tmp_path):
     assert bool(((t_p[:, 0] == t_p[:, 1]) & fin).any())
     assert torch.equal(t.view(torch.int32), t_p.view(torch.int32))
     assert torch.equal(c, c_p)
+
+
+def _tie_limits(stm, P, D, seed):
+    """Limits for K5 that land on its own comparisons: the nearest matter
+    hit exactly (blocked), one ulp before it (blocked only by another
+    member), random limits and, on every fifth ray, none (INF)."""
+    n = P.shape[0]
+    t1 = sk.scene_top2_plain(stm, P, D, torch.ones(n))[0][:, 0].numpy()
+    lim = np.random.default_rng(seed).uniform(0.2, 15.0, n).astype(
+        np.float32)
+    fin = np.isfinite(t1)
+    lim[1::5] = np.where(fin[1::5], t1[1::5], lim[1::5])
+    lim[2::5] = np.where(fin[2::5], np.nextafter(t1[2::5], np.float32(0)),
+                         lim[2::5])
+    lim[::5] = np.inf
+    return torch.as_tensor(lim)
+
+
+@pytest.mark.parametrize("scene", ["mixed", "ties"])
+def test_anyhit_warp_on_host_exact(mixed, scene, tmp_path):
+    """K5's member test driven as the warp kernel drives it (rounds of 32
+    members of each passed block, the any-exit after a round), compiled
+    as host C++: bit for bit the plain version's booleans and the
+    one-thread member loop's, on the mixed scene and on the tie lattice
+    (axis rays, every root exact in f32), with limits exactly at the
+    nearest hit and one ulp before it."""
+    lib, _ = host_library("scene_kernels.cu", HOST_DRIVER, tmp_path)
+    if scene == "mixed":
+        tr = mixed[1]
+        p, d = S.rays(2048, seed=53)
+    else:
+        tr = TTracer(tsir.compile_scene(S.tie_scene(tho)), dtype=np.float32,
+                     device="cpu")
+        p, d = S.axis_rays(2048, S.TIE_SHAPE, seed=59)
+    _, stm = tr._scene_tables()
+    P, D = torch.as_tensor(p), torch.as_tensor(d)
+    LIM = _tie_limits(stm, P, D, seed=61)
+    want = sk.scene_anyhit_plain(stm, P, D, LIM)
+    assert want.any() and (~want).any()
+    got = _host_anyhit(lib, stm, P, D, LIM, 0)
+    assert torch.equal(got, want)
+    assert torch.equal(got, _host_anyhit(lib, stm, P, D, LIM, 1))
