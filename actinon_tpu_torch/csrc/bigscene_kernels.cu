@@ -44,9 +44,27 @@
 // output anyway: the merge takes gi2 only where b2 < t2, and a miss keeps
 // gidx 0.)
 //
-// K7: one thread per ray, 256 threads a block, the G blocks in Morton
-// order, the limit-aware cull per ray, a thread returning at its ray's
-// first hit.
+// K7 comes in two designs over the same helpers, chosen by the wrapper
+// from G (render/bigscene.py `ANYHIT_WARP_MIN_BLOCKS`, with its measured
+// reason):
+//   big_anyhit_warp_kernel: K6's layout.  One warp per ray, 8 rays a
+//     thread block, the bounds staged in chunks of kChunk with cp.async,
+//     the next chunk in flight; per 32 blocks a ballot of the limit-aware
+//     culls, the passed blocks in ascending (Morton) order; lane j tests
+//     sphere lanes j, j + 32, j + 64, j + 96 against the limit
+//     (lane_anyhit), and the warp leaves with __any_sync after the first
+//     passed block that holds a hit.  A warp whose ray is answered (or
+//     dead) still stages and meets the barriers, and the thread block
+//     stops staging once all its rays are answered (__syncthreads_and).
+//   big_anyhit_kernel: one thread per ray, 256 threads a block, the G
+//     blocks in Morton order, the limit-aware cull per ray, the 128 lanes
+//     of a passed block one after another, a thread returning at its
+//     ray's first hit.  A warp runs the union of its rays' loops: cheap
+//     where few rays pass a block, and there the warp design pays a ray's
+//     fixed work (its culls, a barrier, the exit test) 32 times over.
+// Both test the same (block, lane) pairs with the same arithmetic
+// (bound_hit with the limit, sphere_cand against it), and the result is
+// an OR, so the two give every ray the same boolean bit for bit.
 //
 // What bounds them on this card: FP32 operations (about 40 a sphere lane,
 // 19 a block test), not bytes: a ray reads 24 (K7: 28) bytes and writes 16
@@ -66,6 +84,8 @@
 // cudaGetLastError().  The kernels' helpers compile as host C++ too
 // (tests/test_torch_bigscene.py runs them there); the warp kernel, which
 // needs the card's shuffles and shared memory, does not.
+// (tests/test_torch_bigscene.py drives K6's and K7's warp helpers as the
+// warp kernels do, lane by lane.)
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -145,6 +165,26 @@ __device__ __forceinline__ bool block_cull(const float* __restrict__ bounds,
                      has_lim, lim);
 }
 
+// The any-hit limit of ray i: one that is not finite reads as 3e38, as in
+// the Pallas kernel.
+__device__ __forceinline__ float read_limit(const float* __restrict__ lim,
+                                            int i) {
+    const float l = lim[i];
+    return is_finite(l) ? l : F32_BIG;
+}
+
+// K7 warp design: any of the sphere lanes j, j + 32, j + 64, j + 96 of a
+// block is hit within lim.
+__device__ __forceinline__ bool lane_anyhit(const float* __restrict__ blk,
+                                            int j, const Ray& r, float eps,
+                                            float lim) {
+    bool hit = false;
+#pragma unroll
+    for (int k = 0; k < LB / 32; ++k)
+        hit |= sphere_cand(blk, j + 32 * k, r, eps) <= lim;
+    return hit;
+}
+
 // ---- K6's top-2 helpers (see "The tie rule" above) ----
 
 // Two (t, index) candidates, t1 before t2: a block's best two lanes, or a
@@ -219,7 +259,9 @@ __device__ __forceinline__ void top2_merge(Top2& ray, const Top2& b, int g) {
 // ---- kernels ----
 
 constexpr int kTop2Warps = 8;   // K6: rays (one warp each) a thread block
-constexpr int kChunk = 128;     // K6: block bounds a shared-memory stage holds
+constexpr int kAnyWarps = 8;    // K7 warp design: the same
+constexpr int kChunk = 128;     // K6, K7 warp: block bounds a shared-memory
+                                // stage holds
 
 #ifdef __CUDACC__
 
@@ -305,6 +347,60 @@ big_top2_kernel(const float* __restrict__ table,
     }
 }
 
+__global__ void __launch_bounds__(kAnyWarps * 32)
+big_anyhit_warp_kernel(const float* __restrict__ table,
+                       const float* __restrict__ bounds, int G,
+                       const float* __restrict__ p,
+                       const float* __restrict__ d,
+                       const float* __restrict__ lim_in,
+                       uint8_t* __restrict__ out, int n, float eps) {
+    __shared__ __align__(16) float stage[2][kChunk][4];
+    const int lane = threadIdx.x & 31;
+    const int i = blockIdx.x * kAnyWarps + (threadIdx.x >> 5);
+    // a warp past the last ray still stages and meets the barriers
+    const bool live = i < n;
+    const Ray r = load_ray(p, d, live ? i : 0);
+    const float lim = live ? read_limit(lim_in, i) : 0.0f;
+    bool hit = false;   // uniform across the warp
+    const int n_chunks = (G + kChunk - 1) / kChunk;
+    stage_bounds(stage[0], bounds, 0, min(kChunk, G));
+    for (int c = 0; c < n_chunks; ++c) {
+        const int g0 = c * kChunk, m = min(kChunk, G - g0);
+        if (c + 1 < n_chunks) {
+            stage_bounds(stage[(c + 1) & 1], bounds, g0 + kChunk,
+                         min(kChunk, G - g0 - kChunk));
+            stage_wait<1>();
+        } else {
+            stage_wait<0>();
+        }
+        __syncthreads();
+        if (live && !hit) {
+            const float(*sb)[4] = stage[c & 1];
+            for (int s = 0; s < m && !hit; s += 32) {
+                const int j = s + lane;
+                const bool pass = j < m && bound_hit(sb[j][0], sb[j][1],
+                                                     sb[j][2], sb[j][3], r,
+                                                     true, lim);
+                for (unsigned mask = __ballot_sync(kFull, pass);
+                     mask && !hit; mask &= mask - 1) {
+                    const int g = g0 + s + __ffs(mask) - 1;
+                    hit = __any_sync(kFull,
+                                     lane_anyhit(table + (size_t)g * 8 * LB,
+                                                 lane, r, eps, lim));
+                }
+            }
+        }
+        // the stage just read is refilled by the next chunk's prefetch;
+        // once every ray of the thread block is answered, nothing is
+        // left to stage
+        if (__syncthreads_and(!live || hit)) {
+            stage_wait<0>();
+            break;
+        }
+    }
+    if (live && lane == 0) out[i] = hit ? 1 : 0;
+}
+
 #endif  // __CUDACC__
 
 __global__ void __launch_bounds__(256)
@@ -316,9 +412,7 @@ big_anyhit_kernel(const float* __restrict__ table,
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const Ray r = load_ray(p, d, i);
-    // a limit that is not finite reads as 3e38, as in the Pallas kernel
-    const float l = lim_in[i];
-    const float lim = is_finite(l) ? l : F32_BIG;
+    const float lim = read_limit(lim_in, i);
     for (int g = 0; g < G; ++g) {
         if (!block_cull(bounds, g, r, true, lim)) continue;
         const float* blk = table + (size_t)g * 8 * LB;
@@ -332,7 +426,8 @@ big_anyhit_kernel(const float* __restrict__ table,
     out[i] = 0;
 }
 
-constexpr int kBlock = 256;     // K7: rays (one thread each) a thread block
+constexpr int kBlock = 256;     // K7 thread design: rays (one thread each)
+                                // a thread block
 
 inline int grid_of(int n, int per_block) {
     return (n + per_block - 1) / per_block;
@@ -353,11 +448,24 @@ int actinon_big_top2(const float* table, const float* bounds, int G,
     return (int)cudaGetLastError();
 }
 
+// warp: 1 for the warp design, 0 for the thread design (the wrapper
+// chooses by G).
 int actinon_big_anyhit(const float* table, const float* bounds, int G,
                        const float* p, const float* d, const float* lim,
-                       uint8_t* out, int n, float eps, void* stream) {
-    big_anyhit_kernel<<<grid_of(n, kBlock), kBlock, 0, (cudaStream_t)stream>>>(
-        table, bounds, G, p, d, lim, out, n, eps);
+                       uint8_t* out, int n, float eps, int warp,
+                       void* stream) {
+    if (warp) {
+        // cp.async copies 16-byte bound rows
+        if ((uintptr_t)bounds % 16 != 0)
+            return (int)cudaErrorMisalignedAddress;
+        big_anyhit_warp_kernel<<<grid_of(n, kAnyWarps), kAnyWarps * 32, 0,
+                                 (cudaStream_t)stream>>>(
+            table, bounds, G, p, d, lim, out, n, eps);
+    } else {
+        big_anyhit_kernel<<<grid_of(n, kBlock), kBlock, 0,
+                            (cudaStream_t)stream>>>(table, bounds, G, p, d,
+                                                    lim, out, n, eps);
+    }
     return (int)cudaGetLastError();
 }
 

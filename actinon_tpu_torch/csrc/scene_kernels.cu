@@ -32,36 +32,49 @@
 // Both kernels: one warp per ray, the 128 member lanes of a block across
 // the warp, as the TPU kernel lays them across the vector lanes of a
 // [rays, 128] tile; 4 warps (rays) a thread block.  Each thread block
-// first copies the int32 descriptor and the bounds' (centre, r2) into
-// shared memory, so every descriptor field, slot record, postfix program
-// and comparator pair that member_boundary reads comes from there.  The
-// block cull is per ray, so every lane computes it alike.  Lane j
-// evaluates members j, j + 32, j + 64, j + 96 of a block (each feature row
-// read as 32 neighbouring floats).  What this does not do: a warp still
-// waits for its longest march while its gated-out lanes idle, and a
-// cluster member's 64 crossings still sort in local memory (the ts/lf
-// arrays of member_boundary).
+// first copies the int32 descriptor into shared memory, so every
+// descriptor field, slot record, postfix program and comparator pair that
+// member_boundary reads comes from there; only the descriptor must fit,
+// so the block count has no limit.  Per 32 blocks, lane j tests block
+// c * 32 + j against the ray, and a ballot gives the warp the passed
+// blocks in ascending order, which is the table's order: shape by shape,
+// each shape's blocks in turn.  Lane j evaluates members j, j + 32,
+// j + 64, j + 96 of a block (each feature row read as 32 neighbouring
+// floats).  What this does not do: a warp still waits for its longest
+// march while its gated-out lanes idle, and a cluster member's 64
+// crossings still sort in local memory (the ts/lf arrays of
+// member_boundary).
 //
-// K4 keeps a local top-2 of (t, code) per lane; five xor shuffles combine
-// the 32 local pairs into the block's best two, then every lane runs the
-// Pallas merge (pallas_scene.py:870-881).  The tie rule is the serial one
-// (members in order, strict compares, first lane on ties), bit for bit:
-// see csrc/bigscene_kernels.cu, whose argument holds here with the code
-// for the lane index (a code grows with its lane within a block) and
+// K4 passes the block bounds' (centre, r2) through shared memory kChunk
+// at a time with cp.async, the next chunk in flight while the warps test
+// the current one (the staging of csrc/bigscene_kernels.cu); a warp past
+// the last ray still stages and meets the barriers.  It keeps a local
+// top-2 of (t, code) per lane; five xor shuffles combine the 32 local
+// pairs into the block's best two, then every lane runs the Pallas merge
+// (pallas_scene.py:870-881).  The tie rule is the serial one (members in
+// order, strict compares, first lane on ties), bit for bit: see
+// csrc/bigscene_kernels.cu, whose argument holds here with the code for
+// the lane index (a code grows with its lane within a block) and
 // (INF, -1) for the pad; a light member masked for a matter ray is no
-// candidate, as in the serial walk.
+// candidate, as in the serial walk.  The blocks merge in table order, as
+// the serial walk merges them.
 //
-// K5 culls 32 blocks at a time, one bound a lane, and a ballot hands the
-// warp the passed blocks in order (a ray no longer tests every bound on
-// every lane); a map in shared memory gives each block its shape.  It
+// K5 reads the bounds through L1 (__ldg): its warps stride over the rays
+// with no barrier of the thread block.  Staging the bounds in shared
+// memory, for the thread block or for each warp, measured slower on an
+// H100 (lamp_row's largest shadow batch: 0.58 and 0.60 ms against 0.51),
+// with more spills in the member test (40/56 bytes against 24/36).  It
 // tests each member's boundary against the limit with the one-thread
 // design's expression, and the warp stops at the first round of 32
 // members in which any lane is blocked (__any_sync).  The result is an
 // OR, so any order and any exit point give the same boolean: the warp
 // kernel's booleans are the one-thread kernel's on every input.  Its
 // grid is capped at the thread blocks the card holds at once, and each
-// warp strides over the rays, so a large batch of shadow rays stages the
+// warp strides over the rays, so a large batch of shadow rays copies the
 // descriptor once per resident block, not once per 4 rays.
+//
+// Both read a passed block's shape index (the table's block_shape)
+// through L1.
 //
 // What bounds them on this card: FP32 operations — the march steps and the
 // walk — not bytes (a ray reads 28 bytes and writes at most 16, the table
@@ -527,35 +540,40 @@ __device__ __forceinline__ bool member_blocks(const int* __restrict__ desc,
 constexpr int kTop2Warps = 4;   // K4: rays (one warp each) a thread block
 constexpr int kAnyWarps = 4;    // K5: rays (one warp each) a thread block
 
+constexpr int kChunk = 128;      // K4: block bounds a shared-memory
+                                 // stage holds
+
 // The descriptor's words in shared memory, padded to 16 bytes.
 __host__ __device__ __forceinline__ int desc_words(int n_desc) {
     return (n_desc + 3) / 4 * 4;
 }
 
-// K4's dynamic shared memory: the descriptor, padded, then (centre, r2)
-// of each bound.
-inline size_t desc_shared_bytes(int n_desc, int n_bounds) {
-    return 4 * ((size_t)desc_words(n_desc) + 4 * (size_t)n_bounds);
-}
-
-// K5's: K4's, then each block's shape index.
-inline size_t anyhit_shared_bytes(int n_desc, int n_bounds) {
-    return desc_shared_bytes(n_desc, n_bounds) + 4 * (size_t)n_bounds;
+// K4's dynamic shared memory: the descriptor, padded, then two stages of
+// kChunk bounds' (centre, r2).  K5's: the descriptor alone.
+inline size_t top2_shared_bytes(int n_desc) {
+    return 4 * ((size_t)desc_words(n_desc) + 2 * kChunk * 4);
 }
 
 // The member blocks of all shapes: the bounds they own, in shape order.
-__device__ __forceinline__ int anyhit_blocks(const int* desc) {
+__device__ __forceinline__ int table_blocks(const int* desc) {
     if (desc[0] == 0) return 0;
     const int* last = desc + 1 + (desc[0] - 1) * SH_SIZE;
     return last[SH_BID0] + last[SH_NBLK];
 }
 
-// The ray may touch block bid's bound, staged as (centre, r2).
-__device__ __forceinline__ bool bound_cull(const float* sbnd, int bid,
-                                           const Ray& r, bool has_lim,
-                                           float lim) {
-    const float* bb = sbnd + 4 * bid;
-    return bound_hit(bb[0], bb[1], bb[2], bb[3], r, has_lim, lim);
+// The ray may touch block bid's bound (K5 reads it through L1).
+__device__ __forceinline__ bool block_cull(const float* __restrict__ bounds,
+                                           int bid, const Ray& r,
+                                           bool has_lim, float lim) {
+    const float* b = bounds + 8 * bid;
+    return bound_hit(__ldg(b), __ldg(b + 1), __ldg(b + 2), __ldg(b + 3), r,
+                     has_lim, lim);
+}
+
+// The table rows of member block b of shape sh.
+__device__ __forceinline__ const float* block_rows(
+    const float* __restrict__ table, const int* sh, int b) {
+    return table + (size_t)(sh[SH_ROW0] + b * sh[SH_RPB]) * LB;
 }
 
 #ifdef __CUDACC__
@@ -569,56 +587,106 @@ __device__ __forceinline__ Top2 shfl_xor(const Top2& v, int m) {
                 __shfl_xor_sync(kFull, v.i2, m)};
 }
 
-// Copies the descriptor and the bounds' (centre, r2) into the thread
-// block's dynamic shared memory (laid out as desc_shared_bytes counts it)
-// and returns the staged bounds; every thread of the block meets the
-// barrier.
-__device__ __forceinline__ const float* stage_desc(
-    int* shared, const int* __restrict__ desc,
-    const float* __restrict__ bounds, int n_desc, int n_bounds) {
-    float* sbnd = reinterpret_cast<float*>(shared + desc_words(n_desc));
+// Stage bounds [g0, g0 + m): the first four words (centre, r2) of each
+// 32-byte row, one 16-byte cp.async a bound, as one commit group (as
+// csrc/bigscene_kernels.cu stages its bounds).
+__device__ __forceinline__ void stage_bounds(float (*dst)[4],
+                                             const float* __restrict__ bounds,
+                                             int g0, int m) {
+    for (int k = threadIdx.x; k < m; k += blockDim.x) {
+        const unsigned s = (unsigned)__cvta_generic_to_shared(dst[k]);
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                     "l"(bounds + 8 * (size_t)(g0 + k)));
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void stage_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Waits for chunk c of n_chunks (starting chunk c + 1's copy into the
+// other stage first) and meets the barrier that makes it visible.
+__device__ __forceinline__ void stage_next(float (*stage)[kChunk][4],
+                                           const float* __restrict__ bounds,
+                                           int c, int n_chunks, int n_blk) {
+    if (c + 1 < n_chunks) {
+        const int g1 = (c + 1) * kChunk;
+        stage_bounds(stage[(c + 1) & 1], bounds, g1,
+                     min(kChunk, n_blk - g1));
+        stage_wait<1>();
+    } else {
+        stage_wait<0>();
+    }
+    __syncthreads();
+}
+
+// Copies the descriptor to the start of the thread block's dynamic shared
+// memory (every thread of the block meets the barrier) and returns the
+// bound stages that follow it, laid out as top2_shared_bytes counts
+// them.
+__device__ __forceinline__ float (*stage_desc(int* shared,
+                                              const int* __restrict__ desc,
+                                              int n_desc))[kChunk][4] {
     for (int k = threadIdx.x; k < n_desc; k += blockDim.x)
         shared[k] = desc[k];
-    for (int k = threadIdx.x; k < 4 * n_bounds; k += blockDim.x)
-        sbnd[k] = bounds[8 * (k >> 2) + (k & 3)];
     __syncthreads();
-    return sbnd;
+    return reinterpret_cast<float (*)[kChunk][4]>(shared
+                                                  + desc_words(n_desc));
 }
 
 __global__ void __launch_bounds__(kTop2Warps * 32)
 scene_top2_kernel(const float* __restrict__ table,
                   const float* __restrict__ bounds,
+                  const int* __restrict__ bshape,
                   const int* __restrict__ desc, const float* __restrict__ p,
                   const float* __restrict__ d, const float* __restrict__ lm,
                   float* __restrict__ t_out, int* __restrict__ c_out, int n,
-                  float eps, int n_desc, int n_bounds) {
+                  float eps, int n_desc) {
     extern __shared__ __align__(16) int shared[];
     const int* sdesc = shared;
-    const float* sbnd = stage_desc(shared, desc, bounds, n_desc, n_bounds);
+    float(*stage)[kChunk][4] = stage_desc(shared, desc, n_desc);
+    const int n_blk = table_blocks(sdesc);
     const int i = blockIdx.x * kTop2Warps + (threadIdx.x >> 5);
-    if (i >= n) return;   // the whole warp: no barrier follows
+    // a warp past the last ray still stages and meets the barriers
+    const bool live = i < n;
     const int lane = threadIdx.x & 31;
-    const Ray r = load_ray(p, d, i);
-    const bool lane_matter = lm[i] > 0.0f;
+    const Ray r = load_ray(p, d, live ? i : 0);
+    const bool lane_matter = live && lm[i] > 0.0f;
     const Eps E = make_eps(eps);
     Top2 ray = top2_empty();
-    const int n_shapes = sdesc[0];
-    for (int s = 0; s < n_shapes; ++s) {
-        const int* sh = sdesc + 1 + s * SH_SIZE;
-        const bool mask_light = sh[SH_LIGHT] && lane_matter;
-        for (int b = 0; b < sh[SH_NBLK]; ++b) {
-            if (!bound_cull(sbnd, sh[SH_BID0] + b, r, false, 0.0f))
-                continue;
-            const float* blk = table + (size_t)(sh[SH_ROW0]
-                                                + b * sh[SH_RPB]) * LB;
-            Top2 v = lane_top2(sdesc, sh, blk, b, lane, r, mask_light, E);
+    const int n_chunks = (n_blk + kChunk - 1) / kChunk;
+    if (n_chunks > 0) stage_bounds(stage[0], bounds, 0, min(kChunk, n_blk));
+    for (int c = 0; c < n_chunks; ++c) {
+        stage_next(stage, bounds, c, n_chunks, n_blk);
+        const int g0 = c * kChunk, m = min(kChunk, n_blk - g0);
+        if (live) {
+            const float(*sb)[4] = stage[c & 1];
+            for (int s0 = 0; s0 < m; s0 += 32) {
+                const int j = s0 + lane;
+                const bool pass = j < m && bound_hit(sb[j][0], sb[j][1],
+                                                     sb[j][2], sb[j][3], r,
+                                                     false, 0.0f);
+                for (unsigned mask = __ballot_sync(kFull, pass); mask;
+                     mask &= mask - 1) {
+                    const int bid = g0 + s0 + __ffs(mask) - 1;
+                    const int* sh = sdesc + 1 + __ldg(bshape + bid) * SH_SIZE;
+                    const int b = bid - sh[SH_BID0];
+                    const bool mask_light = sh[SH_LIGHT] && lane_matter;
+                    Top2 v = lane_top2(sdesc, sh, block_rows(table, sh, b),
+                                       b, lane, r, mask_light, E);
 #pragma unroll
-            for (int o = 16; o > 0; o >>= 1)
-                v = top2_combine(v, shfl_xor(v, o));
-            top2_merge(ray, v);
+                    for (int o = 16; o > 0; o >>= 1)
+                        v = top2_combine(v, shfl_xor(v, o));
+                    top2_merge(ray, v);
+                }
+            }
         }
+        // the stage just read is refilled by the next chunk's prefetch
+        __syncthreads();
     }
-    if (lane == 0) {
+    if (live && lane == 0) {
         t_out[2 * i] = ray.t1;
         t_out[2 * i + 1] = ray.t2;
         c_out[2 * i] = is_finite(ray.t1) ? ray.i1 : -1;
@@ -629,22 +697,17 @@ scene_top2_kernel(const float* __restrict__ table,
 __global__ void __launch_bounds__(kAnyWarps * 32)
 scene_anyhit_kernel(const float* __restrict__ table,
                     const float* __restrict__ bounds,
+                    const int* __restrict__ bshape,
                     const int* __restrict__ desc,
                     const float* __restrict__ p, const float* __restrict__ d,
                     const float* __restrict__ lim_in,
-                    uint8_t* __restrict__ out, int n, float eps, int n_desc,
-                    int n_bounds) {
+                    uint8_t* __restrict__ out, int n, float eps, int n_desc) {
     extern __shared__ __align__(16) int shared[];
-    // each block's shape, after the descriptor and the bounds
-    int* bshape = shared + desc_words(n_desc) + 4 * n_bounds;
-    const int n_shapes = desc[0];
-    for (int s = threadIdx.x; s < n_shapes; s += blockDim.x) {
-        const int* sh = desc + 1 + s * SH_SIZE;
-        for (int b = 0; b < sh[SH_NBLK]; ++b) bshape[sh[SH_BID0] + b] = s;
-    }
+    for (int k = threadIdx.x; k < n_desc; k += blockDim.x)
+        shared[k] = desc[k];
+    __syncthreads();
     const int* sdesc = shared;
-    const float* sbnd = stage_desc(shared, desc, bounds, n_desc, n_bounds);
-    const int n_blk = anyhit_blocks(sdesc);
+    const int n_blk = table_blocks(sdesc);
     const int lane = threadIdx.x & 31;
     const Eps E = make_eps(eps);
     for (int i = blockIdx.x * kAnyWarps + (threadIdx.x >> 5); i < n;
@@ -659,20 +722,19 @@ scene_anyhit_kernel(const float* __restrict__ table,
         for (int c0 = 0; c0 < n_blk && !blocked; c0 += 32) {
             unsigned pass = __ballot_sync(
                 kFull, c0 + lane < n_blk
-                           && bound_cull(sbnd, c0 + lane, r, true, lim));
+                           && block_cull(bounds, c0 + lane, r, true, lim));
             while (pass != 0u && !blocked) {
                 const int bid = c0 + __ffs(pass) - 1;
                 pass &= pass - 1u;
-                const int* sh = sdesc + 1 + bshape[bid] * SH_SIZE;
+                const int* sh = sdesc + 1 + __ldg(bshape + bid) * SH_SIZE;
                 const int b = bid - sh[SH_BID0];
-                const float* blk = table + (size_t)(sh[SH_ROW0]
-                                                    + b * sh[SH_RPB]) * LB;
+                const float* blk = block_rows(table, sh, b);
                 const int n_lanes = min(LB, sh[SH_M] - b * LB);
                 for (int m0 = 0; m0 < n_lanes && !blocked; m0 += 32) {
                     const int m = m0 + lane;
                     blocked = __any_sync(
-                        kFull, m < n_lanes && member_blocks(sdesc, sh, blk,
-                                                            m, r, lim, E));
+                        kFull, m < n_lanes && member_blocks(sdesc, sh, blk, m,
+                                                            r, lim, E));
                 }
             }
         }
@@ -722,28 +784,33 @@ int resident_grid(Kernel kernel, int threads, size_t shared, int* grid) {
 
 extern "C" {
 
-// n_desc: the descriptor's int32 words; n_bounds: the rows of bounds.
-// Each refuses (cudaErrorInvalidValue) a descriptor and bounds that do not
-// fit a thread block's shared memory.
+// bshape: each member block's shape index; n_desc: the descriptor's
+// int32 words.  Each refuses
+// (cudaErrorInvalidValue) a descriptor that does not fit a thread block's
+// shared memory (K4: beside its two bound stages), and K4
+// (cudaErrorMisalignedAddress) bounds that cp.async cannot copy in
+// 16-byte rows.
 int actinon_scene_top2(const float* table, const float* bounds,
-                       const int* desc, const float* p, const float* d,
-                       const float* lm, float* t_out, int* c_out, int n,
-                       float eps, int n_desc, int n_bounds, void* stream) {
-    const size_t shared = desc_shared_bytes(n_desc, n_bounds);
+                       const int* bshape, const int* desc, const float* p,
+                       const float* d, const float* lm, float* t_out,
+                       int* c_out, int n, float eps, int n_desc,
+                       void* stream) {
+    if ((uintptr_t)bounds % 16 != 0) return (int)cudaErrorMisalignedAddress;
+    const size_t shared = top2_shared_bytes(n_desc);
     const int rc = shared_ok(scene_top2_kernel, shared);
     if (rc != 0) return rc;
     scene_top2_kernel<<<grid_of(n, kTop2Warps), kTop2Warps * 32, shared,
                         (cudaStream_t)stream>>>(
-        table, bounds, desc, p, d, lm, t_out, c_out, n, eps, n_desc,
-        n_bounds);
+        table, bounds, bshape, desc, p, d, lm, t_out, c_out, n, eps,
+        n_desc);
     return (int)cudaGetLastError();
 }
 
 int actinon_scene_anyhit(const float* table, const float* bounds,
-                         const int* desc, const float* p, const float* d,
-                         const float* lim, uint8_t* out, int n, float eps,
-                         int n_desc, int n_bounds, void* stream) {
-    const size_t shared = anyhit_shared_bytes(n_desc, n_bounds);
+                         const int* bshape, const int* desc, const float* p,
+                         const float* d, const float* lim, uint8_t* out,
+                         int n, float eps, int n_desc, void* stream) {
+    const size_t shared = 4 * (size_t)desc_words(n_desc);
     int rc = shared_ok(scene_anyhit_kernel, shared);
     if (rc != 0) return rc;
     int grid = grid_of(n, kAnyWarps);
@@ -751,7 +818,7 @@ int actinon_scene_anyhit(const float* table, const float* bounds,
     if (rc != 0) return rc;
     scene_anyhit_kernel<<<grid, kAnyWarps * 32, shared,
                           (cudaStream_t)stream>>>(
-        table, bounds, desc, p, d, lim, out, n, eps, n_desc, n_bounds);
+        table, bounds, bshape, desc, p, d, lim, out, n, eps, n_desc);
     return (int)cudaGetLastError();
 }
 

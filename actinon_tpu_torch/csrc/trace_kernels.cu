@@ -28,20 +28,27 @@
 //
 // K1: one warp per NEE lane, 4 lanes a thread block.  Each thread block
 // first copies the flat scene table and the light table into dynamic
-// shared memory (K1-K3 cover at most 192 leaves: about 22 KB), so every
-// table read of the samples' light hits and shadow tests comes from there.
-// A lane's n_lights * ns (light, sample) pairs go across the warp's 32
-// threads in strides of 32; each thread computes its pair's contribution
-// with nee_sample, the per-sample arithmetic of the one-thread design,
-// and writes it to the warp's slice of shared memory.  Thread li then
-// sums light li's contributions in sample order, and thread 0 adds the
-// lights in light order with the same `acc * (color * fac)` steps: the
-// sums are those of a serial loop, in the same order, so the result is
-// the one-thread kernel's bit for bit.  A dead lane (di <= 0) is a warp
-// that writes zeros and stops.  What this does not do: a warp waits for
-// its longest sample (a shadow ray that walks every composite), and a
-// lane with fewer than 32 pairs leaves threads idle (20 of 32 at the
-// headline's 2 lights x 10 samples); packing two lanes a warp is not done.
+// shared memory, so every table read of the samples' light hits and
+// shadow tests comes from there.  A lane's samples go through the warp
+// kNeeChunk at a time: the chunk's n_lights * m (light, sample) pairs
+// (m <= kNeeChunk) go across the warp's 32 threads in strides of 32; each
+// thread computes its pair's contribution with nee_sample, the
+// per-sample arithmetic of the one-thread design, and writes it to the
+// warp's slice of shared memory; thread li then adds light li's m terms
+// to its running sum in sample order, chunk after chunk.  Thread 0 adds
+// the lights in light order with the same `acc * (color * fac)` steps:
+// the sums are those of a serial loop, in the same order, so the result
+// is the one-thread kernel's bit for bit, whatever the sample count.
+// Shared memory: the kernels cover at most 192 leaves (MAX_KERNEL_LEAVES
+// of render/tracer.py, the Pallas kernels' limit), lights included, so
+// the tables take at most about 50 KB and the four warps' slices
+// (n_lights * kNeeChunk terms and n_lights (sum, factor) pairs each) at
+// most 104,448 bytes: about 155 KB of the 227 KB a thread block may have.
+// A dead lane (di <= 0) is a warp that writes zeros and stops.  What this
+// does not do: a warp waits for its longest sample (a shadow ray that
+// walks every composite), and a lane with fewer than 32 pairs leaves
+// threads idle (12 of 32 at the headline's 2 lights x 10 samples);
+// packing two lanes a warp is not done.
 //
 // What bounds them on this card.  K1 and the walk are FP32-ALU bound:
 // about 72 bytes of I/O per lane against thousands of flops (per sample:
@@ -460,10 +467,12 @@ __device__ float nee_sample(const Scene& S, const float* lt, const int* lti,
     return ok ? (loc * w) * N.di : 0.0f;
 }
 
-// Light li's sum of its n samples' terms, in sample order (term j at
-// terms[j]), as the serial loop accumulates it.
-__device__ __forceinline__ float nee_light_sum(const float* terms, int n) {
-    float acc = 0.0f;
+// Light li's running sum acc, continued over the n terms of its next
+// samples in sample order (term j at terms[j]), as the serial loop
+// accumulates it: from acc = 0, chunk after chunk, the same additions as
+// one pass over all the samples.
+__device__ __forceinline__ float nee_light_sum(float acc, const float* terms,
+                                               int n) {
     for (int j = 0; j < n; ++j) acc += terms[j];
     return acc;
 }
@@ -484,23 +493,24 @@ __device__ __forceinline__ void nee_lum(const float* LF, const float* acc,
 
 // K1's dynamic shared memory in floats: the scene table's floats and
 // ints, the light table's floats and ints, each padded to 16 bytes, then
-// per warp a slice of n_lights * cap sample terms and n_lights (sum,
-// factor) pairs.
+// per warp a slice of n_lights * kNeeChunk sample terms and n_lights
+// (sum, factor) pairs.  It does not depend on the sample count.
 __host__ __device__ __forceinline__ int pad4(int words) {
     return (words + 3) / 4 * 4;
 }
 
-__host__ __device__ __forceinline__ int nee_warp_words(int n_lights,
-                                                       int cap) {
-    return pad4(n_lights * cap + 2 * n_lights);
+constexpr int kNeeWarps = 4;   // K1: NEE lanes (one warp each) a block
+constexpr int kNeeChunk = 32;  // K1: samples of each light a warp's slice
+                               // holds at a time
+
+__host__ __device__ __forceinline__ int nee_warp_words(int n_lights) {
+    return pad4(n_lights * kNeeChunk + 2 * n_lights);
 }
 
-constexpr int kNeeWarps = 4;   // K1: NEE lanes (one warp each) a block
-
-inline size_t nee_shared_bytes(int n_f, int n_i, int n_lights, int cap) {
+inline size_t nee_shared_bytes(int n_f, int n_i, int n_lights) {
     return 4 * ((size_t)pad4(n_f) + pad4(n_i) + pad4(n_lights * LT_SIZE)
                 + pad4(n_lights * LTI_SIZE)
-                + (size_t)kNeeWarps * nee_warp_words(n_lights, cap));
+                + (size_t)kNeeWarps * nee_warp_words(n_lights));
 }
 
 // ---- kernels ----
@@ -572,22 +582,29 @@ nee_kernel(const float* __restrict__ sf, const int* __restrict__ si,
     }
     const Scene S{s_f, s_i};
     const int ns = nee_samples(N, cap);
-    float* terms = s_warps + warp * nee_warp_words(n_lights, cap);
-    float* acc = terms + n_lights * ns;
+    float* terms = s_warps + warp * nee_warp_words(n_lights);
+    float* acc = terms + n_lights * kNeeChunk;
     float* fac = acc + n_lights;
-    // the (light, sample) pairs across the warp: term li * ns + j
-    for (int k = lane; k < n_lights * ns; k += 32) {
-        const int li = k / ns, j = k - li * ns;
-        const float* lt = s_lf + li * LT_SIZE;
-        const int* lti = s_li + li * LTI_SIZE;
-        terms[k] = nee_sample(S, lt, lti, light_frame(lt, lti, N), N, li, j,
-                              cap, eps);
+    for (int li = lane; li < n_lights; li += 32) acc[li] = 0.0f;
+    for (int j0 = 0; j0 < ns; j0 += kNeeChunk) {
+        const int m = min(kNeeChunk, ns - j0);
+        // the previous chunk's sums have read their terms
+        __syncwarp();
+        // the chunk's (light, sample) pairs across the warp: term li m + j
+        for (int k = lane; k < n_lights * m; k += 32) {
+            const int li = k / m, j = k - li * m;
+            const float* lt = s_lf + li * LT_SIZE;
+            const int* lti = s_li + li * LTI_SIZE;
+            terms[k] = nee_sample(S, lt, lti, light_frame(lt, lti, N), N,
+                                  li, j0 + j, cap, eps);
+        }
+        __syncwarp();
+        for (int li = lane; li < n_lights; li += 32)
+            acc[li] = nee_light_sum(acc[li], terms + li * m, m);
     }
-    __syncwarp();
     for (int li = lane; li < n_lights; li += 32) {
         const float* lt = s_lf + li * LT_SIZE;
         const int* lti = s_li + li * LTI_SIZE;
-        acc[li] = nee_light_sum(terms + li * ns, ns);
         fac[li] = 2.0f * light_frame(lt, lti, N).cyl / (float)N.ns;
     }
     __syncwarp();
@@ -631,15 +648,16 @@ int actinon_object_hit(const float* sf, const int* si, int kind, int idx,
 }
 
 // n_f, n_i: the scene table's float and int32 words.  Refuses
-// (cudaErrorInvalidValue) tables and sample slices that do not fit a
-// thread block's shared memory.
+// (cudaErrorInvalidValue) tables that do not fit a thread block's shared
+// memory beside the sample slices; within 192 leaves they always fit, at
+// any sample count.
 int actinon_nee(const float* sf, const int* si, int n_f, int n_i,
                 const float* lf, const int* li, int n_lights, int cap,
                 const float* pos, const float* surf_d, const float* di,
                 const float* cos_ti, const float* on_a, const float* on_b,
                 const float* ray_prj, const uint32_t* rv, const int* ns,
                 float* out, int n, float eps, void* stream) {
-    const size_t shared = nee_shared_bytes(n_f, n_i, n_lights, cap);
+    const size_t shared = nee_shared_bytes(n_f, n_i, n_lights);
     if (shared > kMaxShared) return (int)cudaErrorInvalidValue;
     if (shared > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(

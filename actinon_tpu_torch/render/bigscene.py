@@ -14,12 +14,15 @@ block-local indices `gidx` compare directly between the packages.
     blocks: (t [N, 2], gidx [N, 2]), gidx indexing `SphereBlocks.rows`;
     replaces `pallas_bigscene.build_top2_kernel`;
   * `big_anyhit` (K7) — any sphere hit within (0, limit], with the
-    limit-aware block cull; replaces `build_anyhit_kernel`.
+    limit-aware block cull; replaces `build_anyhit_kernel`.  Two designs
+    of it, chosen by the block count G (`ANYHIT_WARP_MIN_BLOCKS`): a warp
+    a ray over K6's staged bounds and ballot cull, or a thread a ray.
 
 Both kernels live in `csrc/bigscene_kernels.cu` and build into the library
 of `render/kernels.py`.  A wrapper takes the plain version when its
 tensors lie on the CPU, and only then; on a CUDA tensor it launches its
-kernel or raises, and each launch adds one to `kernels.LAUNCHES`.  The
+kernel or raises, and each launch adds one to `kernels.LAUNCHES` (K7's
+also to "big_anyhit_warp" or "big_anyhit_thread", by design).  The
 plain versions compute what the kernels compute, block by block over
 [rays, 128 lanes]: the per-ray block cull (the Pallas tile gate made per
 ray), the sphere candidates in the expression order of the Pallas helper,
@@ -49,6 +52,29 @@ TOP2_WARPS = 8
 BOUND_CHUNK = 128
 TOP2_LAUNCH = dict(threads=32 * TOP2_WARPS, rays_per_block=TOP2_WARPS,
                    shared_bytes=2 * BOUND_CHUNK * 16)
+# K7's two designs (kAnyWarps, kBlock of the source): the warp design is
+# K6's launch; the thread design takes 256 rays a thread block
+ANYHIT_WARPS = 8
+ANYHIT_LAUNCH = {"warp": dict(threads=32 * ANYHIT_WARPS,
+                              rays_per_block=ANYHIT_WARPS,
+                              shared_bytes=2 * BOUND_CHUNK * 16),
+                 "thread": dict(threads=256, rays_per_block=256,
+                                shared_bytes=0)}
+# K7 takes the warp design from this many blocks up, the thread design
+# below.  A warp a ray spreads a passed block's 128 lanes over the warp,
+# but pays a ray's fixed work (its culls, the exit test) once per ray; a
+# thread a ray shares that work among 32 rays and loses where its rays
+# pass blocks and run their 128-lane loops in turn.  So what decides is
+# how many blocks a ray passes, which the block count G only stands in
+# for.  On an H100 (700 W; chip_smoke.py's "kernel big_anyhit" and "k7
+# sweep" lines, both designs in turns on each render's largest K7 call,
+# against its first G blocks): on lamp_row's shadow rays (0.25 passed
+# blocks a ray) the thread design won at G = 5, its whole table, 0.062
+# against 0.085 ms; on sphere_fractal's the warp design won at every G
+# measured, 4 to 256 (G = 8: 0.025 against 0.092 ms; G = 256: 0.090
+# against 0.397).  8 is the smallest G of the fractal's sweep above
+# lamp_row's 5.
+ANYHIT_WARP_MIN_BLOCKS = 8
 
 
 # ---------------------------------------------------------------------------
@@ -297,13 +323,20 @@ def big_top2(tr, p, d):
     return t, gi
 
 
-def big_anyhit(tr, p, d, limit):
+def anyhit_design(G: int) -> str:
+    """K7's design for a table of G blocks: "warp" or "thread"."""
+    return "warp" if G >= ANYHIT_WARP_MIN_BLOCKS else "thread"
+
+
+def big_anyhit(tr, p, d, limit, design=None):
     """K7 over the tracer's sphere blocks: blocked [N] bool.  p, d [N, 3]
     and limit [N] f32 (a limit that is not finite reads as 3e38 inside the
-    kernel)."""
+    kernel).  design: "warp" or "thread", by default `anyhit_design(G)`;
+    both give the same booleans."""
     big = tr._bigscene()
     if p.device.type == "cpu":
         return big_anyhit_plain(big.blocks, p, d, limit, table=big.table)
+    design = design or anyhit_design(big.blocks.G)
     N = p.shape[0]
     kernels._check(p, (N, 3), torch.float32, "p")
     kernels._check(d, (N, 3), torch.float32, "d")
@@ -314,6 +347,7 @@ def big_anyhit(tr, p, d, limit):
     rc = kernels._lib().actinon_big_anyhit(
         big.table.data_ptr(), big.bounds.data_ptr(), big.blocks.G,
         p.data_ptr(), d.data_ptr(), limit.data_ptr(), out.data_ptr(), N,
-        float(big.blocks.eps), kernels._stream())
+        float(big.blocks.eps), int(design == "warp"), kernels._stream())
     kernels._launched("big_anyhit", rc)
+    kernels.LAUNCHES[f"big_anyhit_{design}"] += 1
     return out

@@ -18,9 +18,10 @@ flattened into a read-only table (`SceneTable`, `LightTable`: the flat
 leaf/composite table of K1-K3, not the packed table of the scene kernels
 K4/K5 in `render/scene_kernels.py`) that every thread of a warp reads in
 step.  K1 takes one warp per NEE lane, its (light, sample) pairs across
-the warp, and copies both tables into shared memory once per thread
-block (`nee_launch`).  Composites with SDF leaves lie outside this
-coverage, as in the JAX package.  The library of all the port's kernels
+the warp, NEE_CHUNK samples of each light at a time, and copies both
+tables into shared memory once per thread block (`nee_launch`).
+Composites with SDF leaves lie outside this coverage, as in the JAX
+package.  The library of all the port's kernels
 (this module's, `scene_kernels`' K4/K5, `bigscene`'s K6/K7 and
 `diag_ops`' K8/K9) builds at first use with one `nvcc` call, from the
 sources in this package only, into `_build/`; it is keyed by a hash of
@@ -48,10 +49,12 @@ import torch
 
 MAX_COMP_COLS = 64        # composite size cap of the crossing walk
 
-# launches per kernel (a launch of the wrapper's kernel adds one)
+# launches per kernel (a launch of the wrapper's kernel adds one; K7's
+# launches also count by design, "big_anyhit_warp" and "big_anyhit_thread")
 LAUNCHES: Dict[str, int] = {"nee": 0, "shadow": 0, "object_hit": 0,
                             "scene_top2": 0, "scene_anyhit": 0,
                             "big_top2": 0, "big_anyhit": 0,
+                            "big_anyhit_warp": 0, "big_anyhit_thread": 0,
                             "diag_unary": 0, "diag_expr": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -65,6 +68,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 SHARED_MAX = 232448   # shared memory a thread block may have on sm_90
 NEE_WARPS = 4         # K1: NEE lanes (one warp each) a thread block; must
                       # match kNeeWarps of csrc/trace_kernels.cu
+NEE_CHUNK = 32        # K1: samples of each light a warp's shared slice
+                      # holds at a time; must match kNeeChunk
 
 # table layout: must match csrc/trace_kernels.cu
 H_SIZE = 16
@@ -312,12 +317,13 @@ def _lib():
             lib.actinon_object_hit.argtypes = [P, P, I, I, P, P, P, I, F, P]
             lib.actinon_nee.argtypes = [P, P, I, I, P, P, I, I, P, P, P, P,
                                         P, P, P, P, P, P, I, F, P]
-            lib.actinon_scene_top2.argtypes = [P, P, P, P, P, P, P, P, I,
-                                               F, I, I, P]
-            lib.actinon_scene_anyhit.argtypes = [P, P, P, P, P, P, P, I, F,
-                                                 I, I, P]
+            lib.actinon_scene_top2.argtypes = [P, P, P, P, P, P, P, P, P,
+                                               I, F, I, P]
+            lib.actinon_scene_anyhit.argtypes = [P, P, P, P, P, P, P, P, I,
+                                                 F, I, P]
             lib.actinon_big_top2.argtypes = [P, P, I, P, P, P, P, I, F, P]
-            lib.actinon_big_anyhit.argtypes = [P, P, I, P, P, P, P, I, F, P]
+            lib.actinon_big_anyhit.argtypes = [P, P, I, P, P, P, P, I, F, I,
+                                                P]
             lib.actinon_diag_op.argtypes = [I, P, P, P, P, I, P]
             for fn in (lib.actinon_shadow, lib.actinon_object_hit,
                        lib.actinon_nee, lib.actinon_scene_top2,
@@ -440,13 +446,16 @@ def _pad4(words: int) -> int:
 def nee_launch(integ) -> dict:
     """K1's launch geometry: threads and NEE lanes (one warp each) a
     thread block, and the dynamic shared memory that holds the scene and
-    light tables, each padded to 16 bytes, and per warp n_lights * cap
-    sample terms and n_lights (sum, factor) pairs
-    (csrc/trace_kernels.cu `nee_shared_bytes`)."""
+    light tables, each padded to 16 bytes, and per warp n_lights *
+    NEE_CHUNK sample terms (the samples pass through in chunks) and
+    n_lights (sum, factor) pairs (csrc/trace_kernels.cu
+    `nee_shared_bytes`).  It does not grow with the sample count: within
+    the kernels' 192 leaves (tracer.MAX_KERNEL_LEAVES, lights included)
+    it stays below about 155 KB of a thread block's 227 KB."""
     st, lt = scene_table(integ.tr), light_table(integ)
-    n, cap = lt.n, int(integ.direct_cap)
+    n = lt.n
     words = (_pad4(st.f.numel()) + _pad4(st.i.numel()) + _pad4(n * LTF_SIZE)
-             + _pad4(n * LTI_SIZE) + NEE_WARPS * _pad4(n * cap + 2 * n))
+             + _pad4(n * LTI_SIZE) + NEE_WARPS * _pad4(n * NEE_CHUNK + 2 * n))
     return dict(threads=32 * NEE_WARPS, lanes_per_block=NEE_WARPS,
                 shared_bytes=4 * words)
 
@@ -454,9 +463,10 @@ def nee_launch(integ) -> dict:
 def nee(integ, pos, surf_d, di, cos_ti, on_a, on_b, ray_prj, rv, ns):
     """lum [B,3] of the per-light NEE loop.  pos, surf_d, ray_prj [B,3]
     f32; di (zero where the lane does not shade), cos_ti, on_a, on_b [B]
-    f32; rv [B] uint32 stream ids; ns [B] int32 sample counts.  Raises
-    where the tables and sample slices do not fit a thread block's
-    shared memory."""
+    f32; rv [B] uint32 stream ids; ns [B] int32 sample counts, any
+    number of them.  Raises where the tables do not fit a thread block's
+    shared memory beside the sample slices (never within the kernels' 192
+    leaves)."""
     if pos.device.type == "cpu":
         return nee_plain(integ, pos, surf_d, di, cos_ti, on_a, on_b,
                          ray_prj, rv, ns)

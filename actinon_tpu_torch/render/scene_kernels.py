@@ -60,6 +60,7 @@ MAX_MEMBERS = 1 << 16   # member << 8 holds 16 bits
 TOP2_WARPS = 4    # K4: rays (one warp each) a thread block; must match
                   # kTop2Warps of csrc/scene_kernels.cu
 ANY_WARPS = 4     # K5: the same, kAnyWarps
+CHUNK = 128       # K4: block bounds a shared-memory stage holds, kChunk
 SHARED_MAX = kernels.SHARED_MAX
 
 # shape descriptor for csrc/scene_kernels.cu (int32 records after a
@@ -391,6 +392,10 @@ class SceneTable:
                       if rows else np.zeros((1, LB), np.float32))
         self.bounds = (np.stack(bounds) if bounds
                        else np.zeros((1, 8), np.float32))
+        # each member block's shape index (K4, K5 read it by bound id)
+        self.block_shape = np.asarray(
+            [sid for sid, sh in enumerate(self.shapes)
+             for _ in range(sh.n_blocks)] or [0], np.int32)
 
     def descriptor(self) -> np.ndarray:
         """The int32 shape descriptor csrc/scene_kernels.cu reads: the
@@ -426,6 +431,7 @@ class SceneTable:
         dev = self.device
         self.table_t = torch.as_tensor(self.table, device=dev)
         self.bounds_t = torch.as_tensor(self.bounds, device=dev)
+        self.block_shape_t = torch.as_tensor(self.block_shape, device=dev)
         self.desc_t = torch.as_tensor(self.descriptor(), device=dev)
 
     def device_arrays(self, sh: _Shape) -> dict:
@@ -814,34 +820,33 @@ def scene_anyhit_plain(st: SceneTable, p, d, limit, work=None):
 # the wrappers
 
 
-def _launch(st: SceneTable, warps: int) -> dict:
+def _launch(st: SceneTable, warps: int, stages: int) -> dict:
     """A warp kernel's launch geometry over the table st: threads and
     rays (one warp each) a thread block, and the dynamic shared memory
-    that holds the descriptor, padded to 16 bytes, and (centre, r2) of
-    each bound (csrc/scene_kernels.cu `desc_shared_bytes`)."""
-    words = kernels._pad4(st.desc_t.numel()) + 4 * st.bounds_t.shape[0]
+    that holds the descriptor, padded to 16 bytes, and `stages` stages of
+    CHUNK bounds' (centre, r2) (csrc/scene_kernels.cu
+    `top2_shared_bytes`); only the descriptor grows with the table."""
+    words = kernels._pad4(st.desc_t.numel()) + stages * CHUNK * 4
     return dict(threads=32 * warps, rays_per_block=warps,
                 shared_bytes=4 * words)
 
 
 def top2_launch(st: SceneTable) -> dict:
-    """K4's launch geometry over the full table st."""
-    return _launch(st, TOP2_WARPS)
+    """K4's launch geometry over the full table st: two bound stages."""
+    return _launch(st, TOP2_WARPS, 2)
 
 
 def anyhit_launch(st: SceneTable) -> dict:
-    """K5's launch geometry over the matter-only table st: K4's, with
-    each block's shape index after the bounds (csrc/scene_kernels.cu
-    `anyhit_shared_bytes`); the grid is capped at the thread blocks the
-    card holds at once, each warp striding over the rays."""
-    got = _launch(st, ANY_WARPS)
-    got["shared_bytes"] += 4 * st.bounds_t.shape[0]
-    return got
+    """K5's launch geometry over the matter-only table st: the descriptor
+    alone in shared memory (the bounds through L1); the grid is capped at
+    the thread blocks the card holds at once, each warp striding over the
+    rays."""
+    return _launch(st, ANY_WARPS, 0)
 
 
 def _check_shared(name, launch):
     if launch["shared_bytes"] > SHARED_MAX:
-        raise ValueError(f"{name}: the descriptor and bounds need "
+        raise ValueError(f"{name}: the descriptor (and bound stages) need "
                          f"{launch['shared_bytes']} bytes of shared memory, "
                          f"a thread block has {SHARED_MAX}")
 
@@ -849,7 +854,8 @@ def _check_shared(name, launch):
 def scene_top2(tr, p, d, lane_matter):
     """K4 over the tracer's full scene table: (t [N,2] f32, code [N,2]
     int32).  p, d [N,3] and lane_matter [N] f32.  Raises where the
-    descriptor and bounds do not fit a thread block's shared memory."""
+    descriptor does not fit a thread block's shared memory beside the
+    bound stages."""
     st, _ = tr._scene_tables()
     if p.device.type == "cpu":
         return scene_top2_plain(st, p, d, lane_matter)
@@ -863,10 +869,10 @@ def scene_top2(tr, p, d, lane_matter):
     if N == 0:
         return t, c
     rc = kernels._lib().actinon_scene_top2(
-        st.table_t.data_ptr(), st.bounds_t.data_ptr(), st.desc_t.data_ptr(),
-        p.data_ptr(), d.data_ptr(), lane_matter.data_ptr(), t.data_ptr(),
-        c.data_ptr(), N, float(st.eps), st.desc_t.numel(),
-        st.bounds_t.shape[0], kernels._stream())
+        st.table_t.data_ptr(), st.bounds_t.data_ptr(),
+        st.block_shape_t.data_ptr(), st.desc_t.data_ptr(), p.data_ptr(),
+        d.data_ptr(), lane_matter.data_ptr(), t.data_ptr(), c.data_ptr(), N,
+        float(st.eps), st.desc_t.numel(), kernels._stream())
     kernels._launched("scene_top2", rc)
     return t, c
 
@@ -874,8 +880,8 @@ def scene_top2(tr, p, d, lane_matter):
 def scene_anyhit(tr, p, d, limit):
     """K5 over the tracer's matter-only scene table: blocked [N] bool.
     p, d [N,3] and limit [N] f32 (a limit that is not finite reads as
-    3e38 inside the kernel).  Raises where the descriptor and bounds do
-    not fit a thread block's shared memory."""
+    3e38 inside the kernel).  Raises where the descriptor does not fit a
+    thread block's shared memory."""
     _, st = tr._scene_tables()
     if p.device.type == "cpu":
         return scene_anyhit_plain(st, p, d, limit)
@@ -888,9 +894,9 @@ def scene_anyhit(tr, p, d, limit):
     if N == 0:
         return out
     rc = kernels._lib().actinon_scene_anyhit(
-        st.table_t.data_ptr(), st.bounds_t.data_ptr(), st.desc_t.data_ptr(),
-        p.data_ptr(), d.data_ptr(), limit.data_ptr(), out.data_ptr(), N,
-        float(st.eps), st.desc_t.numel(), st.bounds_t.shape[0],
-        kernels._stream())
+        st.table_t.data_ptr(), st.bounds_t.data_ptr(),
+        st.block_shape_t.data_ptr(), st.desc_t.data_ptr(), p.data_ptr(),
+        d.data_ptr(), limit.data_ptr(), out.data_ptr(), N, float(st.eps),
+        st.desc_t.numel(), kernels._stream())
     kernels._launched("scene_anyhit", rc)
     return out

@@ -121,6 +121,19 @@ def many_sphere_scene(ho, n=600, seed=3):
     return sc
 
 
+def fractal_spheres(levels=5):
+    """Centres [8**levels, 3] and radii of spheres shaped like
+    sphere_fractal.acn's: nested levels of 8 (each child a third of its
+    parent's size, at its parent's cube corners); at 5 levels 32,768
+    spheres, 256 Morton blocks."""
+    c = np.zeros((1, 3))
+    corners = np.stack(np.meshgrid(*[[-1.0, 1.0]] * 3, indexing="ij"),
+                       -1).reshape(-1, 3)
+    for k in range(levels):
+        c = (c[:, None, :] + corners[None] * 4.0 / 3.0 ** k).reshape(-1, 3)
+    return c, np.full(len(c), 0.04)
+
+
 # Scenes and rays built for exact ties: centres on the integer lattice,
 # radii 0.25 and 0.375, unit axis directions and integer or half-integer
 # origins.  Every product, sum, square root and quotient of a sphere's
@@ -172,6 +185,24 @@ def tie_scene(ho):
             comp = ho.PairInside(ho.Sphere(0.375), ho.Neg(ho.Sphere(0.125)))
             comp.move(ho.v3(6.0, float(y), float(z)))
             sc.push(comp)
+    return sc
+
+
+def tie_singles(ho, shape):
+    """A sphere light of radius 0.25 above the lattice of `shape` and a
+    matter sphere of radius 0.25 at each of tie_centres(shape): one
+    singles shape of many blocks (at TIE_BIG_SHAPE about 18,000 members,
+    more than one shared-memory stage of block bounds in the scene
+    kernels, where a test keeps the spheres in the scene table)."""
+    sc = ho.Scene()
+    light = ho.Sphere(0.25)
+    light.move(ho.v3(2.0, 2.0, shape[2] + 1.0))
+    light.prp.radiance = 20.0
+    sc.push(light)
+    for c in tie_centres(shape):
+        s = ho.Sphere(0.25)
+        s.move(ho.v3(*c))
+        sc.push(s)
     return sc
 
 

@@ -14,8 +14,9 @@ CPU.
     on a CPU tensor) against the JAX tracer with `use_bigscene_interpret`,
     with and without the scene route, and on a coherent camera tile;
   * the CUDA source of K6/K7 compiled as host C++ against the plain
-    versions (K6's warp helpers lane by lane with the shuffle butterfly in
-    a loop, K7's kernel thread by thread);
+    versions (K6's and K7's warp helpers lane by lane, with the shuffle
+    butterfly and the any-exit in loops, K7's thread kernel thread by
+    thread);
   * set_geom rebuilds the blocks; a counter-mode render takes the same
     image through the big route as through the plain one;
   * the plain diag ops against the JAX tool's math on the CPU.
@@ -297,7 +298,34 @@ extern "C" void host_top2(const float* tab, const float* bnd, int G,
         i_out[2 * i + 1] = ray.i2;
     }
 }
-// K7: one call per thread
+// K7's warp design: a ray's walk as the warp kernel takes it: per 32
+// blocks the lanes' limit-aware culls as the ballot's mask, the passed
+// blocks in ascending order, each block's 32 lanes (4 sphere lanes each)
+// ORed as __any_sync ORs them, leaving after the first block with a hit
+extern "C" void host_anyhit_warp(const float* tab, const float* bnd, int G,
+                                 const float* p, const float* d,
+                                 const float* lim, uint8_t* out, int n,
+                                 float eps) {
+    for (int i = 0; i < n; ++i) {
+        const Ray r = load_ray(p, d, i);
+        const float l = read_limit(lim, i);
+        bool hit = false;
+        for (int s = 0; s < G && !hit; s += 32) {
+            unsigned mask = 0;
+            for (int j = 0; j < 32; ++j)
+                if (s + j < G && block_cull(bnd, s + j, r, true, l))
+                    mask |= 1u << j;
+            for (; mask && !hit; mask &= mask - 1) {
+                const int g = s + __builtin_ctz(mask);
+                for (int j = 0; j < 32; ++j)
+                    hit |= lane_anyhit(tab + (size_t)g * 8 * LB, j, r, eps,
+                                       l);
+            }
+        }
+        out[i] = hit ? 1 : 0;
+    }
+}
+// K7's thread design: one call per thread
 extern "C" void host_anyhit(const float* tab, const float* bnd, int G,
                             const float* p, const float* d, const float* lim,
                             uint8_t* out, int n, float eps) {
@@ -380,6 +408,74 @@ def test_cuda_source_on_host_exact_on_ties(tmp_path):
     assert bool(((t_p[:, 0] == t_p[:, 1]) & fin).any())
     assert torch.equal(t.view(torch.int32), t_p.view(torch.int32))
     assert torch.equal(g, g_p)
+
+
+def _fractal_blocks():
+    """Sphere blocks shaped like sphere_fractal.acn's (32,768 spheres, 256
+    Morton blocks: two bound stages of the warp kernel, eight ballot
+    rounds)."""
+    c, r = S.fractal_spheres()
+    return bs.SphereBlocks(np.arange(len(c)), c, r, 1e-4)
+
+
+def _anyhit_limits(blocks, table, P, D, seed):
+    """Limits for K7 that land on its own comparisons: the nearest
+    eps-backed hit t exactly (blocked), one ulp below it (blocked only by
+    another sphere), random limits and, on every fifth ray, none (INF)."""
+    t1 = bs.big_top2_plain(blocks, P, D, table=table)[0][:, 0].numpy()
+    lim = np.random.default_rng(seed).uniform(0.5, 20.0, len(t1)).astype(
+        np.float32)
+    fin = np.isfinite(t1)
+    lim[1::5] = np.where(fin[1::5], t1[1::5], lim[1::5])
+    lim[2::5] = np.where(fin[2::5], np.nextafter(t1[2::5], np.float32(0)),
+                         lim[2::5])
+    lim[::5] = np.inf
+    return torch.as_tensor(lim)
+
+
+@pytest.fixture(scope="module")
+def big_host(tmp_path_factory):
+    """(library, source) of csrc/bigscene_kernels.cu compiled as host C++
+    with HOST_DRIVER, once for the module."""
+    return host_library("bigscene_kernels.cu", HOST_DRIVER,
+                        tmp_path_factory.mktemp("big_host"))
+
+
+@pytest.mark.parametrize("shape", ["fractal", "ties"])
+def test_anyhit_warp_on_host_exact(shape, big_host):
+    """K7's warp design driven as the warp kernel drives it (rounds of 32
+    limit-aware culls in ballot order, 4 sphere lanes a thread, an OR
+    across the warp, the exit after the first block with a hit), compiled
+    as host C++: bit for bit the plain version's booleans and the thread
+    design's, on fractal-shaped blocks (random rays) and on the tie
+    lattice (axis rays, every root exact in f32), with limits exactly at a
+    hit's t and one ulp below it."""
+    lib, src = big_host
+    assert f"kAnyWarps = {bs.ANYHIT_WARPS};" in src
+    if shape == "fractal":
+        blocks = _fractal_blocks()
+        p, d = S.rays(2048, seed=71, spread=6.0)
+    else:
+        c = S.tie_centres(S.TIE_BIG_SHAPE)
+        blocks = bs.SphereBlocks(np.arange(len(c)), c,
+                                 np.full(len(c), 0.25), 1e-4)
+        p, d = S.axis_rays(2048, S.TIE_BIG_SHAPE, seed=73)
+    assert blocks.G > bs.BOUND_CHUNK
+    table, bounds = blocks.upload("cpu")
+    P, D = _t(p, d)
+    LIM = _anyhit_limits(blocks, table, P, D, seed=79)
+    want = bs.big_anyhit_plain(blocks, P, D, LIM, table=table)
+    assert want.any() and (~want).any()
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    out = {}
+    for name in ("host_anyhit_warp", "host_anyhit"):
+        out[name] = torch.empty((len(p),), dtype=torch.bool)
+        getattr(lib, name)(ptr(table), ptr(bounds), ctypes.c_int(blocks.G),
+                           ptr(P), ptr(D), ptr(LIM), ptr(out[name]),
+                           ctypes.c_int(len(p)),
+                           ctypes.c_float(float(blocks.eps)))
+    assert torch.equal(out["host_anyhit_warp"], want)
+    assert torch.equal(out["host_anyhit"], want)
 
 
 # -- K8/K9: the diagnostic ops -----------------------------------------------

@@ -434,6 +434,78 @@ def test_big_top2_kernel_exact_on_ties(tie_big, n):
         assert bool(((t_p[:, 0] == t_p[:, 1]) & fin).any())
 
 
+def _anyhit_limits(blocks, table, p, d, seed):
+    """K7 limits on its own comparisons: the nearest eps-backed hit t
+    exactly, one ulp below it, random limits and, on every fifth ray,
+    none (INF)."""
+    from actinon_tpu_torch.render import bigscene
+    t1 = bigscene.big_top2_plain(blocks, p, d, table=table)[0][:, 0]
+    t1 = t1.cpu().numpy()
+    lim = np.random.default_rng(seed).uniform(0.5, 20.0, len(t1)).astype(
+        np.float32)
+    fin = np.isfinite(t1)
+    lim[1::5] = np.where(fin[1::5], t1[1::5], lim[1::5])
+    lim[2::5] = np.where(fin[2::5], np.nextafter(t1[2::5], np.float32(0)),
+                         lim[2::5])
+    lim[::5] = np.inf
+    return torch.as_tensor(lim, device="cuda")
+
+
+@pytest.mark.parametrize("design", ["warp", "thread"])
+@pytest.mark.parametrize("n", RAGGED)
+def test_big_anyhit_kernel_exact_on_ties(tie_big, n, design):
+    """K7 in both designs on the tie lattice, limits exactly at a hit's t
+    and one ulp below it: the plain version's booleans bit for bit, each
+    launch counted under its design."""
+    from actinon_tpu_torch.render import bigscene, kernels
+    import _torch_scenes as S
+    big = tie_big._bigscene()
+    p, d = (torch.as_tensor(x, device="cuda")
+            for x in S.axis_rays(n, S.TIE_BIG_SHAPE, seed=n + 1))
+    lim = _anyhit_limits(big.blocks, big.table, p, d, seed=n)
+    before = kernels.LAUNCHES[f"big_anyhit_{design}"]
+    got = bigscene.big_anyhit(tie_big, p, d, lim, design=design)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[f"big_anyhit_{design}"] == before + 1
+    want = bigscene.big_anyhit_plain(big.blocks, p, d, lim, table=big.table)
+    assert torch.equal(got, want)
+    if n > 1000:
+        assert bool(want.any()) and bool((~want).any())
+
+
+def test_big_anyhit_designs_equal_on_fractal_blocks():
+    """K7's two designs give every ray the same boolean on fractal-shaped
+    blocks (256 blocks, random rays), with limits at and one ulp below
+    the plain version's hits and with random limits; on the random
+    limits both meet the contract against the plain version.  (A limit
+    exactly at the plain version's t is no test of the kernel against
+    it: nvcc contracts the candidate to FMA, so its t may lie an ulp
+    away.  The tie lattice holds that case bit for bit.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from types import SimpleNamespace
+    from actinon_tpu_torch.render import bigscene
+    import _torch_scenes as S
+    c, r = S.fractal_spheres()
+    blocks = bigscene.SphereBlocks(np.arange(len(c)), c, r, 1e-4)
+    table, bounds = blocks.upload("cuda")
+    big = SimpleNamespace(blocks=blocks, table=table, bounds=bounds)
+    tr = SimpleNamespace(_bigscene=lambda: big)
+    p, d = (torch.as_tensor(x, device="cuda")
+            for x in S.rays(65536, seed=83, spread=6.0))
+    at_hits = _anyhit_limits(blocks, table, p, d, seed=89)
+    rand = torch.as_tensor(np.random.default_rng(97).uniform(
+        0.5, 20.0, p.shape[0]).astype(np.float32), device="cuda")
+    for lim in (at_hits, rand):
+        warp = bigscene.big_anyhit(tr, p, d, lim, design="warp")
+        thread = bigscene.big_anyhit(tr, p, d, lim, design="thread")
+        torch.cuda.synchronize()
+        assert torch.equal(warp, thread)
+    want = bigscene.big_anyhit_plain(blocks, p, d, rand, table=table)
+    assert bool(want.any()) and bool((~want).any())
+    assert float((warp == want).float().mean()) >= 0.998
+
+
 @pytest.fixture(scope="module")
 def tie_scene_tr():
     if not torch.cuda.is_available():
@@ -470,8 +542,9 @@ def test_scene_top2_kernel_exact_on_ties(tie_scene_tr, n):
 
 
 def test_scene_top2_refuses_shared_overflow(tie_scene_tr, monkeypatch):
-    """A descriptor and bounds beyond a thread block's shared memory are
-    refused, by the wrapper and by the C launcher, and nothing launches."""
+    """A descriptor beyond a thread block's shared memory (beside K4's
+    bound stages) is refused, by the wrapper and by the C launcher, and
+    nothing launches."""
     from actinon_tpu_torch.render import kernels, scene_kernels
     import _torch_scenes as S
     tr = tie_scene_tr
@@ -487,9 +560,10 @@ def test_scene_top2_refuses_shared_overflow(tie_scene_tr, monkeypatch):
     with pytest.raises(ValueError, match="shared memory"):
         scene_kernels.scene_top2(tr, p, d, lm)
     rc = kernels._lib().actinon_scene_top2(
-        st.table_t.data_ptr(), st.bounds_t.data_ptr(), st.desc_t.data_ptr(),
-        p.data_ptr(), d.data_ptr(), lm.data_ptr(), t.data_ptr(),
-        c.data_ptr(), 64, float(st.eps), 60000, 1, kernels._stream())
+        st.table_t.data_ptr(), st.bounds_t.data_ptr(),
+        st.block_shape_t.data_ptr(), st.desc_t.data_ptr(), p.data_ptr(),
+        d.data_ptr(), lm.data_ptr(), t.data_ptr(), c.data_ptr(), 64,
+        float(st.eps), 60000, kernels._stream())
     assert rc != 0
     assert kernels.LAUNCHES["scene_top2"] == before
 
@@ -554,10 +628,50 @@ def test_scene_anyhit_refuses_shared_overflow(tie_scene_tr, monkeypatch):
         scene_kernels.scene_anyhit(tr, p, d, lim)
     rc = kernels._lib().actinon_scene_anyhit(
         stm.table_t.data_ptr(), stm.bounds_t.data_ptr(),
-        stm.desc_t.data_ptr(), p.data_ptr(), d.data_ptr(), lim.data_ptr(),
-        out.data_ptr(), 64, float(stm.eps), 60000, 1, kernels._stream())
+        stm.block_shape_t.data_ptr(), stm.desc_t.data_ptr(), p.data_ptr(),
+        d.data_ptr(), lim.data_ptr(), out.data_ptr(), 64, float(stm.eps),
+        60000, kernels._stream())
     assert rc != 0
     assert kernels.LAUNCHES["scene_anyhit"] == before
+
+
+def test_scene_kernels_exact_past_one_bound_stage():
+    """K4 and K5 over a singles shape of more bounds than one of K4's
+    shared-memory stages holds (tie_singles at TIE_BIG_SHAPE, about
+    18,000 spheres in some 145 blocks, kept in the scene tables in place
+    of the big-scene kernels), so K4's bounds pass through both stages and
+    the last is partly filled: bit for bit the plain versions on axis
+    rays, K5's limits at the nearest hit and one ulp before it included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from actinon_tpu_torch.render import scene_kernels
+    from actinon_tpu_torch.render.tracer import Tracer
+    from actinon_tpu_torch.scene import ir as sir
+    from actinon_tpu_torch.scene import objects as ho
+    import _torch_scenes as S
+    tr = Tracer(sir.compile_scene(S.tie_singles(ho, S.TIE_BIG_SHAPE)),
+                dtype=np.float32, device="cuda")
+    st, stm = (scene_kernels.SceneTable(tr, m) for m in (False, True))
+    tr._kernel_cache["scene_tables"] = (st, stm)
+    for t in (st, stm):
+        nb = t.bounds_t.shape[0]
+        assert nb > scene_kernels.CHUNK and nb % scene_kernels.CHUNK
+    n = 4099
+    p, d = S.axis_rays(n, S.TIE_BIG_SHAPE, seed=7)
+    lm = (np.random.default_rng(8).uniform(size=n) < 0.5).astype(np.float32)
+    p, d, lm = (torch.as_tensor(x, device="cuda") for x in (p, d, lm))
+    t_k, c_k = scene_kernels.scene_top2(tr, p, d, lm)
+    torch.cuda.synchronize()
+    t_p, c_p = scene_kernels.scene_top2_plain(st, p, d, lm)
+    assert bool(torch.isfinite(t_p[:, 0]).any())
+    assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+    assert torch.equal(c_k, c_p)
+    lim = _tie_limits(stm, p, d, seed=9)
+    got = scene_kernels.scene_anyhit(tr, p, d, lim)
+    torch.cuda.synchronize()
+    want = scene_kernels.scene_anyhit_plain(stm, p, d, lim)
+    assert want.any() and (~want).any()
+    assert torch.equal(got, want)
 
 
 def _nee_args(integ, B, seed):
@@ -619,6 +733,29 @@ def test_nee_refuses_shared_overflow(integ, monkeypatch):
         float(integ.tr.eps), kernels._stream())
     assert rc != 0
     assert kernels.LAUNCHES["nee"] == before
+
+
+def test_nee_many_samples_render_launches_k1(tmp_path):
+    """A glass_table render at 2 lights x 8,000 samples goes through K1,
+    whose samples pass the warp's shared slice in chunks (whole slices
+    would need 512 KB), and gives a finite image."""
+    from actinon_tpu_torch.acn.interp import run_file
+    from actinon_tpu_torch.render import kernels
+    from actinon_tpu_torch.render.driver import render_scene
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    cap = []
+    run_file(SCENE, render_fn=lambda sc, fn: cap.append(sc.clone()),
+             args=["-f"])
+    sc = cap[0]
+    sc.cfg.image_width, sc.cfg.image_height = 4, 3
+    sc.cfg.direct_samples, sc.cfg.trace_depth = 8000, 3
+    kernels.reset_launches()
+    img = render_scene(sc, str(tmp_path / "many.pnm"), force=True,
+                       verbose=False, batch=1 << 10, device="cuda")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["nee"] > 0
+    assert np.isfinite(img).all() and img.max() > 0
 
 
 # -- K8 and K9, the diagnostic ops -------------------------------------------

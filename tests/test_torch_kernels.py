@@ -12,8 +12,9 @@ the same contracts there.  Here csrc/trace_kernels.cu also compiles as
 host C++ (the shim of tests/test_torch_scene_kernels.py): K1's helpers
 run lane by lane as the warp kernel runs them (the (light, sample) pairs
 in strides of 32, each light's sum in sample order, the lights in light
-order), and K2's kernel, whose shadow test stops at the first blocking
-object, thread by thread."""
+order, the samples through the warp's slice in chunks), and K2's
+kernel, whose shadow test stops at the first blocking object, thread by
+thread."""
 
 import ctypes
 import os
@@ -33,6 +34,7 @@ from actinon_tpu_torch.render import kernels
 from actinon_tpu_torch.render.integrator import Integrator as TIntegrator
 from actinon_tpu_torch.render.tracer import Tracer as TTracer
 from actinon_tpu_torch.scene import ir as tsir
+from actinon_tpu_torch.scene import objects as tho
 
 from test_torch_scene_kernels import host_library
 
@@ -184,6 +186,8 @@ def test_cpu_wrappers_launch_nothing(pair):
     assert kernels.LAUNCHES == {"nee": 0, "shadow": 0, "object_hit": 0,
                                 "scene_top2": 0, "scene_anyhit": 0,
                                 "big_top2": 0, "big_anyhit": 0,
+                                "big_anyhit_warp": 0,
+                                "big_anyhit_thread": 0,
                                 "diag_unary": 0, "diag_expr": 0}
 
 
@@ -210,49 +214,56 @@ def test_scene_table_layout(pair):
 
 
 HOST_DRIVER = r"""
-// K1: each lane as the warp kernel takes it: thread t's pairs t, t + 32,
-// ... of the lane's (light, sample) pairs, then each light's sum in
-// sample order and the lights in light order
+// K1: each lane as the warp kernel takes it, `chunk` samples of each light
+// at a time (the kernel's kNeeChunk, or any other chunk for the tests):
+// thread t's pairs t, t + 32, ... of the chunk's (light, sample) pairs,
+// then each light's running sum over the chunk in sample order, and at
+// the end the lights in light order
 extern "C" void host_nee(const float* sf, const int* si, const float* LF,
                          const int* LI, int n_lights, int cap,
                          const float* pos, const float* surf_d,
                          const float* di, const float* cos_ti,
                          const float* on_a, const float* on_b,
                          const float* ray_prj, const uint32_t* rv,
-                         const int* ns_in, float* out, int n, float eps) {
+                         const int* ns_in, float* out, int n, float eps,
+                         int chunk) {
     const Scene S{sf, si};
-    float* terms = new float[n_lights * cap + 2 * n_lights];
+    float* terms = new float[n_lights * chunk + 2 * n_lights];
     for (int i = 0; i < n; ++i) {
         const NeeLane N = load_nee_lane(i, pos, surf_d, di, cos_ti, on_a,
                                         on_b, ray_prj, rv, ns_in);
         float lum[3] = {0.0f, 0.0f, 0.0f};
         if (N.di > 0.0f) {
             const int ns = nee_samples(N, cap);
-            float* acc = terms + n_lights * ns;
+            float* acc = terms + n_lights * chunk;
             float* fac = acc + n_lights;
-            for (int t = 0; t < 32; ++t)
-                for (int k = t; k < n_lights * ns; k += 32) {
-                    const int li = k / ns, j = k - li * ns;
-                    const float* lt = LF + li * LT_SIZE;
-                    const int* lti = LI + li * LTI_SIZE;
-                    terms[k] = nee_sample(S, lt, lti, light_frame(lt, lti, N),
-                                          N, li, j, cap, eps);
-                }
-            for (int li = 0; li < n_lights; ++li) {
-                acc[li] = nee_light_sum(terms + li * ns, ns);
+            for (int li = 0; li < n_lights; ++li) acc[li] = 0.0f;
+            for (int j0 = 0; j0 < ns; j0 += chunk) {
+                const int m = min(chunk, ns - j0);
+                for (int t = 0; t < 32; ++t)
+                    for (int k = t; k < n_lights * m; k += 32) {
+                        const int li = k / m, j = k - li * m;
+                        const float* lt = LF + li * LT_SIZE;
+                        const int* lti = LI + li * LTI_SIZE;
+                        terms[k] = nee_sample(S, lt, lti,
+                                              light_frame(lt, lti, N), N, li,
+                                              j0 + j, cap, eps);
+                    }
+                for (int li = 0; li < n_lights; ++li)
+                    acc[li] = nee_light_sum(acc[li], terms + li * m, m);
+            }
+            for (int li = 0; li < n_lights; ++li)
                 fac[li] = 2.0f * light_frame(LF + li * LT_SIZE,
                                              LI + li * LTI_SIZE, N).cyl
                           / (float)N.ns;
-            }
             nee_lum(LF, acc, fac, n_lights, lum);
         }
         for (int ch = 0; ch < 3; ++ch) out[3 * i + ch] = lum[ch];
     }
     delete[] terms;
 }
-extern "C" long host_nee_shared_bytes(int n_f, int n_i, int n_lights,
-                                      int cap) {
-    return (long)nee_shared_bytes(n_f, n_i, n_lights, cap);
+extern "C" long host_nee_shared_bytes(int n_f, int n_i, int n_lights) {
+    return (long)nee_shared_bytes(n_f, n_i, n_lights);
 }
 // K2: one call per thread
 extern "C" void host_shadow(const float* sf, const int* si, const float* p,
@@ -272,6 +283,18 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _host_nee(lib, integ, args, chunk):
+    """K1 on the host (HOST_DRIVER's host_nee) over the lanes args."""
+    st, lt = kernels.scene_table(integ.tr), kernels.light_table(integ)
+    n = args[0].shape[0]
+    out = torch.empty((n, 3), dtype=torch.float32)
+    lib.host_nee(_ptr(st.f), _ptr(st.i), _ptr(lt.f), _ptr(lt.i),
+                 ctypes.c_int(lt.n), ctypes.c_int(integ.direct_cap),
+                 *(_ptr(a) for a in args), _ptr(out), ctypes.c_int(n),
+                 ctypes.c_float(float(integ.tr.eps)), ctypes.c_int(chunk))
+    return out
+
+
 def test_nee_cuda_source_on_host_matches_plain(pair, tmp_path):
     """K1's per-sample helper and fixed-order sums, compiled as host C++
     and driven lane by lane as the warp kernel drives them, against
@@ -280,20 +303,17 @@ def test_nee_cuda_source_on_host_matches_plain(pair, tmp_path):
     _, tt = pair
     lib, src = host_library("trace_kernels.cu", HOST_DRIVER, tmp_path)
     assert f"kNeeWarps = {kernels.NEE_WARPS};" in src
+    assert f"kNeeChunk = {kernels.NEE_CHUNK};" in src
     integ = TIntegrator(tt, batch=B)
     st, lt = kernels.scene_table(tt), kernels.light_table(integ)
     cap = integ.direct_cap
     lib.host_nee_shared_bytes.restype = ctypes.c_long
     launch = kernels.nee_launch(integ)
     assert launch["shared_bytes"] == lib.host_nee_shared_bytes(
-        st.f.numel(), st.i.numel(), lt.n, cap)
+        st.f.numel(), st.i.numel(), lt.n)
     assert launch["threads"] == 32 * launch["lanes_per_block"]
     args = _torch_args(_nee_inputs(cap, seed=19))
-    out = torch.empty((B, 3), dtype=torch.float32)
-    lib.host_nee(_ptr(st.f), _ptr(st.i), _ptr(lt.f), _ptr(lt.i),
-                 ctypes.c_int(lt.n), ctypes.c_int(cap),
-                 *(_ptr(a) for a in args), _ptr(out), ctypes.c_int(B),
-                 ctypes.c_float(float(tt.eps)))
+    out = _host_nee(lib, integ, args, kernels.NEE_CHUNK)
     want = kernels.nee_plain(integ, *args)
     dead = args[2] <= 0
     assert bool(dead.any()) and bool((want[~dead] > 0).any())
@@ -301,6 +321,67 @@ def test_nee_cuda_source_on_host_matches_plain(pair, tmp_path):
     rel = torch.abs(out - want) / (torch.abs(want) + 1e-4)
     frac = float((rel[~dead].max(dim=1).values < 1e-2).float().mean())
     assert frac >= 0.99, f"only {frac} of live lanes agree"
+
+
+def test_nee_chunked_sums_on_host_bit_equal(tmp_path):
+    """K1's samples through the warp's slice in chunks: at 40 samples a
+    light, the kernel's chunk of 32 (two chunks) and a chunk of 7 give
+    the unchunked sums (one chunk of all 40) bit for bit, and the lanes
+    agree with nee_plain within rel 1e-2 on >= 99 %."""
+    assert kernels.NEE_CHUNK < 40
+    lib, _ = host_library("trace_kernels.cu", HOST_DRIVER, tmp_path)
+    integ = TIntegrator(TTracer(_load(trun_file, tsir, direct=40),
+                                dtype=np.float32, device="cpu"), batch=64)
+    a = _nee_inputs(integ.direct_cap, seed=23)
+    args = _torch_args({k: v[:64] for k, v in a.items()})
+    assert int(args[8].max()) > kernels.NEE_CHUNK
+    whole = _host_nee(lib, integ, args, integ.direct_cap)
+    assert bool((whole > 0).any())
+    for chunk in (kernels.NEE_CHUNK, 7):
+        got = _host_nee(lib, integ, args, chunk)
+        assert torch.equal(got.view(torch.int32), whole.view(torch.int32))
+    want = kernels.nee_plain(integ, *args)
+    live = args[2] > 0
+    rel = torch.abs(whole - want) / (torch.abs(want) + 1e-4)
+    assert float((rel[live].max(dim=1).values < 1e-2).float().mean()) >= 0.99
+
+
+def _many_light_scene(n_lights):
+    """A floor, a ball and n_lights sphere lamps in a row above them."""
+    sc = tho.Scene()
+    floor = tho.Plane()
+    sc.push(floor)
+    ball = tho.Sphere(0.5)
+    ball.move(tho.v3(0.0, 0.0, 1.0))
+    sc.push(ball)
+    for k in range(n_lights):
+        lamp = tho.Sphere(0.1)
+        lamp.move(tho.v3(0.3 * k - 0.15 * n_lights, 0.0, 6.0))
+        lamp.prp.radiance = 5.0
+        sc.push(lamp)
+    return sc
+
+
+@pytest.mark.parametrize("n_lights,direct", [(2, 8000), (72, 200)])
+def test_nee_launch_fits_many_samples(n_lights, direct):
+    """K1's shared memory does not grow with the sample count: at 2
+    lights x 8,000 samples and 72 lights x 200 (where whole per-lane
+    sample slices would need 512 KB and 461 KB) it fits a thread block,
+    and it equals the launch of the same tables at 1 sample."""
+    if n_lights == 2:
+        ir = _load(trun_file, tsir, direct=direct)
+    else:
+        sc = _many_light_scene(n_lights)
+        sc.cfg.direct_samples = direct
+        ir = tsir.compile_scene(sc)
+    integ = TIntegrator(TTracer(ir, dtype=np.float32, device="cpu"),
+                        batch=B)
+    assert integ.n_lights == n_lights and integ.direct_cap == direct
+    assert kernels.nee_supported(integ)
+    launch = kernels.nee_launch(integ)
+    assert launch["shared_bytes"] <= kernels.SHARED_MAX
+    integ.direct_cap = 1
+    assert kernels.nee_launch(integ) == launch
 
 
 def test_shadow_cuda_source_on_host_matches_plain(pair, tmp_path):

@@ -258,6 +258,57 @@ def test_scene_route_mixed_and_shadow(mixed):
     assert (b_k == b_x).mean() > 0.998
 
 
+def test_scene_route_past_one_bound_stage(mixed, monkeypatch, tmp_path):
+    """The tracer's scene route with K4 and K5 as their CUDA source walks
+    the tables (compiled as host C++, driven as the warp kernels drive
+    it), K4 at a stage of 3 bounds, so that the table passes through its
+    shared-memory stages more than once, the last one partly filled, and
+    nothing gating the route on the table's size: both kernels are
+    called, and the nearest hits and the shadow test still match the JAX
+    tracer with the contract of the scene route above."""
+    lib, _ = host_library("scene_kernels.cu", HOST_DRIVER, tmp_path, chunk=3)
+    jt, tt = mixed
+    tk = TTracer(tt.ir, dtype=np.float32, device="cpu")
+    tk.scene_kernels_on_cpu = True
+    stf, stm = tk._scene_tables()
+    for st in (stf, stm):
+        assert st.bounds_t.shape[0] > 3 and st.bounds_t.shape[0] % 3 != 0
+    assert tk._prefer_scene_query() and tk._prefer_scene_shadow()
+    calls = []
+
+    def top2(tr, p, d, lm):
+        calls.append("top2")
+        t = torch.empty((p.shape[0], 2), dtype=torch.float32)
+        c = torch.empty((p.shape[0], 2), dtype=torch.int32)
+        _host_top2(lib, tr._scene_tables()[0], p, d, lm, t, c)
+        return t, c
+
+    def anyhit(tr, p, d, limit):
+        calls.append("anyhit")
+        return _host_anyhit(lib, tr._scene_tables()[1], p, d, limit, 0)
+
+    monkeypatch.setattr(sk, "scene_top2", top2)
+    monkeypatch.setattr(sk, "scene_anyhit", anyhit)
+    p, d = S.rays(512, seed=31)
+    t_k, _, o_k, _ = _hits(tk.nearest(torch.as_tensor(p), torch.as_tensor(d),
+                                      rng_rough=False))
+    t_x, _, o_x, _ = _hits(jt.nearest(p, d, rng_rough=False))
+    fin = np.isfinite(t_x)
+    assert fin.any() and (~fin).any()
+    assert (np.isfinite(t_k) == fin).mean() > 0.998
+    both = fin & np.isfinite(t_k)
+    np.testing.assert_allclose(t_k[both], t_x[both], rtol=2e-4, atol=2e-4)
+    assert (o_k[both] == o_x[both]).mean() > 0.99
+    lim = np.random.default_rng(41).uniform(0.2, 15.0, len(p)).astype(
+        np.float32)
+    b_k = tk.shadow_blocked(torch.as_tensor(p), torch.as_tensor(d),
+                            torch.as_tensor(lim)).numpy()
+    b_x = np.asarray(jt.shadow_blocked(p, d, lim))
+    assert b_x.any() and (~b_x).any()
+    assert (b_k == b_x).mean() > 0.998
+    assert "top2" in calls and "anyhit" in calls
+
+
 def test_scene_coherent_tile(mixed):
     """A coherent camera-style tile (shared direction): the block-cull
     regression shape of tests/test_pallas_scene.py:176-195, the scene
@@ -334,11 +385,12 @@ extern "C" int host_split() { return n_split; }
 """
 
 
-def host_library(name, driver, tmp_path):
+def host_library(name, driver, tmp_path, chunk=None):
     """csrc/`name` up to its C interface, compiled as host C++ after the
     shim, with `driver` appended: the loaded library and the source.  The
     warp kernels (under __CUDACC__) drop out; their helpers and the
-    one-thread kernels stay."""
+    one-thread kernels stay.  chunk: a stage of that many bounds in
+    place of the source's kChunk, so that a small table spans several."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
@@ -347,43 +399,65 @@ def host_library(name, driver, tmp_path):
     src = open(path).read()
     body = src.replace("#include <cuda_runtime.h>", "")
     body = body[:body.index('extern "C" {')]
-    cpp = tmp_path / f"host_{name}.cpp"
+    if chunk is not None:
+        body = body.replace("constexpr int kChunk = 128;",
+                            f"constexpr int kChunk = {chunk};")
+    cpp = tmp_path / f"host_{name}{chunk or ''}.cpp"
     cpp.write_text(HOST_SHIM + body + driver)
-    so = tmp_path / f"libhost_{name}.so"
+    so = tmp_path / f"libhost_{name}{chunk or ''}.so"
     subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-o",
                     str(so), str(cpp)], check=True, capture_output=True)
     return ctypes.CDLL(str(so)), src
 
 
 HOST_DRIVER = WARP_REDUCE + r"""
-// the block cull of bound bid as the kernels test their staged bounds
-static bool block_cull(const float* bnd, int bid, const Ray& r, bool has_lim,
-                       float lim) {
-    const float* b = bnd + 8 * bid;
-    return bound_hit(b[0], b[1], b[2], b[3], r, has_lim, lim);
+// the kernels' stage of bounds [g0, g0 + m): (centre, r2) of each row
+static void stage_chunk(float (*sb)[4], const float* bnd, int g0, int m) {
+    for (int k = 0; k < m; ++k)
+        for (int w = 0; w < 4; ++w) sb[k][w] = bnd[8 * (g0 + k) + w];
 }
-// K4: a ray's walk as the warp kernel takes it, the 32 lanes of each
-// passed block in turn, then the butterfly and the merge
-extern "C" void host_top2(const float* tab, const float* bnd, const int* desc,
-                          const float* p, const float* d, const float* lm,
-                          float* t_out, int* c_out, int n, float eps) {
+// the ballot of staged bounds s0 .. s0 + 31 of a stage of m
+static unsigned ballot(const float (*sb)[4], int s0, int m, const Ray& r,
+                       bool has_lim, float lim) {
+    unsigned pass = 0;
+    for (int j = 0; j < 32; ++j)
+        if (s0 + j < m && bound_hit(sb[s0 + j][0], sb[s0 + j][1],
+                                    sb[s0 + j][2], sb[s0 + j][3], r, has_lim,
+                                    lim))
+            pass |= 1u << j;
+    return pass;
+}
+// K4: a ray's walk as the warp kernel takes it: the bounds staged kChunk
+// at a time, culled 32 at a time (the ballot), the passed blocks in
+// order, each with its shape (bshape), the 32 lanes of each in turn,
+// then the butterfly and the merge
+extern "C" void host_top2(const float* tab, const float* bnd,
+                          const int* bshape, const int* desc, const float* p,
+                          const float* d, const float* lm, float* t_out,
+                          int* c_out, int n, float eps) {
     const Eps E = make_eps(eps);
+    const int n_blk = table_blocks(desc);
+    static float sb[kChunk][4];
     for (int i = 0; i < n; ++i) {
         const Ray r = load_ray(p, d, i);
         const bool lane_matter = lm[i] > 0.0f;
         Top2 ray = top2_empty();
-        for (int s = 0; s < desc[0]; ++s) {
-            const int* sh = desc + 1 + s * SH_SIZE;
-            const bool mask_light = sh[SH_LIGHT] && lane_matter;
-            for (int b = 0; b < sh[SH_NBLK]; ++b) {
-                if (!block_cull(bnd, sh[SH_BID0] + b, r, false, 0.0f))
-                    continue;
-                const float* blk = tab + (size_t)(sh[SH_ROW0]
-                                                  + b * sh[SH_RPB]) * LB;
-                Top2 v[32];
-                for (int j = 0; j < 32; ++j)
-                    v[j] = lane_top2(desc, sh, blk, b, j, r, mask_light, E);
-                top2_merge(ray, warp_reduce(v));
+        for (int g0 = 0; g0 < n_blk; g0 += kChunk) {
+            const int m = min(kChunk, n_blk - g0);
+            stage_chunk(sb, bnd, g0, m);
+            for (int s0 = 0; s0 < m; s0 += 32) {
+                for (unsigned mask = ballot(sb, s0, m, r, false, 0.0f); mask;
+                     mask &= mask - 1) {
+                    const int bid = g0 + s0 + __builtin_ctz(mask);
+                    const int* sh = desc + 1 + bshape[bid] * SH_SIZE;
+                    const int b = bid - sh[SH_BID0];
+                    const bool mask_light = sh[SH_LIGHT] && lane_matter;
+                    Top2 v[32];
+                    for (int j = 0; j < 32; ++j)
+                        v[j] = lane_top2(desc, sh, block_rows(tab, sh, b), b,
+                                         j, r, mask_light, E);
+                    top2_merge(ray, warp_reduce(v));
+                }
             }
         }
         t_out[2 * i] = ray.t1;
@@ -392,30 +466,21 @@ extern "C" void host_top2(const float* tab, const float* bnd, const int* desc,
         c_out[2 * i + 1] = is_finite(ray.t2) ? ray.i2 : -1;
     }
 }
-extern "C" long host_shared_bytes(int n_desc, int n_bounds) {
-    return (long)desc_shared_bytes(n_desc, n_bounds);
+extern "C" long host_shared_bytes(int n_desc) {
+    return (long)top2_shared_bytes(n_desc);
 }
-extern "C" long host_anyhit_shared_bytes(int n_desc, int n_bounds) {
-    return (long)anyhit_shared_bytes(n_desc, n_bounds);
-}
-// K5: a ray's walk as the warp kernel takes it: the staged bounds culled
-// 32 at a time (the ballot), the passed blocks in order, each round of
-// 32 members of a block in turn, stopping after the first round in which
-// any lane is blocked (__any_sync); serial: shape by shape, the members
-// one at a time up to the first hit (the one-thread design)
+// K5: a ray's walk as the warp kernel takes it: the bounds culled 32 at a
+// time (the ballot), each passed block with its shape (bshape), each
+// round of 32 members of it in turn, stopping after the first round in
+// which any lane is blocked (__any_sync); serial: shape by shape, the
+// members one at a time up to the first hit (the one-thread design)
 extern "C" void host_anyhit(const float* tab, const float* bnd,
-                            const int* desc, const float* p, const float* d,
+                            const int* bshape, const int* desc,
+                            const float* p, const float* d,
                             const float* lim_in, uint8_t* out, int n,
                             float eps, int serial) {
     const Eps E = make_eps(eps);
-    const int n_blk = anyhit_blocks(desc);
-    float* sbnd = new float[4 * n_blk + 4];
-    int* bshape = new int[n_blk + 1];
-    for (int k = 0; k < 4 * n_blk; ++k) sbnd[k] = bnd[8 * (k >> 2) + (k & 3)];
-    for (int s = 0; s < desc[0]; ++s) {
-        const int* sh = desc + 1 + s * SH_SIZE;
-        for (int b = 0; b < sh[SH_NBLK]; ++b) bshape[sh[SH_BID0] + b] = s;
-    }
+    const int n_blk = table_blocks(desc);
     for (int i = 0; i < n; ++i) {
         const Ray r = load_ray(p, d, i);
         const float l = lim_in[i];
@@ -427,8 +492,7 @@ extern "C" void host_anyhit(const float* tab, const float* bnd,
                 for (int b = 0; b < sh[SH_NBLK] && !blocked; ++b) {
                     if (!block_cull(bnd, sh[SH_BID0] + b, r, true, lim))
                         continue;
-                    const float* blk = tab + (size_t)(sh[SH_ROW0]
-                                                      + b * sh[SH_RPB]) * LB;
+                    const float* blk = block_rows(tab, sh, b);
                     const int n_lanes = min(LB, sh[SH_M] - b * LB);
                     for (int m = 0; m < n_lanes && !blocked; ++m)
                         blocked = member_blocks(desc, sh, blk, m, r, lim, E);
@@ -440,16 +504,14 @@ extern "C" void host_anyhit(const float* tab, const float* bnd,
         for (int c0 = 0; c0 < n_blk && !blocked; c0 += 32) {
             unsigned pass = 0;
             for (int j = 0; j < 32; ++j)
-                if (c0 + j < n_blk
-                    && bound_cull(sbnd, c0 + j, r, true, lim))
+                if (c0 + j < n_blk && block_cull(bnd, c0 + j, r, true, lim))
                     pass |= 1u << j;
-            for (int j = 0; j < 32 && !blocked; ++j) {
-                if (!(pass >> j & 1u)) continue;
-                const int bid = c0 + j;
+            while (pass != 0u && !blocked) {
+                const int bid = c0 + __builtin_ctz(pass);
+                pass &= pass - 1u;
                 const int* sh = desc + 1 + bshape[bid] * SH_SIZE;
                 const int b = bid - sh[SH_BID0];
-                const float* blk = tab + (size_t)(sh[SH_ROW0]
-                                                  + b * sh[SH_RPB]) * LB;
+                const float* blk = block_rows(tab, sh, b);
                 const int n_lanes = min(LB, sh[SH_M] - b * LB);
                 for (int m0 = 0; m0 < n_lanes && !blocked; m0 += 32) {
                     bool hit[32];
@@ -463,8 +525,6 @@ extern "C" void host_anyhit(const float* tab, const float* bnd,
         }
         out[i] = blocked ? 1 : 0;
     }
-    delete[] sbnd;
-    delete[] bshape;
 }
 """
 
@@ -481,29 +541,24 @@ def test_cuda_source_on_host_matches_plain(mixed, tmp_path):
     lib, src = host_library("scene_kernels.cu", HOST_DRIVER, tmp_path)
     assert f"kTop2Warps = {sk.TOP2_WARPS};" in src
     assert f"kAnyWarps = {sk.ANY_WARPS};" in src
+    assert f"kChunk = {sk.CHUNK};" in src
     _, tt = mixed
     st, stm = tt._scene_tables()
     launch = sk.top2_launch(st)
     lib.host_shared_bytes.restype = ctypes.c_long
-    assert launch["shared_bytes"] == lib.host_shared_bytes(
-        st.desc_t.numel(), st.bounds_t.shape[0])
-    lib.host_anyhit_shared_bytes.restype = ctypes.c_long
+    assert launch["shared_bytes"] == lib.host_shared_bytes(st.desc_t.numel())
     assert sk.anyhit_launch(stm)["shared_bytes"] \
-        == lib.host_anyhit_shared_bytes(stm.desc_t.numel(),
-                                        stm.bounds_t.shape[0])
+        == 4 * sk.kernels._pad4(stm.desc_t.numel())
     assert launch["threads"] == 32 * launch["rays_per_block"]
     n = 1024
     p, d = S.rays(n, seed=43)
     lm = (np.arange(n) % 2).astype(np.float32)
     lim = np.random.default_rng(47).uniform(0.2, 15.0, n).astype(np.float32)
     lim[::5] = np.inf
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     P, D, LM, LIM = (torch.as_tensor(x) for x in (p, d, lm, lim))
     t = torch.empty((n, 2), dtype=torch.float32)
     c = torch.empty((n, 2), dtype=torch.int32)
-    lib.host_top2(ptr(st.table_t), ptr(st.bounds_t), ptr(st.desc_t), ptr(P),
-                  ptr(D), ptr(LM), ptr(t), ptr(c), ctypes.c_int(n),
-                  ctypes.c_float(float(st.eps)))
+    _host_top2(lib, st, P, D, LM, t, c)
     assert lib.host_split() == 0
     t_p, c_p = sk.scene_top2_plain(st, P, D, LM)
     fin = torch.isfinite(t_p)
@@ -520,15 +575,23 @@ def test_cuda_source_on_host_matches_plain(mixed, tmp_path):
         assert float((out == want).float().mean()) >= 0.998
 
 
+def _host_top2(lib, st, P, D, LM, t, c):
+    """K4 on the host, as the warp kernel walks the table st, into t, c."""
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    lib.host_top2(ptr(st.table_t), ptr(st.bounds_t), ptr(st.block_shape_t),
+                  ptr(st.desc_t), ptr(P), ptr(D), ptr(LM), ptr(t), ptr(c),
+                  ctypes.c_int(P.shape[0]), ctypes.c_float(float(st.eps)))
+
+
 def _host_anyhit(lib, stm, P, D, LIM, serial):
     """K5 on the host: the warp kernel's rounds of 32 members with the
     any-exit (serial=0), or the one-thread design's member loop."""
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     out = torch.empty((P.shape[0],), dtype=torch.bool)
-    lib.host_anyhit(ptr(stm.table_t), ptr(stm.bounds_t), ptr(stm.desc_t),
-                    ptr(P), ptr(D), ptr(LIM), ptr(out),
-                    ctypes.c_int(P.shape[0]), ctypes.c_float(float(stm.eps)),
-                    ctypes.c_int(serial))
+    lib.host_anyhit(ptr(stm.table_t), ptr(stm.bounds_t),
+                    ptr(stm.block_shape_t), ptr(stm.desc_t), ptr(P), ptr(D),
+                    ptr(LIM), ptr(out), ctypes.c_int(P.shape[0]),
+                    ctypes.c_float(float(stm.eps)), ctypes.c_int(serial))
     return out
 
 
@@ -538,7 +601,11 @@ def test_cuda_source_on_host_exact_on_ties(tmp_path):
     301-member singles shape of three blocks, the light masked for half
     the rays, four pairs of identical composites), where every root is
     exact in f32: t bit for bit and every code equal."""
-    lib, _ = host_library("scene_kernels.cu", HOST_DRIVER, tmp_path)
+    _top2_exact_on_ties(host_library("scene_kernels.cu", HOST_DRIVER,
+                                     tmp_path)[0])
+
+
+def _top2_exact_on_ties(lib):
     tr = TTracer(tsir.compile_scene(S.tie_scene(tho)), dtype=np.float32,
                  device="cpu")
     st, _ = tr._scene_tables()
@@ -548,12 +615,9 @@ def test_cuda_source_on_host_exact_on_ties(tmp_path):
     lm = (np.random.default_rng(13).uniform(size=n) < 0.5).astype(
         np.float32)
     P, D, LM = (torch.as_tensor(x) for x in (p, d, lm))
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     t = torch.empty((n, 2), dtype=torch.float32)
     c = torch.empty((n, 2), dtype=torch.int32)
-    lib.host_top2(ptr(st.table_t), ptr(st.bounds_t), ptr(st.desc_t), ptr(P),
-                  ptr(D), ptr(LM), ptr(t), ptr(c), ctypes.c_int(n),
-                  ctypes.c_float(float(st.eps)))
+    _host_top2(lib, st, P, D, LM, t, c)
     assert lib.host_split() == 0
     t_p, c_p = sk.scene_top2_plain(st, P, D, LM)
     fin = torch.isfinite(t_p[:, 0])
@@ -561,6 +625,18 @@ def test_cuda_source_on_host_exact_on_ties(tmp_path):
     assert bool(((t_p[:, 0] == t_p[:, 1]) & fin).any())
     assert torch.equal(t.view(torch.int32), t_p.view(torch.int32))
     assert torch.equal(c, c_p)
+    return st
+
+
+def test_staged_walk_on_host_exact_on_ties(tmp_path):
+    """The same at a stage of 3 bounds: the tie scene's table passes
+    through K4's shared-memory stages more than once, the last one partly
+    filled, and the walk still gives the plain version's bits."""
+    lib, _ = host_library("scene_kernels.cu", HOST_DRIVER, tmp_path,
+                          chunk=3)
+    st = _top2_exact_on_ties(lib)
+    nb = st.bounds_t.shape[0]
+    assert nb > 3 and nb % 3 != 0
 
 
 def _tie_limits(stm, P, D, seed):
