@@ -1,15 +1,16 @@
 // Trace kernels of the main render path, hand-written for Hopper (sm_90a).
 //
-// Three __global__ entry points over shared __device__ code:
+// Four __global__ entry points over shared __device__ code:
 //
 //   nee_kernel         (K1) replaces actinon_tpu/render/pallas_kernels.py
 //                      build_nee_kernel: the whole per-light NEE loop of a
 //                      lane — counter-RNG cap sample in the con_z frame,
 //                      true light-geometry hit, trig-free Oren-Nayar,
 //                      inline matter shadow any-hit, 2*cyl/ns estimator.
-//   shadow_kernel      (K2) replaces build_shadow_kernel: any matter hit
-//                      within (., limit] over the single-leaf objects
-//                      (envelope-gated) and the analytic composites.
+//   shadow_warp_kernel (K2) replace build_shadow_kernel: any matter hit
+//   shadow_kernel      within (., limit] over the single-leaf objects
+//                      (envelope-gated) and the analytic composites; two
+//                      designs, a warp a ray and a thread a ray.
 //   object_hit_kernel  (K3) replaces build_object_hit_kernel: the
 //                      eps-backed first hit of ONE object, INF on a miss.
 //
@@ -17,12 +18,34 @@
 // baked in as an immediate.  Here ONE source serves every scene: the
 // geometry is a read-only table (leaf records, composite records with
 // their CSG tree as postfix byte-code, light records) built by
-// render/kernels.py.  A composite's crossing walk keeps up to 64 crossing
-// columns per thread in a local array and is O(NC^2), as in
-// pallas_kernels.py:258-302.  The shadow test stops at the first object
-// that blocks: its result is an OR, so the boolean is the same.
+// render/kernels.py; a View holds its header's offsets, resolved once.
+// A composite's crossing walk is O(NC^2) in its NC crossing columns, as
+// in pallas_kernels.py:258-302, and every walk tests the composite's
+// envelope first.  The shadow test stops at the first object that
+// blocks: its result is an OR, so the boolean is the same.  Its walk
+// (comp_blocks) drops the columns past the limit first and stops at the
+// first flip (the argument is at comp_blocks_sorted); up to kRegCols
+// columns live in registers, and a wider composite takes comp_boundary.
 //
-// K2 and K3: one thread per ray, the table read from global memory; every
+// K2 has two designs, which OR the same per-object tests with the same
+// arithmetic and so give every ray the same boolean; the wrapper picks one
+// by the ray count (render/kernels.py SHADOW_WARP_MAX_RAYS).  Both copy
+// the flat scene table into shared memory once per thread block
+// (stage_scene), one block per kShadowWarps or kShadowThreads rays (a
+// grid capped at the resident blocks, the rays striding over it,
+// measured slower: its last partial wave idles most threads).
+//   * A warp a ray (shadow_warp_kernel), for the render's small batches
+//     (5,120 rays), where a thread a ray leaves most SMs idle and a launch
+//     lasts as long as one thread's serial walk: lanes take the
+//     single-leaf objects 32 at a time (__any_sync), then the composites'
+//     envelope gates (a ballot); for each composite that passes, lane c
+//     takes crossing column c (and c + 32), the parities come from
+//     __shfl_sync over the kept columns, each lane runs the CSG program
+//     on its own column, and a ballot answers.
+//   * A thread a ray (shadow_kernel), for larger batches, where the
+//     warp design's 32 lanes a ray cost more instruction slots than
+//     they save.
+// K3: one thread per ray, the table read from global memory; every
 // thread of a warp reads the same table entry at the same time, so the
 // read-only cache serves each read as one broadcast.
 //
@@ -54,16 +77,16 @@
 // about 72 bytes of I/O per lane against thousands of flops (per sample:
 // the RNG, sinf/cosf, the light hit and a shadow test over every matter
 // object).  K2 and K3 move 24-32 bytes per ray against a few hundred to a
-// few thousand flops.  No tensor cores, no sorting of the crossings.
+// few thousand flops.  No tensor cores.
 //
 // Numerics: f32, no fast-math; sinf, cosf, sqrtf and 1.0f/sqrtf, as the
 // Pallas kernels compute in exact f32.
 //
 // Interface: plain C functions, loaded with ctypes.  Each launches on the
 // stream it is given and returns cudaGetLastError().  The helpers compile
-// as host C++ too (tests/test_torch_kernels.py runs them there); the warp
-// kernel, which needs the card's shared memory and warp barriers, does
-// not.
+// as host C++ too (tests/test_torch_kernels.py runs them there, the warp
+// helpers lane by lane); the kernels that stage the table in shared
+// memory or use warp intrinsics (K1, K2) do not.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -92,11 +115,33 @@ enum { LTI_FOV = 0, LTI_HKIND = 1, LTI_HIDX = 2, LTI_SIZE = 4 };
 enum { OP_AND = -1, OP_OR = -2, OP_NOT = -3 };
 enum { PLANE = 0, SPHERE = 1, QUADRIC = 2 };
 constexpr int MAX_COLS = 64;
+constexpr int kRegCols = 16;   // a shadow walk sorts at most this many
+                               // crossing columns in registers
 
 struct Scene {
     const float* __restrict__ f;
     const int* __restrict__ i;
 };
+
+// The table's header resolved once: the records and lists a query reads.
+struct View {
+    const float* __restrict__ leaf_f;
+    const int* __restrict__ leaf_i;
+    const float* __restrict__ comp_f;
+    const int* __restrict__ comp_i;
+    const int* __restrict__ rows;
+    const int* __restrict__ prog;
+    const int* __restrict__ ss;
+    const int* __restrict__ sc;
+    int nss, nsc;
+};
+
+__device__ __forceinline__ View view_of(const Scene& S) {
+    const int* h = S.i;
+    return View{S.f + h[H_LEAF_F], S.i + h[H_LEAF_I], S.f + h[H_COMP_F],
+                S.i + h[H_COMP_I], S.i + h[H_ROWS], S.i + h[H_PROG],
+                S.i + h[H_SS], S.i + h[H_SC], h[H_NSS], h[H_NSC]};
+}
 
 __device__ __forceinline__ float finf() { return __int_as_float(0x7f800000); }
 
@@ -192,10 +237,10 @@ __device__ __forceinline__ bool env_gate(const float* __restrict__ c,
 }
 
 // First hit of a single-leaf object, its envelope gate applied.
-__device__ float single_hit(const Scene& S, int row, const Ray& r,
+__device__ float single_hit(const View& V, int row, const Ray& r,
                             float eps) {
-    const float* L = S.f + S.i[H_LEAF_F] + row * LF_SIZE;
-    const int* LI = S.i + S.i[H_LEAF_I] + row * LI_SIZE;
+    const float* L = V.leaf_f + row * LF_SIZE;
+    const int* LI = V.leaf_i + row * LI_SIZE;
     float a = leaf_first_hit(L, LI[LI_KIND], LI[LI_LIN] != 0, r, eps);
     if (LI[LI_ENV] && !env_gate(L + LF_EC, L[LF_ER2], r)) a = finf();
     return a;
@@ -227,42 +272,63 @@ __device__ __forceinline__ void tree_eval2(const int* __restrict__ prog,
     vb = (sb & 1u) != 0;
 }
 
+// A composite's envelope test: true where it has no envelope or the ray
+// meets it (envelope_s_ray_hits).
+__device__ __forceinline__ bool comp_gate(const View& V, int ci,
+                                          const Ray& r) {
+    const float* CF = V.comp_f + ci * CF_SIZE;
+    return !(CF[CF_ER] > 0.0f) || env_gate(CF + CF_EC, CF[CF_ER2], r);
+}
+
+// The two crossing columns of a composite's leaf `row`: its forward
+// roots, un-backed, INF where not ahead (never NaN: NaN > 0 is false);
+// inside: the ray's origin lies in the leaf (C <= 0).
+__device__ __forceinline__ void leaf_crossings(const View& V, int row,
+                                               const Ray& r, float& x0,
+                                               float& x1, bool& inside) {
+    const float* L = V.leaf_f + row * LF_SIZE;
+    const bool lin = V.leaf_i[row * LI_SIZE + LI_LIN] != 0;
+    const float inf = finf();
+    float A, B, C;
+    leaf_quads(L, r, A, B, C);
+    inside = C <= 0.0f;
+    float c0, c1;
+    if (lin) {
+        c0 = lin_root(B, C);
+        c1 = inf;
+    } else {
+        float s, q;
+        bool ok;
+        stable_roots(A, B, C, c0, c1, s, q, ok);
+        if (A == 0.0f) {
+            c0 = lin_root(B, C);
+            c1 = inf;
+        }
+    }
+    x0 = c0 > 0.0f ? c0 : inf;
+    x1 = c1 > 0.0f ? c1 : inf;
+}
+
 // Nearest boundary flip of one composite: crossing-parity walk over its
-// leaves' crossings (pallas_kernels._comp_boundary), envelope-gated.
-// Returns the un-backed crossing offset, INF when there is none.
-__device__ float comp_boundary(const Scene& S, int ci, const Ray& r) {
-    const float* CF = S.f + S.i[H_COMP_F] + ci * CF_SIZE;
-    const int* CI = S.i + S.i[H_COMP_I] + ci * CI_SIZE;
-    const int* rows = S.i + S.i[H_ROWS] + CI[CI_ROWS];
+// leaves' crossings (pallas_kernels._comp_boundary), envelope-gated (the
+// gate first: it returns INF exactly where the walk's result would be
+// thrown away).  Returns the un-backed crossing offset, INF when there is
+// none.
+__device__ float comp_boundary(const View& V, int ci, const Ray& r) {
+    const float inf = finf();
+    if (!comp_gate(V, ci, r)) return inf;
+    const int* CI = V.comp_i + ci * CI_SIZE;
+    const int* rows = V.rows + CI[CI_ROWS];
     const int nl = CI[CI_N];
     const int nc = 2 * nl;
-    const float inf = finf();
     float cross[MAX_COLS];
     uint32_t inside = 0;
     for (int l = 0; l < nl; ++l) {
-        const int row = rows[l];
-        const float* L = S.f + S.i[H_LEAF_F] + row * LF_SIZE;
-        const bool lin = S.i[S.i[H_LEAF_I] + row * LI_SIZE + LI_LIN] != 0;
-        float A, B, C;
-        leaf_quads(L, r, A, B, C);
-        if (C <= 0.0f) inside |= 1u << l;
-        float c0, c1;
-        if (lin) {
-            c0 = lin_root(B, C);
-            c1 = inf;
-        } else {
-            float s, q;
-            bool ok;
-            stable_roots(A, B, C, c0, c1, s, q, ok);
-            if (A == 0.0f) {
-                c0 = lin_root(B, C);
-                c1 = inf;
-            }
-        }
-        cross[2 * l] = c0 > 0.0f ? c0 : inf;
-        cross[2 * l + 1] = c1 > 0.0f ? c1 : inf;
+        bool in;
+        leaf_crossings(V, rows[l], r, cross[2 * l], cross[2 * l + 1], in);
+        if (in) inside |= 1u << l;
     }
-    const int* prog = S.i + S.i[H_PROG] + CI[CI_PROG];
+    const int* prog = V.prog + CI[CI_PROG];
     const int plen = CI[CI_PLEN];
     float best = inf;
     for (int j = 0; j < nc; ++j) {
@@ -281,33 +347,210 @@ __device__ float comp_boundary(const Scene& S, int ci, const Ray& r) {
         tree_eval2(prog, plen, inside ^ pa, inside ^ pb, va, vb);
         if (va != vb && tj < best) best = tj;
     }
-    if (CF[CF_ER] > 0.0f && !env_gate(CF + CF_EC, CF[CF_ER2], r)) best = inf;
     return best;
+}
+
+// A crossing column that can block within lim: comp_boundary's shadow
+// test `t - eps <= lim` on the column itself.
+__device__ __forceinline__ bool column_kept(float t, float lim, float eps) {
+    return is_finite(t) && t - eps <= lim;
+}
+
+// Postfix CSG program on one inside-bit set.
+__device__ __forceinline__ bool tree_eval(const int* __restrict__ prog,
+                                          int n, uint32_t bits) {
+    uint64_t st = 0;   // bit stack, top at bit 0
+    for (int k = 0; k < n; ++k) {
+        const int op = prog[k];
+        if (op >= 0) {
+            st = (st << 1) | ((bits >> op) & 1u);
+        } else if (op == OP_NOT) {
+            st ^= 1u;
+        } else {
+            const uint64_t a0 = st & 1u, a1 = (st >> 1) & 1u;
+            const uint64_t v = op == OP_AND ? (a0 & a1) : (a0 | a1);
+            st = ((st >> 2) << 1) | v;
+        }
+    }
+    return (st & 1u) != 0;
+}
+
+// Whether composite ci (its envelope already passed) blocks the ray
+// within lim: comp_boundary's answer, `is_finite(t*) && t* - eps <= lim`
+// for the nearest flip t*, from the kept columns alone (column_kept).
+//
+// Why the kept columns suffice.  f32 rounding is monotone, so tc <= tj
+// implies fl(tc - eps) <= fl(tj - eps): a column at or before a kept one
+// is kept, so a dropped column never counts in a kept column's state, and
+// each kept column's states before and after are comp_boundary's.  Where
+// fl(t* - eps) <= lim, t* is kept and flips; where a kept column flips,
+// t* lies at or before it and so passes the test too.
+//
+// Up to kRegCols columns (comp_blocks_sorted): the kept columns sorted in
+// registers by a bitonic network, then one sweep in which each column
+// toggles its leaf's bit and a tie run of equal t flips jointly (the
+// test fires where the run ends), as member_boundary walks in
+// csrc/scene_kernels.cu: the state after a run is comp_boundary's state
+// at-or-before t_j (<=), the state before it the strictly-before one (<),
+// so coincident crossings flip together, as there.  The sweep stops at
+// the first flip.  It measured faster on this card than comp_boundary's
+// O(NC^2) parity walk with the columns in registers (PERF.md §6).  More
+// columns: comp_boundary itself, and the limit on its nearest flip.
+__device__ bool comp_blocks_sorted(const View& V, int ci, const Ray& r,
+                                   float lim, float eps) {
+    constexpr int N = kRegCols;
+    const int* CI = V.comp_i + ci * CI_SIZE;
+    const int* rows = V.rows + CI[CI_ROWS];
+    const int nl = CI[CI_N];
+    const float inf = finf();
+    float cross[N];
+    int col[N];
+    uint32_t inside = 0;
+    bool any = false;
+#pragma unroll
+    for (int l = 0; l < N / 2; ++l) {
+        cross[2 * l] = cross[2 * l + 1] = inf;
+        col[2 * l] = 2 * l;
+        col[2 * l + 1] = 2 * l + 1;
+        if (l < nl) {
+            float x0, x1;
+            bool in;
+            leaf_crossings(V, rows[l], r, x0, x1, in);
+            if (in) inside |= 1u << l;
+            const bool k0 = column_kept(x0, lim, eps);
+            const bool k1 = column_kept(x1, lim, eps);
+            cross[2 * l] = k0 ? x0 : inf;
+            cross[2 * l + 1] = k1 ? x1 : inf;
+            any = any || k0 || k1;
+        }
+    }
+    if (!any) return false;
+    // ascending, INF last; the stage loops count exponents, so that every
+    // loop unrolls and the arrays stay in registers
+#pragma unroll
+    for (int kk = 1; (1 << kk) <= N; ++kk)
+#pragma unroll
+        for (int jj = kk - 1; jj >= 0; --jj)
+#pragma unroll
+            for (int i = 0; i < N; ++i) {
+                const int k = 1 << kk, l = i ^ (1 << jj);
+                if (l <= i) continue;
+                const bool up = (i & k) == 0;
+                if (up ? cross[i] > cross[l] : cross[i] < cross[l]) {
+                    const float tt = cross[i];
+                    cross[i] = cross[l];
+                    cross[l] = tt;
+                    const int cc = col[i];
+                    col[i] = col[l];
+                    col[l] = cc;
+                }
+            }
+    const int* prog = V.prog + CI[CI_PROG];
+    const int plen = CI[CI_PLEN];
+    uint32_t state = inside;
+    bool v_run = tree_eval(prog, plen, state);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+        if (!is_finite(cross[j])) break;
+        state ^= 1u << (col[j] >> 1);
+        const bool v_new = tree_eval(prog, plen, state);
+        const float t_next = j + 1 < N ? cross[j + 1] : inf;
+        if (cross[j] != t_next) {
+            if (v_new != v_run) return true;
+            v_run = v_new;
+        }
+    }
+    return false;
+}
+
+__device__ __forceinline__ bool comp_blocks(const View& V, int ci,
+                                            const Ray& r, float lim,
+                                            float eps) {
+    return 2 * V.comp_i[ci * CI_SIZE + CI_N] <= kRegCols
+               ? comp_blocks_sorted(V, ci, r, lim, eps)
+               : column_kept(comp_boundary(V, ci, r), lim, eps);
 }
 
 // Any covered matter hit within (., lim]: true at the first object that
 // blocks (an OR: any order and any exit point give the same boolean).
-__device__ bool shadow_blocked(const Scene& S, const Ray& r, float lim,
+__device__ bool shadow_blocked(const View& V, const Ray& r, float lim,
                                float eps) {
-    const int nss = S.i[H_NSS], nsc = S.i[H_NSC];
-    const int* ss = S.i + S.i[H_SS];
-    const int* sc = S.i + S.i[H_SC];
-    for (int k = 0; k < nss; ++k)
-        if (single_hit(S, ss[k], r, eps) <= lim) return true;
-    for (int k = 0; k < nsc; ++k) {
-        const float t = comp_boundary(S, sc[k], r);
-        if (is_finite(t) && (t - eps <= lim)) return true;
+    for (int k = 0; k < V.nss; ++k)
+        if (single_hit(V, V.ss[k], r, eps) <= lim) return true;
+    for (int k = 0; k < V.nsc; ++k) {
+        const int ci = V.sc[k];
+        if (comp_gate(V, ci, r) && comp_blocks(V, ci, r, lim, eps))
+            return true;
     }
     return false;
 }
 
 // First hit of a leaf (kind 0) or composite (kind 1) object, eps-backed.
-__device__ __forceinline__ float object_first_hit(const Scene& S, int kind,
+__device__ __forceinline__ float object_first_hit(const View& V, int kind,
                                                   int idx, const Ray& r,
                                                   float eps) {
-    if (kind == 0) return single_hit(S, idx, r, eps);
-    const float t = comp_boundary(S, idx, r);
+    if (kind == 0) return single_hit(V, idx, r, eps);
+    const float t = comp_boundary(V, idx, r);
     return is_finite(t) ? t - eps : finf();
+}
+
+// One ray of a query's inputs, and its shadow limit: a limit that is not
+// finite reads as 3e38, as in the Pallas kernel (a miss, INF, never
+// blocks).
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ p,
+                                        const float* __restrict__ d, int i) {
+    return Ray{p[3 * i], p[3 * i + 1], p[3 * i + 2],
+               d[3 * i], d[3 * i + 1], d[3 * i + 2]};
+}
+
+__device__ __forceinline__ float read_limit(const float* __restrict__ lim,
+                                            int i) {
+    const float l = lim[i];
+    return is_finite(l) ? l : 3e38f;
+}
+
+// ---- K2's warp design: the per-lane steps (the kernel adds the ballots
+// and shuffles; tests/test_torch_kernels.py runs them lane by lane) ----
+
+// Bits 0, 2, 4, ... of b packed into bits 0 .. 15: the leaves' inside
+// bits from a ballot over the columns (column 2l holds leaf l's).
+__host__ __device__ __forceinline__ uint32_t even_bits(uint32_t b) {
+    b &= 0x55555555u;
+    b = (b | (b >> 1)) & 0x33333333u;
+    b = (b | (b >> 2)) & 0x0f0f0f0fu;
+    b = (b | (b >> 4)) & 0x00ff00ffu;
+    return (b | (b >> 8)) & 0x0000ffffu;
+}
+
+// Crossing column c of a composite of nc columns (rows: its leaves): the
+// column's offset (INF past nc) and its leaf's inside bit.
+__device__ __forceinline__ void warp_column(const View& V,
+                                            const int* __restrict__ rows,
+                                            int nc, int c, const Ray& r,
+                                            float& t, bool& inside) {
+    t = finf();
+    inside = false;
+    if (c >= nc) return;
+    float x0, x1;
+    leaf_crossings(V, rows[c >> 1], r, x0, x1, inside);
+    t = (c & 1) ? x1 : x0;
+}
+
+// Column s, at tc, in the parities of a column at tj.
+__device__ __forceinline__ void parity_step(float tc, int s, float tj,
+                                            uint32_t& pa, uint32_t& pb) {
+    const uint32_t bit = 1u << (s >> 1);
+    if (tc <= tj) pa ^= bit;
+    if (tc < tj) pb ^= bit;
+}
+
+// Whether a column with these parities flips the composite.
+__device__ __forceinline__ bool column_flips(const int* __restrict__ prog,
+                                             int plen, uint32_t inside,
+                                             uint32_t pa, uint32_t pb) {
+    bool va, vb;
+    tree_eval2(prog, plen, inside ^ pa, inside ^ pb, va, vb);
+    return va != vb;
 }
 
 // ---- counter RNG (rng.py: murmur3 finalizer) ----
@@ -416,7 +659,7 @@ __device__ __forceinline__ LightFrame light_frame(const float* lt,
 // Sample j of light li: its estimator term (loc * w) * di where the
 // sample leaves the surface, reaches the light and is not shadowed, else
 // 0.  The RNG counters are 4 (li cap + j) and 4 (li cap + j) + 1.
-__device__ float nee_sample(const Scene& S, const float* lt, const int* lti,
+__device__ float nee_sample(const View& V, const float* lt, const int* lti,
                             const LightFrame& F, const NeeLane& N, int li,
                             int j, int cap, float eps) {
     const float two_pi = 6.283185307179586f;
@@ -437,7 +680,7 @@ __device__ float nee_sample(const Scene& S, const float* lt, const int* lti,
     r.dy = (F.mxy * lx + F.myy * ly) + F.fy * z;
     r.dz = (F.mxz * lx + F.myz * ly) + F.fz * z;
     float w = (r.dx * N.sx + r.dy * N.sy) + r.dz * N.sz;
-    const float a = object_first_hit(S, lti[LTI_HKIND], lti[LTI_HIDX], r,
+    const float a = object_first_hit(V, lti[LTI_HKIND], lti[LTI_HIDX], r,
                                      eps);
     const bool fin = is_finite(a);
     bool ok = (w > 0.0f) && fin;
@@ -457,7 +700,7 @@ __device__ float nee_sample(const Scene& S, const float* lt, const int* lti,
                               * tan_min);
     }
     const float lim = fin ? a : 0.0f;
-    ok = ok && !shadow_blocked(S, r, lim, eps);
+    ok = ok && !shadow_blocked(V, r, lim, eps);
     const float a_safe = fin ? a : 0.0f;
     const float hx = N.px + r.dx * a_safe - lt[LT_POS];
     const float hy = N.py + r.dy * a_safe - lt[LT_POS + 1];
@@ -491,43 +734,45 @@ __device__ __forceinline__ void nee_lum(const float* LF, const float* acc,
     }
 }
 
-// K1's dynamic shared memory in floats: the scene table's floats and
-// ints, the light table's floats and ints, each padded to 16 bytes, then
-// per warp a slice of n_lights * kNeeChunk sample terms and n_lights
-// (sum, factor) pairs.  It does not depend on the sample count.
 __host__ __device__ __forceinline__ int pad4(int words) {
     return (words + 3) / 4 * 4;
 }
 
+// The flat scene table in shared memory, as stage_scene lays it out: its
+// floats, then its ints, each padded to 16 bytes.
+inline size_t scene_shared_bytes(int n_f, int n_i) {
+    return 4 * ((size_t)pad4(n_f) + pad4(n_i));
+}
+
+// K1's dynamic shared memory: the scene table, the light table's floats
+// and ints, each padded to 16 bytes, then per warp a slice of n_lights *
+// kNeeChunk sample terms and n_lights (sum, factor) pairs.  It does not
+// depend on the sample count.
 constexpr int kNeeWarps = 4;   // K1: NEE lanes (one warp each) a block
 constexpr int kNeeChunk = 32;  // K1: samples of each light a warp's slice
                                // holds at a time
+// K1: thread blocks an SM must hold by registers (64 a thread).  Left
+// free, ptxas gives comp_blocks' sort network 92 registers and 5 blocks
+// an SM; held to 8 it spills a little, and on an H100 every K1 batch of
+// the main path ran faster so, bit for bit the same (PERF.md §6).
+constexpr int kNeeMinBlocks = 8;
 
 __host__ __device__ __forceinline__ int nee_warp_words(int n_lights) {
     return pad4(n_lights * kNeeChunk + 2 * n_lights);
 }
 
 inline size_t nee_shared_bytes(int n_f, int n_i, int n_lights) {
-    return 4 * ((size_t)pad4(n_f) + pad4(n_i) + pad4(n_lights * LT_SIZE)
-                + pad4(n_lights * LTI_SIZE)
-                + (size_t)kNeeWarps * nee_warp_words(n_lights));
+    return scene_shared_bytes(n_f, n_i)
+           + 4 * ((size_t)pad4(n_lights * LT_SIZE) + pad4(n_lights * LTI_SIZE)
+                  + (size_t)kNeeWarps * nee_warp_words(n_lights));
 }
+
+// K2's launch: rays (one warp each) a block in the warp design, rays (one
+// thread each) a block in the thread design.
+constexpr int kShadowWarps = 4;
+constexpr int kShadowThreads = 128;
 
 // ---- kernels ----
-
-__global__ void shadow_kernel(Scene S, const float* __restrict__ p,
-                              const float* __restrict__ d,
-                              const float* __restrict__ lim,
-                              uint8_t* __restrict__ out, int n, float eps) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const Ray r{p[3 * i], p[3 * i + 1], p[3 * i + 2],
-                d[3 * i], d[3 * i + 1], d[3 * i + 2]};
-    // a limit that is not finite reads as 3e38, as in the Pallas kernel:
-    // a miss (INF) never blocks
-    const float l = lim[i];
-    out[i] = shadow_blocked(S, r, is_finite(l) ? l : 3e38f, eps) ? 1 : 0;
-}
 
 __global__ void object_hit_kernel(Scene S, int kind, int idx,
                                   const float* __restrict__ p,
@@ -536,15 +781,31 @@ __global__ void object_hit_kernel(Scene S, int kind, int idx,
                                   float eps) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const Ray r{p[3 * i], p[3 * i + 1], p[3 * i + 2],
-                d[3 * i], d[3 * i + 1], d[3 * i + 2]};
-    const float a = object_first_hit(S, kind, idx, r, eps);
+    const float a = object_first_hit(view_of(S), kind, idx, load_ray(p, d, i),
+                                     eps);
     out[i] = is_finite(a) ? a : finf();
 }
 
 #ifdef __CUDACC__
 
-__global__ void __launch_bounds__(kNeeWarps * 32)
+constexpr unsigned kFull = 0xffffffffu;
+
+// The thread block copies the flat scene table (n_f floats, n_i ints) into
+// shared memory, laid out as scene_shared_bytes counts it, and meets the
+// barrier that makes it visible.  Every thread of the block must call it.
+__device__ __forceinline__ Scene stage_scene(const float* __restrict__ sf,
+                                             const int* __restrict__ si,
+                                             int n_f, int n_i,
+                                             float* shared) {
+    float* s_f = shared;
+    int* s_i = reinterpret_cast<int*>(s_f + pad4(n_f));
+    for (int k = threadIdx.x; k < n_f; k += blockDim.x) s_f[k] = sf[k];
+    for (int k = threadIdx.x; k < n_i; k += blockDim.x) s_i[k] = si[k];
+    __syncthreads();
+    return Scene{s_f, s_i};
+}
+
+__global__ void __launch_bounds__(kNeeWarps * 32, kNeeMinBlocks)
 nee_kernel(const float* __restrict__ sf, const int* __restrict__ si,
            int n_f, int n_i, const float* __restrict__ LF,
            const int* __restrict__ LI, int n_lights, int cap,
@@ -558,19 +819,15 @@ nee_kernel(const float* __restrict__ sf, const int* __restrict__ si,
            const int* __restrict__ ns_in, float* __restrict__ out, int n,
            float eps) {
     extern __shared__ __align__(16) float nee_shared[];
-    float* s_f = nee_shared;
-    int* s_i = reinterpret_cast<int*>(s_f + pad4(n_f));
-    float* s_lf = reinterpret_cast<float*>(s_i + pad4(n_i));
+    float* s_lf = nee_shared + pad4(n_f) + pad4(n_i);   // past the scene
     int* s_li = reinterpret_cast<int*>(s_lf + pad4(n_lights * LT_SIZE));
     float* s_warps = reinterpret_cast<float*>(
         s_li + pad4(n_lights * LTI_SIZE));
-    for (int k = threadIdx.x; k < n_f; k += blockDim.x) s_f[k] = sf[k];
-    for (int k = threadIdx.x; k < n_i; k += blockDim.x) s_i[k] = si[k];
     for (int k = threadIdx.x; k < n_lights * LT_SIZE; k += blockDim.x)
         s_lf[k] = LF[k];
     for (int k = threadIdx.x; k < n_lights * LTI_SIZE; k += blockDim.x)
         s_li[k] = LI[k];
-    __syncthreads();
+    const View V = view_of(stage_scene(sf, si, n_f, n_i, nee_shared));
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int i = blockIdx.x * kNeeWarps + warp;
     if (i >= n) return;   // the whole warp: no block barrier follows
@@ -580,7 +837,6 @@ nee_kernel(const float* __restrict__ sf, const int* __restrict__ si,
         if (lane == 0) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = 0.0f;
         return;
     }
-    const Scene S{s_f, s_i};
     const int ns = nee_samples(N, cap);
     float* terms = s_warps + warp * nee_warp_words(n_lights);
     float* acc = terms + n_lights * kNeeChunk;
@@ -595,7 +851,7 @@ nee_kernel(const float* __restrict__ sf, const int* __restrict__ si,
             const int li = k / m, j = k - li * m;
             const float* lt = s_lf + li * LT_SIZE;
             const int* lti = s_li + li * LTI_SIZE;
-            terms[k] = nee_sample(S, lt, lti, light_frame(lt, lti, N), N,
+            terms[k] = nee_sample(V, lt, lti, light_frame(lt, lti, N), N,
                                   li, j0 + j, cap, eps);
         }
         __syncwarp();
@@ -617,24 +873,153 @@ nee_kernel(const float* __restrict__ sf, const int* __restrict__ si,
     }
 }
 
+// K2, thread design: one thread a ray, shadow_blocked's walk.
+__global__ void __launch_bounds__(kShadowThreads)
+shadow_kernel(const float* __restrict__ sf, const int* __restrict__ si,
+              int n_f, int n_i, const float* __restrict__ p,
+              const float* __restrict__ d, const float* __restrict__ lim,
+              uint8_t* __restrict__ out, int n, float eps) {
+    extern __shared__ __align__(16) float shadow_shared[];
+    const View V = view_of(stage_scene(sf, si, n_f, n_i, shadow_shared));
+    const int i = blockIdx.x * kShadowThreads + threadIdx.x;
+    if (i < n)
+        out[i] = shadow_blocked(V, load_ray(p, d, i), read_limit(lim, i),
+                                eps) ? 1 : 0;
+}
+
+// K2, warp design: whether composite ci (its envelope passed) blocks the
+// ray within lim, comp_blocks' answer.  Every lane calls it with the same
+// arguments and gets the answer.  Lane j holds columns j and j + 32 (the
+// second only where the composite has more than 32); the inside bits and
+// the kept columns are ballots, and the parities of each lane's columns
+// come from shuffles over the kept columns alone (comp_blocks' argument:
+// a dropped column never counts in a kept one's parity).
+__device__ bool comp_blocks_warp(const View& V, int ci, const Ray& r,
+                                 float lim, float eps, int lane) {
+    const int* CI = V.comp_i + ci * CI_SIZE;
+    const int* rows = V.rows + CI[CI_ROWS];
+    const int nc = 2 * CI[CI_N];
+    const bool two = nc > 32;
+    float t0, t1 = finf();
+    bool in0, in1 = false;
+    warp_column(V, rows, nc, lane, r, t0, in0);
+    if (two) warp_column(V, rows, nc, lane + 32, r, t1, in1);
+    const bool k0 = column_kept(t0, lim, eps);
+    const bool k1 = column_kept(t1, lim, eps);
+    const uint32_t kept0 = __ballot_sync(kFull, k0);
+    const uint32_t kept1 = __ballot_sync(kFull, k1);
+    if ((kept0 | kept1) == 0) return false;
+    const uint32_t inside =
+        even_bits(__ballot_sync(kFull, in0 && !(lane & 1)))
+        | (even_bits(__ballot_sync(kFull, in1 && !(lane & 1))) << 16);
+    uint32_t pa0 = 0, pb0 = 0, pa1 = 0, pb1 = 0;
+    for (uint32_t m = kept0; m; m &= m - 1) {
+        const int s = __ffs(m) - 1;
+        const float tc = __shfl_sync(kFull, t0, s);
+        parity_step(tc, s, t0, pa0, pb0);
+        parity_step(tc, s, t1, pa1, pb1);
+    }
+    for (uint32_t m = kept1; m; m &= m - 1) {
+        const int s = __ffs(m) - 1;
+        const float tc = __shfl_sync(kFull, t1, s);
+        parity_step(tc, s + 32, t0, pa0, pb0);
+        parity_step(tc, s + 32, t1, pa1, pb1);
+    }
+    const int* prog = V.prog + CI[CI_PROG];
+    const int plen = CI[CI_PLEN];
+    const bool flip = (k0 && column_flips(prog, plen, inside, pa0, pb0))
+                      || (k1 && column_flips(prog, plen, inside, pa1, pb1));
+    return __any_sync(kFull, flip);
+}
+
+// K2, warp design: shadow_blocked's answer for one ray, every lane of the
+// warp calling it.  Lanes take the single-leaf objects 32 at a time, then
+// the composites' envelope gates 32 at a time; each composite that passes
+// goes to comp_blocks_warp, in order.  The warp leaves at the first round
+// or composite that blocks.
+__device__ bool shadow_blocked_warp(const View& V, const Ray& r, float lim,
+                                    float eps, int lane) {
+    for (int k0 = 0; k0 < V.nss; k0 += 32) {
+        const int k = k0 + lane;
+        const bool hit = k < V.nss && single_hit(V, V.ss[k], r, eps) <= lim;
+        if (__any_sync(kFull, hit)) return true;
+    }
+    for (int k0 = 0; k0 < V.nsc; k0 += 32) {
+        const int k = k0 + lane;
+        for (uint32_t pass = __ballot_sync(
+                 kFull, k < V.nsc && comp_gate(V, V.sc[k], r));
+             pass; pass &= pass - 1)
+            if (comp_blocks_warp(V, V.sc[k0 + __ffs(pass) - 1], r, lim, eps,
+                                 lane))
+                return true;
+    }
+    return false;
+}
+
+__global__ void __launch_bounds__(kShadowWarps * 32)
+shadow_warp_kernel(const float* __restrict__ sf, const int* __restrict__ si,
+                   int n_f, int n_i, const float* __restrict__ p,
+                   const float* __restrict__ d,
+                   const float* __restrict__ lim, uint8_t* __restrict__ out,
+                   int n, float eps) {
+    extern __shared__ __align__(16) float shadow_shared[];
+    const View V = view_of(stage_scene(sf, si, n_f, n_i, shadow_shared));
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    // the ray index is the warp's: every branch below is uniform
+    const int i = blockIdx.x * kShadowWarps + warp;
+    if (i >= n) return;   // the whole warp: no block barrier follows
+    const bool b = shadow_blocked_warp(V, load_ray(p, d, i),
+                                       read_limit(lim, i), eps, lane);
+    if (lane == 0) out[i] = b ? 1 : 0;
+}
+
 #endif  // __CUDACC__
 
-constexpr int kBlock = 128;     // K2, K3: rays (one thread each) a block
+constexpr int kBlock = 128;     // K3: rays (one thread each) a block
 constexpr size_t kMaxShared = 232448;   // what a thread block may have
 
 inline int grid_of(int n, int per_block) {
     return (n + per_block - 1) / per_block;
 }
 
+#ifdef __CUDACC__
+
+// 0 when a kernel may take `shared` bytes of dynamic shared memory (the
+// attribute set above 48 KB), else the error; refuses
+// (cudaErrorInvalidValue) more than a thread block may have.
+template <class Kernel>
+int shared_ok(Kernel kernel, size_t shared) {
+    if (shared > kMaxShared) return (int)cudaErrorInvalidValue;
+    if (shared <= 48 * 1024) return 0;
+    return (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+}
+
+#endif  // __CUDACC__
+
 }  // namespace
 
 extern "C" {
 
-int actinon_shadow(const float* sf, const int* si, const float* p,
-                   const float* d, const float* lim, uint8_t* out, int n,
-                   float eps, void* stream) {
-    shadow_kernel<<<grid_of(n, kBlock), kBlock, 0, (cudaStream_t)stream>>>(
-        Scene{sf, si}, p, d, lim, out, n, eps);
+// n_f, n_i: the scene table's float and int32 words; warp: the design (1
+// a warp a ray, 0 a thread a ray).  Refuses (cudaErrorInvalidValue) a
+// table that does not fit a thread block's shared memory: within 192
+// leaves it always fits.
+int actinon_shadow(const float* sf, const int* si, int n_f, int n_i,
+                   const float* p, const float* d, const float* lim,
+                   uint8_t* out, int n, float eps, int warp, void* stream) {
+    const size_t shared = scene_shared_bytes(n_f, n_i);
+    const int rc = warp ? shared_ok(shadow_warp_kernel, shared)
+                        : shared_ok(shadow_kernel, shared);
+    if (rc != 0) return rc;
+    if (warp)
+        shadow_warp_kernel<<<grid_of(n, kShadowWarps), kShadowWarps * 32,
+                             shared, (cudaStream_t)stream>>>(
+            sf, si, n_f, n_i, p, d, lim, out, n, eps);
+    else
+        shadow_kernel<<<grid_of(n, kShadowThreads), kShadowThreads, shared,
+                        (cudaStream_t)stream>>>(
+            sf, si, n_f, n_i, p, d, lim, out, n, eps);
     return (int)cudaGetLastError();
 }
 
@@ -658,13 +1043,8 @@ int actinon_nee(const float* sf, const int* si, int n_f, int n_i,
                 const float* ray_prj, const uint32_t* rv, const int* ns,
                 float* out, int n, float eps, void* stream) {
     const size_t shared = nee_shared_bytes(n_f, n_i, n_lights);
-    if (shared > kMaxShared) return (int)cudaErrorInvalidValue;
-    if (shared > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            nee_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)shared);
-        if (e != cudaSuccess) return (int)e;
-    }
+    const int rc = shared_ok(nee_kernel, shared);
+    if (rc != 0) return rc;
     nee_kernel<<<grid_of(n, kNeeWarps), kNeeWarps * 32, shared,
                  (cudaStream_t)stream>>>(
         sf, si, n_f, n_i, lf, li, n_lights, cap, pos, surf_d, di, cos_ti,

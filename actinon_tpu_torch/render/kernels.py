@@ -7,7 +7,8 @@ kernels live in `csrc/trace_kernels.cu`:
   * `nee`        (K1) — the whole per-light next-event-estimation loop
     of a lane; replaces `pallas_kernels.build_nee_kernel`;
   * `shadow_any_hit` (K2) — any matter hit within a limit; replaces
-    `pallas_kernels.build_shadow_kernel`;
+    `pallas_kernels.build_shadow_kernel`; two designs, a warp a ray up to
+    SHADOW_WARP_MAX_RAYS rays and a thread a ray above (`shadow_launch`);
   * `object_hit` (K3) — the eps-backed first hit of one object; replaces
     `pallas_kernels.build_object_hit_kernel`.
 
@@ -19,7 +20,8 @@ leaf/composite table of K1-K3, not the packed table of the scene kernels
 K4/K5 in `render/scene_kernels.py`) that every thread of a warp reads in
 step.  K1 takes one warp per NEE lane, its (light, sample) pairs across
 the warp, NEE_CHUNK samples of each light at a time, and copies both
-tables into shared memory once per thread block (`nee_launch`).
+tables into shared memory once per thread block (`nee_launch`); K2 copies
+the scene table there too.
 Composites with SDF leaves lie outside this coverage, as in the JAX
 package.  The library of all the port's kernels
 (this module's, `scene_kernels`' K4/K5, `bigscene`'s K6/K7 and
@@ -49,9 +51,11 @@ import torch
 
 MAX_COMP_COLS = 64        # composite size cap of the crossing walk
 
-# launches per kernel (a launch of the wrapper's kernel adds one; K7's
-# launches also count by design, "big_anyhit_warp" and "big_anyhit_thread")
-LAUNCHES: Dict[str, int] = {"nee": 0, "shadow": 0, "object_hit": 0,
+# launches per kernel (a launch of the wrapper's kernel adds one; K2's and
+# K7's launches also count by design: "shadow_warp", "shadow_thread",
+# "big_anyhit_warp" and "big_anyhit_thread")
+LAUNCHES: Dict[str, int] = {"nee": 0, "shadow": 0, "shadow_warp": 0,
+                            "shadow_thread": 0, "object_hit": 0,
                             "scene_top2": 0, "scene_anyhit": 0,
                             "big_top2": 0, "big_anyhit": 0,
                             "big_anyhit_warp": 0, "big_anyhit_thread": 0,
@@ -70,6 +74,22 @@ NEE_WARPS = 4         # K1: NEE lanes (one warp each) a thread block; must
                       # match kNeeWarps of csrc/trace_kernels.cu
 NEE_CHUNK = 32        # K1: samples of each light a warp's shared slice
                       # holds at a time; must match kNeeChunk
+SHADOW_WARPS = 4      # K2, warp design: rays (one warp each) a block;
+                      # must match kShadowWarps
+SHADOW_THREADS = 128  # K2, thread design: rays a block; kShadowThreads
+# K2 takes the warp design up to this many rays, the thread design above.
+# A warp a ray spreads a ray's objects and crossing columns over 32
+# lanes, so a small batch finishes in about one ray's parallel walk; a
+# thread a ray runs a fraction of the instructions per ray, and wins
+# once the batch fills the card.  On an H100 (700 W; chip_smoke.py's "k2
+# sweep" lines, both designs in turns on rays spread evenly over the
+# counter render's 40,960-ray batch and over the synthetic batch): the
+# warp design won at 1,024 to 20,480 rays on both (the render's rays,
+# 5,120: 0.0060 against 0.0121 ms; 20,480: 0.0111 against 0.0124), the
+# thread design from 30,720 up (40,960: 0.0125 against 0.0199; the
+# synthetic 327,680: 0.0543 against 0.1519).  20,480 is the largest size
+# the warp design won on both.
+SHADOW_WARP_MAX_RAYS = 20480
 
 # table layout: must match csrc/trace_kernels.cu
 H_SIZE = 16
@@ -313,7 +333,8 @@ def _lib():
         if _LIB is None:
             lib = ctypes.CDLL(build())
             P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.actinon_shadow.argtypes = [P, P, P, P, P, P, I, F, P]
+            lib.actinon_shadow.argtypes = [P, P, I, I, P, P, P, P, I, F, I,
+                                           P]
             lib.actinon_object_hit.argtypes = [P, P, I, I, P, P, P, I, F, P]
             lib.actinon_nee.argtypes = [P, P, I, I, P, P, I, I, P, P, P, P,
                                         P, P, P, P, P, P, I, F, P]
@@ -356,6 +377,17 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+def _pad4(words: int) -> int:
+    return -(-words // 4) * 4
+
+
+def _table_shared_bytes(st) -> int:
+    """The scene table in a thread block's shared memory (K1, K2): its
+    floats, then its ints, each padded to 16 bytes (csrc/trace_kernels.cu
+    `scene_shared_bytes`)."""
+    return 4 * (_pad4(st.f.numel()) + _pad4(st.i.numel()))
+
+
 # ---------------------------------------------------------------------------
 # K2: shadow any-hit
 
@@ -369,23 +401,54 @@ def shadow_plain(tr, p, d, limit):
     return tr._shadow_plain(p, d, limit, exclude_oids=frozenset(out))
 
 
-def shadow_any_hit(tr, p, d, limit):
-    """blocked [N] bool: any covered matter hit within (., limit]."""
+def shadow_design(n: int) -> str:
+    """K2's design for a batch of n rays: "warp" or "thread"."""
+    return "warp" if n <= SHADOW_WARP_MAX_RAYS else "thread"
+
+
+def shadow_launch(tr, n: int, design=None) -> dict:
+    """K2's launch for n rays: the design (`shadow_design(n)` unless
+    given), threads and rays a thread block, the grid, and the dynamic
+    shared memory that holds the scene table's floats and ints, each
+    padded to 16 bytes (csrc/trace_kernels.cu `scene_shared_bytes`; at
+    most about 50 KB within the kernels' 192 leaves)."""
+    design = design or shadow_design(n)
+    per_block = SHADOW_WARPS if design == "warp" else SHADOW_THREADS
+    return dict(design=design,
+                threads=32 * per_block if design == "warp" else per_block,
+                rays_per_block=per_block, grid=-(-n // per_block),
+                shared_bytes=_table_shared_bytes(scene_table(tr)))
+
+
+def shadow_any_hit(tr, p, d, limit, design=None):
+    """blocked [N] bool: any covered matter hit within (., limit].
+    design: "warp" or "thread", by default `shadow_design(N)`; both give
+    the same booleans.  Raises where the scene table does not fit a
+    thread block's shared memory (never within the kernels' 192
+    leaves)."""
     if p.device.type == "cpu":
         return shadow_plain(tr, p, d, limit)
     N = p.shape[0]
     _check(p, (N, 3), torch.float32, "p")
     _check(d, (N, 3), torch.float32, "d")
     _check(limit, (N,), torch.float32, "limit")
+    design = design or shadow_design(N)
+    st = scene_table(tr)
+    shared = _table_shared_bytes(st)
+    if shared > SHARED_MAX:
+        raise ValueError(f"shadow: the scene table needs {shared} bytes of "
+                         f"shared memory, a thread block has {SHARED_MAX}")
     # torch.bool is one byte holding 0 or 1: the kernel writes it directly
     out = torch.empty((N,), dtype=torch.bool, device=p.device)
     if N == 0:
         return out
-    st = scene_table(tr)
     rc = _lib().actinon_shadow(st.f.data_ptr(), st.i.data_ptr(),
-                               p.data_ptr(), d.data_ptr(), limit.data_ptr(),
-                               out.data_ptr(), N, float(tr.eps), _stream())
+                               st.f.numel(), st.i.numel(), p.data_ptr(),
+                               d.data_ptr(), limit.data_ptr(),
+                               out.data_ptr(), N, float(tr.eps),
+                               int(design == "warp"), _stream())
     _launched("shadow", rc)
+    LAUNCHES[f"shadow_{design}"] += 1
     return out
 
 
@@ -439,10 +502,6 @@ def nee_plain(integ, pos, surf_d, di, cos_ti, on_a, on_b, ray_prj, rv, ns):
                             tr._object_hit_plain)
 
 
-def _pad4(words: int) -> int:
-    return -(-words // 4) * 4
-
-
 def nee_launch(integ) -> dict:
     """K1's launch geometry: threads and NEE lanes (one warp each) a
     thread block, and the dynamic shared memory that holds the scene and
@@ -454,10 +513,10 @@ def nee_launch(integ) -> dict:
     it stays below about 155 KB of a thread block's 227 KB."""
     st, lt = scene_table(integ.tr), light_table(integ)
     n = lt.n
-    words = (_pad4(st.f.numel()) + _pad4(st.i.numel()) + _pad4(n * LTF_SIZE)
-             + _pad4(n * LTI_SIZE) + NEE_WARPS * _pad4(n * NEE_CHUNK + 2 * n))
+    words = (_pad4(n * LTF_SIZE) + _pad4(n * LTI_SIZE)
+             + NEE_WARPS * _pad4(n * NEE_CHUNK + 2 * n))
     return dict(threads=32 * NEE_WARPS, lanes_per_block=NEE_WARPS,
-                shared_bytes=4 * words)
+                shared_bytes=_table_shared_bytes(st) + 4 * words)
 
 
 def nee(integ, pos, surf_d, di, cos_ti, on_a, on_b, ray_prj, rv, ns):

@@ -206,6 +206,58 @@ def tie_singles(ho, shape):
     return sc
 
 
+def face_tie_scene(ho):
+    """Composites whose leaves share a face, so that their crossings tie
+    exactly: a dome (a sphere of radius 1 and two coincident half-spaces
+    z <= 0.25 under &), a lens of two coincident spheres under &, and an
+    empty shell (a sphere less its own copy), beside a floor at z = -2 and
+    a sphere light above.  Every composite crosses the same surface twice
+    at one t, so a walk that toggled the two crossings apart would see a
+    flip inside the tie (the shell) or miss the joint one."""
+    sc = ho.Scene()
+    light = ho.Sphere(0.5)
+    light.move(ho.v3(0.0, 0.0, 8.0))
+    light.prp.radiance = 20.0
+    sc.push(light)
+    floor = ho.Plane()
+    floor.move(ho.v3(0.0, 0.0, -2.0))
+    sc.push(floor)
+    cut = ho.Plane()
+    cut.move(ho.v3(0.0, 0.0, 0.25))
+    parts = (ho.PairInside(ho.Sphere(1.0), ho.PairInside(cut, cut)),
+             ho.PairInside(ho.Sphere(0.75), ho.Sphere(0.75)),
+             ho.PairInside(ho.Sphere(0.5), ho.Neg(ho.Sphere(0.5))))
+    for x, comp in zip((-2.5, 0.0, 2.5), parts):
+        comp.move(ho.v3(x, 0.0, 0.0))
+        sc.push(comp)
+    return sc
+
+
+def wide_comp_scene(ho):
+    """A composite of 21 leaves, 42 crossing columns (past one warp's 32,
+    and past the walks' 16 in registers): a row of 20 overlapping spheres
+    of radius 0.3, 0.4 apart along x, under |, less a sphere of radius 0.5
+    at the row's middle; beside a floor and a sphere light."""
+    sc = ho.Scene()
+    light = ho.Sphere(0.5)
+    light.move(ho.v3(0.0, 0.0, 8.0))
+    light.prp.radiance = 20.0
+    sc.push(light)
+    floor = ho.Plane()
+    floor.move(ho.v3(0.0, 0.0, -2.0))
+    sc.push(floor)
+    row = ho.Sphere(0.3)
+    row.move(ho.v3(-3.8, 0.0, 0.0))
+    for k in range(1, 20):
+        s = ho.Sphere(0.3)
+        s.move(ho.v3(0.4 * k - 3.8, 0.0, 0.0))
+        row = ho.PairOutside(row, s)
+    hole = ho.Sphere(0.5)
+    hole.move(ho.v3(0.0, 0.0, 0.0))
+    sc.push(ho.PairInside(row, ho.Neg(hole)))
+    return sc
+
+
 def axis_rays(n, shape, seed):
     """n unit rays along the lattice axes, down the columns of sites of
     `shape` (a tenth of them half a cell off, between the columns), from

@@ -62,6 +62,80 @@ def test_shadow_kernel_matches_plain(integ):
     assert float((got == want).float().mean()) >= 0.998
 
 
+K2_SIZES = [1, 31, 33, 5120, 40960, 327680]
+
+
+@pytest.mark.parametrize("n", K2_SIZES)
+def test_shadow_designs_equal(integ, n):
+    """K2's two designs (a warp a ray, a thread a ray) give every ray the
+    same boolean, each meets the contract against the plain version, and
+    the wrapper counts the launch under the design it took."""
+    from actinon_tpu_torch.render import kernels
+    tr = integ.tr
+    p, d, lim = _rays(n, 100 + n % 97)
+    got = {}
+    for design in ("warp", "thread"):
+        before = dict(kernels.LAUNCHES)
+        got[design] = kernels.shadow_any_hit(tr, p, d, lim, design=design)
+        assert kernels.LAUNCHES[f"shadow_{design}"] == \
+            before[f"shadow_{design}"] + 1
+        assert kernels.LAUNCHES["shadow"] == before["shadow"] + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got["warp"], got["thread"])
+    want = kernels.shadow_plain(tr, p, d, lim)
+    for design in ("warp", "thread"):
+        assert float((got[design] == want).float().mean()) >= 0.998
+    if n > 1000:
+        assert bool(want.any()) and bool((~want).any())
+
+
+def test_shadow_launch_picks_design_by_size(integ):
+    """shadow_launch takes the warp design up to SHADOW_WARP_MAX_RAYS and
+    the thread design above, a thread block for each SHADOW_WARPS or
+    SHADOW_THREADS rays, and the default design is what the wrapper
+    counts, on each side of the threshold."""
+    from actinon_tpu_torch.render import kernels
+    tr = integ.tr
+    m = kernels.SHADOW_WARP_MAX_RAYS
+    for n, design in ((m, "warp"), (m + 1, "thread")):
+        launch = kernels.shadow_launch(tr, n)
+        assert launch["design"] == design == kernels.shadow_design(n)
+        per = launch["rays_per_block"]
+        assert launch["grid"] == -(-n // per)
+        assert launch["shared_bytes"] < kernels.SHARED_MAX
+        p, d, lim = _rays(n, 5)
+        before = dict(kernels.LAUNCHES)
+        kernels.shadow_any_hit(tr, p, d, lim)
+        other = "thread" if design == "warp" else "warp"
+        assert kernels.LAUNCHES[f"shadow_{design}"] == \
+            before[f"shadow_{design}"] + 1
+        assert kernels.LAUNCHES[f"shadow_{other}"] == \
+            before[f"shadow_{other}"]
+
+
+def test_shadow_refuses_shared_overflow(integ, monkeypatch):
+    """A scene table beyond a thread block's shared memory is refused, by
+    the wrapper and by the C launcher in both designs, and nothing
+    launches."""
+    from actinon_tpu_torch.render import kernels
+    tr = integ.tr
+    p, d, lim = _rays(64, 3)
+    st = kernels.scene_table(tr)
+    out = torch.empty((64,), dtype=torch.bool, device="cuda")
+    before = dict(kernels.LAUNCHES)
+    need = kernels.shadow_launch(tr, 64)["shared_bytes"]
+    monkeypatch.setattr(kernels, "SHARED_MAX", need - 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.shadow_any_hit(tr, p, d, lim)
+    for warp in (1, 0):
+        rc = kernels._lib().actinon_shadow(
+            st.f.data_ptr(), st.i.data_ptr(), 60000, st.i.numel(),
+            p.data_ptr(), d.data_ptr(), lim.data_ptr(), out.data_ptr(), 64,
+            float(tr.eps), warp, kernels._stream())
+        assert rc != 0
+    assert kernels.LAUNCHES == before
+
+
 @pytest.mark.parametrize("oid", [0, 1, 3])
 def test_object_hit_kernel_matches_plain(integ, oid):
     """Both lamps (a sphere and the enveloped ellipsoid) and the goblet."""

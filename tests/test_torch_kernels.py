@@ -12,9 +12,10 @@ the same contracts there.  Here csrc/trace_kernels.cu also compiles as
 host C++ (the shim of tests/test_torch_scene_kernels.py): K1's helpers
 run lane by lane as the warp kernel runs them (the (light, sample) pairs
 in strides of 32, each light's sum in sample order, the lights in light
-order, the samples through the warp's slice in chunks), and K2's
-kernel, whose shadow test stops at the first blocking object, thread by
-thread."""
+order, the samples through the warp's slice in chunks), K2's two designs
+(the thread design's walk ray by ray; the warp design's lanes in turn,
+its ballots and shuffles written out) against the plain shadow test bit
+for bit, and K3's walk against the plain object hit bit for bit."""
 
 import ctypes
 import os
@@ -36,6 +37,7 @@ from actinon_tpu_torch.render.tracer import Tracer as TTracer
 from actinon_tpu_torch.scene import ir as tsir
 from actinon_tpu_torch.scene import objects as tho
 
+import _torch_scenes as S
 from test_torch_scene_kernels import host_library
 
 SCENE = os.path.join(os.path.dirname(os.path.dirname(
@@ -183,7 +185,8 @@ def test_cpu_wrappers_launch_nothing(pair):
     kernels.shadow_any_hit(tt, torch.as_tensor(p), torch.as_tensor(d),
                            torch.full((8,), 5.0))
     kernels.object_hit(tt, 0, torch.as_tensor(p), torch.as_tensor(d))
-    assert kernels.LAUNCHES == {"nee": 0, "shadow": 0, "object_hit": 0,
+    assert kernels.LAUNCHES == {"nee": 0, "shadow": 0, "shadow_warp": 0,
+                                "shadow_thread": 0, "object_hit": 0,
                                 "scene_top2": 0, "scene_anyhit": 0,
                                 "big_top2": 0, "big_anyhit": 0,
                                 "big_anyhit_warp": 0,
@@ -227,7 +230,7 @@ extern "C" void host_nee(const float* sf, const int* si, const float* LF,
                          const float* ray_prj, const uint32_t* rv,
                          const int* ns_in, float* out, int n, float eps,
                          int chunk) {
-    const Scene S{sf, si};
+    const View V = view_of(Scene{sf, si});
     float* terms = new float[n_lights * chunk + 2 * n_lights];
     for (int i = 0; i < n; ++i) {
         const NeeLane N = load_nee_lane(i, pos, surf_d, di, cos_ti, on_a,
@@ -245,7 +248,7 @@ extern "C" void host_nee(const float* sf, const int* si, const float* LF,
                         const int li = k / m, j = k - li * m;
                         const float* lt = LF + li * LT_SIZE;
                         const int* lti = LI + li * LTI_SIZE;
-                        terms[k] = nee_sample(S, lt, lti,
+                        terms[k] = nee_sample(V, lt, lti,
                                               light_frame(lt, lti, N), N, li,
                                               j0 + j, cap, eps);
                     }
@@ -265,16 +268,95 @@ extern "C" void host_nee(const float* sf, const int* si, const float* LF,
 extern "C" long host_nee_shared_bytes(int n_f, int n_i, int n_lights) {
     return (long)nee_shared_bytes(n_f, n_i, n_lights);
 }
-// K2: one call per thread
-extern "C" void host_shadow(const float* sf, const int* si, const float* p,
-                            const float* d, const float* lim, uint8_t* out,
-                            int n, float eps) {
+// K3: one call per thread
+extern "C" void host_object_hit(const float* sf, const int* si, int kind,
+                                int idx, const float* p, const float* d,
+                                float* out, int n, float eps) {
     blockDim.x = 128;
     for (int b = 0; b < (n + 127) / 128; ++b)
         for (int t = 0; t < 128; ++t) {
             blockIdx.x = b; threadIdx.x = t;
-            shadow_kernel(Scene{sf, si}, p, d, lim, out, n, eps);
+            object_hit_kernel(Scene{sf, si}, kind, idx, p, d, out, n, eps);
         }
+}
+// K2, thread design: each ray's walk, as a thread of shadow_kernel runs it
+extern "C" void host_shadow(const float* sf, const int* si, const float* p,
+                            const float* d, const float* lim, uint8_t* out,
+                            int n, float eps) {
+    const View V = view_of(Scene{sf, si});
+    for (int i = 0; i < n; ++i)
+        out[i] = shadow_blocked(V, load_ray(p, d, i), read_limit(lim, i),
+                                eps) ? 1 : 0;
+}
+// K2, warp design: comp_blocks_warp with the warp's 32 lanes in turn, its
+// ballots and shuffles written out (lane j holds columns j and j + 32)
+static bool host_comp_blocks_warp(const View& V, int ci, const Ray& r,
+                                  float lim, float eps) {
+    const int* CI = V.comp_i + ci * CI_SIZE;
+    const int* rows = V.rows + CI[CI_ROWS];
+    const int nc = 2 * CI[CI_N];
+    float t[2][32];
+    bool in[2][32];
+    uint32_t kept[2] = {0u, 0u}, ins[2] = {0u, 0u};
+    for (int h = 0; h < 2; ++h)
+        for (int lane = 0; lane < 32; ++lane) {
+            t[h][lane] = finf();
+            in[h][lane] = false;
+            if (h == 0 || nc > 32)
+                warp_column(V, rows, nc, lane + 32 * h, r, t[h][lane],
+                            in[h][lane]);
+            if (column_kept(t[h][lane], lim, eps)) kept[h] |= 1u << lane;
+            if (in[h][lane] && !(lane & 1)) ins[h] |= 1u << lane;
+        }
+    if ((kept[0] | kept[1]) == 0) return false;
+    const uint32_t inside = even_bits(ins[0]) | (even_bits(ins[1]) << 16);
+    uint32_t pa[2][32] = {}, pb[2][32] = {};
+    for (int h2 = 0; h2 < 2; ++h2)
+        for (uint32_t m = kept[h2]; m; m &= m - 1) {
+            const int s = __builtin_ctz(m);
+            const float tc = t[h2][s];   // the shuffle from lane s
+            for (int lane = 0; lane < 32; ++lane)
+                for (int h = 0; h < 2; ++h)
+                    parity_step(tc, s + 32 * h2, t[h][lane], pa[h][lane],
+                                pb[h][lane]);
+        }
+    const int* prog = V.prog + CI[CI_PROG];
+    const int plen = CI[CI_PLEN];
+    bool any = false;   // the ballot of the lanes' flips
+    for (int lane = 0; lane < 32; ++lane)
+        for (int h = 0; h < 2; ++h)
+            any = any || (((kept[h] >> lane) & 1u)
+                          && column_flips(prog, plen, inside, pa[h][lane],
+                                          pb[h][lane]));
+    return any;
+}
+// shadow_blocked_warp: the singles 32 lanes a round, then the composites'
+// gates 32 a round and each that passes in order
+extern "C" void host_shadow_warp(const float* sf, const int* si,
+                                 const float* p, const float* d,
+                                 const float* lim, uint8_t* out, int n,
+                                 float eps) {
+    const View V = view_of(Scene{sf, si});
+    for (int i = 0; i < n; ++i) {
+        const Ray r = load_ray(p, d, i);
+        const float l = read_limit(lim, i);
+        bool blocked = false;
+        for (int k0 = 0; k0 < V.nss && !blocked; k0 += 32)
+            for (int lane = 0; lane < 32; ++lane)
+                blocked = blocked || (k0 + lane < V.nss
+                                      && single_hit(V, V.ss[k0 + lane], r,
+                                                    eps) <= l);
+        for (int k0 = 0; k0 < V.nsc && !blocked; k0 += 32) {
+            uint32_t pass = 0;
+            for (int lane = 0; lane < 32; ++lane)
+                if (k0 + lane < V.nsc && comp_gate(V, V.sc[k0 + lane], r))
+                    pass |= 1u << lane;
+            for (; pass && !blocked; pass &= pass - 1)
+                blocked = host_comp_blocks_warp(
+                    V, V.sc[k0 + __builtin_ctz(pass)], r, l, eps);
+        }
+        out[i] = blocked ? 1 : 0;
+    }
 }
 """
 
@@ -405,3 +487,221 @@ def test_shadow_cuda_source_on_host_matches_plain(pair, tmp_path):
     want = kernels.shadow_plain(tt, P, D, LIM)
     assert want.any() and (~want).any()
     assert torch.equal(out, want)
+
+
+# -- K2's two designs and K3's walk on the host ------------------------------
+
+SHADOW_DRIVERS = {"thread": "host_shadow", "warp": "host_shadow_warp"}
+
+
+@pytest.fixture(scope="module")
+def trace_lib(tmp_path_factory):
+    lib, src = host_library("trace_kernels.cu", HOST_DRIVER,
+                            tmp_path_factory.mktemp("trace"))
+    return lib, src
+
+
+def _host_shadow(lib, design, tr, p, d, lim):
+    st = kernels.scene_table(tr)
+    P, D, LIM = (torch.as_tensor(x) for x in (p, d, lim))
+    out = torch.empty((P.shape[0],), dtype=torch.bool)
+    getattr(lib, SHADOW_DRIVERS[design])(
+        _ptr(st.f), _ptr(st.i), _ptr(P), _ptr(D), _ptr(LIM), _ptr(out),
+        ctypes.c_int(P.shape[0]), ctypes.c_float(float(tr.eps)))
+    return out, kernels.shadow_plain(tr, P, D, LIM)
+
+
+def _aimed_rays(tt, n, seed):
+    """n rays over the glass_table scene, half of them aimed at the goblet
+    (whose envelope most of them then pass)."""
+    p, d = _rays(n, seed)
+    aim = np.array([0.0, 0.0, 1.5], np.float32) - p[: n // 2]
+    d[: n // 2] = aim / np.linalg.norm(aim, axis=-1, keepdims=True)
+    return p, d
+
+
+def _goblet(tt):
+    cov = kernels.coverage(tt)
+    return max(cov.comps, key=lambda c: len(c.rows))
+
+
+@pytest.mark.parametrize("design", list(SHADOW_DRIVERS))
+def test_shadow_designs_on_host_match_plain(pair, trace_lib, design):
+    """Each K2 design (the warp design lane by lane) gives shadow_plain's
+    boolean on every ray of the glass_table scene: random rays and rays
+    aimed at the goblet, random limits, every ninth limit 0."""
+    _, tt = pair
+    p, d = _aimed_rays(tt, 2048, 31)
+    lim = np.random.default_rng(37).uniform(0.1, 12.0, 2048).astype(
+        np.float32)
+    lim[::9] = 0.0
+    got, want = _host_shadow(trace_lib[0], design, tt, p, d, lim)
+    assert want.any() and (~want).any()
+    assert torch.equal(got, want)
+
+
+def _crossing_limits(tr, comp, p, d, seed):
+    """Per ray, fl(t - eps) of one of composite comp's finite forward
+    crossings (chosen at random; 0 where it has none), then each one ulp
+    below and above."""
+    cross, _, _ = tr._composite_crossings(comp, torch.as_tensor(p),
+                                          torch.as_tensor(d))
+    cross = cross.numpy()
+    fin = np.isfinite(cross)
+    pick = np.random.default_rng(seed).random(cross.shape) * fin
+    col = np.argmax(pick, axis=1)
+    t = cross[np.arange(len(p)), col]
+    at = np.where(fin.any(1), t - np.float32(tr.eps), 0).astype(np.float32)
+    return fin.any(1), (at, np.nextafter(at, np.float32(-np.inf)),
+                        np.nextafter(at, np.float32(np.inf)))
+
+
+@pytest.mark.parametrize("design", list(SHADOW_DRIVERS))
+def test_shadow_designs_on_host_exact_at_crossings(pair, trace_lib, design):
+    """Limits exactly at fl(t - eps) of a goblet crossing, and one ulp
+    below and above it: each K2 design equals shadow_plain on every ray
+    (the walks drop the columns past the limit, and keep every column
+    that can block)."""
+    _, tt = pair
+    p, d = _aimed_rays(tt, 1024, 41)
+    has, lims = _crossing_limits(tt, _goblet(tt), p, d, 43)
+    assert has.mean() > 0.3
+    flips = []
+    for lim in lims:
+        got, want = _host_shadow(trace_lib[0], design, tt, p, d, lim)
+        assert torch.equal(got, want)
+        flips.append(want.numpy())
+    # the ulp matters on some rays: the limits sit on the boundary
+    assert (flips[0] != flips[1]).any()
+
+
+@pytest.fixture(scope="module")
+def face_tie_tr():
+    return TTracer(tsir.compile_scene(S.face_tie_scene(tho)),
+                   dtype=np.float32, device="cpu")
+
+
+@pytest.mark.parametrize("design", list(SHADOW_DRIVERS))
+def test_shadow_designs_on_host_exact_on_face_ties(face_tie_tr, trace_lib,
+                                                   design):
+    """Composites whose leaves share a face (coincident half-spaces and
+    spheres under &, a sphere less its own copy): crossings tie exactly,
+    and each K2 design equals shadow_plain on every ray, at random limits
+    and at fl(t - eps) of each composite's crossings and one ulp either
+    side."""
+    tr = face_tie_tr
+    cov = kernels.coverage(tr)
+    assert len(cov.comps) == 3 and not cov.rest
+    rng = np.random.default_rng(47)
+    n = 1536
+    x = rng.choice(np.float32([-2.5, 0.0, 2.5]), n)
+    p = np.stack([x + rng.uniform(-0.9, 0.9, n),
+                  rng.uniform(-0.9, 0.9, n),
+                  rng.choice(np.float32([-1.5, 3.0]), n)], -1).astype(
+        np.float32)
+    d = np.zeros((n, 3), np.float32)
+    d[:, 2] = np.where(p[:, 2] > 0, -1.0, 1.0)
+    d[n // 2:] += rng.normal(0, 0.2, (n - n // 2, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rand = rng.uniform(0.1, 6.0, n).astype(np.float32)
+    lim_sets = [rand]
+    for k, comp in enumerate(cov.comps):
+        lim_sets += _crossing_limits(tr, comp, p, d, 53 + k)[1]
+    blocked = 0
+    for lim in lim_sets:
+        got, want = _host_shadow(trace_lib[0], design, tr, p, d, lim)
+        assert torch.equal(got, want)
+        blocked += int(want.sum())
+    assert 0 < blocked < n * len(lim_sets)
+
+
+@pytest.mark.parametrize("design", list(SHADOW_DRIVERS))
+def test_shadow_designs_on_host_exact_on_wide_composite(trace_lib, design):
+    """A composite of 21 leaves (42 columns: two a lane in the warp
+    design, local memory in the thread design): each K2 design equals
+    shadow_plain on every ray, at random limits and at fl(t - eps) of its
+    crossings and one ulp either side."""
+    tr = TTracer(tsir.compile_scene(S.wide_comp_scene(tho)),
+                 dtype=np.float32, device="cpu")
+    comp, = kernels.coverage(tr).comps
+    assert 2 * len(comp.rows) == 42
+    rng = np.random.default_rng(61)
+    n = 1024
+    p = np.stack([rng.uniform(-4.5, 4.5, n), rng.uniform(-3, 3, n),
+                  rng.uniform(2, 4, n)], -1).astype(np.float32)
+    aim = np.stack([rng.uniform(-4.0, 4.0, n), rng.uniform(-0.3, 0.3, n),
+                    rng.uniform(-0.3, 0.3, n)], -1).astype(np.float32)
+    # a quarter along the row, from either end; a quarter from inside a
+    # leaf (a row sphere, or the hole), in any direction
+    q = n // 4
+    p[2 * q:3 * q, 0] = rng.choice(np.float32([-5, 5]), q)
+    p[2 * q:3 * q, 2] = rng.uniform(-0.2, 0.2, q)
+    d = aim - p
+    p[3 * q:] = np.stack([0.4 * rng.integers(0, 20, n - 3 * q) - 3.8,
+                          np.zeros(n - 3 * q), np.zeros(n - 3 * q)], -1)
+    p[3 * q:] += rng.uniform(-0.15, 0.15, (n - 3 * q, 3))
+    d[3 * q:] = rng.normal(0, 1, (n - 3 * q, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    has, lims = _crossing_limits(tr, comp, p, d, 67)
+    assert has.mean() > 0.5
+    blocked = 0
+    for lim in (rng.uniform(0.1, 8.0, n).astype(np.float32),) + lims:
+        got, want = _host_shadow(trace_lib[0], design, tr, p, d, lim)
+        assert torch.equal(got, want)
+        blocked += int(want.sum())
+    assert 0 < blocked < 4 * n
+
+
+def _ieee_sqrt(x):
+    """f32 square root rounded once: the f64 root rounded to f32 (the
+    double rounding is exact for sqrt, 53 >= 2 * 24 + 2)."""
+    pos = x > 0
+    root = torch.sqrt(torch.where(pos, x, 1.0).double()).to(x.dtype)
+    return torch.where(pos, root, 0.0)
+
+
+def test_object_hit_on_host_bit_equal_goblet(pair, trace_lib, monkeypatch):
+    """K3 (the walk with its envelope gate first) gives object_hit_plain's
+    bits on the goblet, hits and misses alike.  The plain version takes
+    an IEEE square root here, as the kernel's sqrtf is on the card and the
+    host: torch's f32 sqrt on a CPU with AVX-512 can round to the other
+    neighbour (sqrt(0.84449768) to 0.91896552, where 0.91896558 is the
+    nearer), which moves a root by an ulp."""
+    _, tt = pair
+    lib, _ = trace_lib
+    from actinon_tpu_torch.render import tracer as ttracer
+    monkeypatch.setattr(ttracer, "safe_sqrt", _ieee_sqrt)
+    oid = _goblet(tt).oid
+    st = kernels.scene_table(tt)
+    p, d = (torch.as_tensor(x) for x in _aimed_rays(tt, 2048, 59))
+    out = torch.empty((2048,), dtype=torch.float32)
+    lib.host_object_hit(_ptr(st.f), _ptr(st.i), ctypes.c_int(1),
+                        ctypes.c_int(st.comp_index[oid]), _ptr(p), _ptr(d),
+                        _ptr(out), ctypes.c_int(2048),
+                        ctypes.c_float(float(tt.eps)))
+    want = kernels.object_hit_plain(tt, oid, p, d)
+    assert int(torch.isfinite(want).sum()) > 512
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+def test_shadow_launch_on_host(pair, trace_lib):
+    """K2's launch constants are the source's; the design flips at
+    SHADOW_WARP_MAX_RAYS; a thread block takes SHADOW_WARPS or
+    SHADOW_THREADS rays; the shared memory holds the padded table."""
+    _, tt = pair
+    src = trace_lib[1]
+    assert f"kShadowWarps = {kernels.SHADOW_WARPS};" in src
+    assert f"kShadowThreads = {kernels.SHADOW_THREADS};" in src
+    m = kernels.SHADOW_WARP_MAX_RAYS
+    warp = kernels.shadow_launch(tt, m)
+    thread = kernels.shadow_launch(tt, m + 1)
+    assert (warp["design"], thread["design"]) == ("warp", "thread")
+    assert warp["threads"] == 32 * warp["rays_per_block"]
+    assert thread["threads"] == thread["rays_per_block"]
+    st = kernels.scene_table(tt)
+    assert warp["shared_bytes"] == thread["shared_bytes"] == 4 * (
+        -(-st.f.numel() // 4) * 4 + -(-st.i.numel() // 4) * 4)
+    assert warp["grid"] == -(-m // kernels.SHADOW_WARPS)
+    assert thread["grid"] == -(-(m + 1) // kernels.SHADOW_THREADS)
+    assert kernels.nee_launch(TIntegrator(tt, batch=B))["shared_bytes"] \
+        > warp["shared_bytes"]
