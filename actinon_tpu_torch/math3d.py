@@ -171,7 +171,12 @@ def sphere_cap_sample(u_phi, u_z, h):
     (v3d_s_random_sphere_cap, reference src/vectors.h:197-206)."""
     phi = (2.0 * math.pi) * u_phi
     z = 1.0 - u_z * h
-    scale = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    # sqrt(max(x, 0)) whose gradient is 0, not infinite, where x <= 0 (at
+    # u_z = 0 the pole z = 1; the differentiable renderer takes the
+    # gradient with respect to h)
+    x = 1.0 - z * z
+    pos = x > 0
+    scale = torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
     return torch.stack([torch.sin(phi) * scale, torch.cos(phi) * scale,
                         z], dim=-1)
 

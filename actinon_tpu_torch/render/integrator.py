@@ -1,4 +1,4 @@
-"""Wavefront light-transport integrator (forward rendering).
+"""Wavefront light-transport integrator.
 
 PyTorch counterpart of the JAX package's `render/integrator.py`.  The
 reference integrator scene_s_lum (reference src/scene.c:420-667) is a
@@ -21,6 +21,12 @@ On a CUDA device in f32 the NEE of a position-seeded render runs as the
 hand-written NEE kernel (`render/kernels.py`) where the scene lies inside
 its coverage; SDF scenes take the plain NEE, whose shadow and light-hit
 queries go through the tracer's kernels (K5, K3).
+
+The differentiable renderer (`render/diff.py`) sets `ovr`, a dict of
+tensors keyed as `mat_params()`, whose values replace the material and
+light tables (autograd reaches them), and `edge_aware`, which adds the
+silhouette boundary term of the NEE visibility integral
+(`_nee_edge_terms`).
 """
 
 from __future__ import annotations
@@ -34,9 +40,10 @@ import torch
 from actinon_tpu_torch import math3d as m3
 from actinon_tpu_torch import rng as argn
 from actinon_tpu_torch.render import kernels
-from actinon_tpu_torch.render.tracer import (CHUNK, Tracer, _dot, _norm3,
-                                             _sphere_first_hit, safe_acos,
-                                             safe_sqrt)
+from actinon_tpu_torch.render.tracer import (CHUNK, INF, Tracer, _dot,
+                                             _norm3, _rows, _sphere_first_hit,
+                                             as_table, safe_acos, safe_sqrt,
+                                             same_ovr)
 from actinon_tpu_torch.scene import ir as sir
 
 F3_MAG = 1e30
@@ -91,6 +98,12 @@ class Integrator:
         # src/scene.c:537); "counter": from (sample_id, depth), frozen
         # randomness whose samples do not move with the scene
         self.seed_mode = "position"
+        # differentiable-path hooks (render/diff.py): `ovr` maps
+        # mat_params keys to tensors that replace the tables (autograd
+        # reaches them); `edge_aware` adds the NEE silhouette terms
+        self.ovr = {}
+        self.edge_aware = False
+        self._ovr_mats = None
         self._kernel_cache = {}
 
         ir = self.ir
@@ -172,27 +185,54 @@ class Integrator:
         self._dev = {n: torch.as_tensor(np.asarray(getattr(self, n)),
                                         dtype=dt, device=dev)
                      for n in _MAT_NAMES}
+        self._P = self._pack(self._dev)
+        self._kernel_cache.clear()
+
+    def _pack(self, t):
+        """The packed [O, 36] material table from the tables `t`
+        (torch.cat: autograd reaches the override tensors)."""
         O = len(self.ir.objects)
-        f = lambda a: torch.as_tensor(np.asarray(a, self.dtype), device=dev)
-        self._P = torch.cat([
-            self._dev["m_color"],                      # 0:3
-            self._dev["m_radiance"][:, None],          # 3
-            self._dev["m_rix"][:, None],               # 4
-            self._dev["m_fresnel"][:, None],           # 5
-            self._dev["m_chromatic"][:, None],         # 6
-            self._dev["m_diffuse"][:, None],           # 7
-            self._dev["m_sigma"][:, None],             # 8
-            self._dev["m_transp"],                     # 9:12
-            self._dev["m_pos"],                        # 12:15
-            self._dev["m_tex1"],                       # 15:18
-            self._dev["m_tex2"],                       # 18:21
+        f = lambda a: torch.as_tensor(np.asarray(a, self.dtype),
+                                      device=self.device)
+        return torch.cat([
+            t["m_color"],                              # 0:3
+            t["m_radiance"][:, None],                  # 3
+            t["m_rix"][:, None],                       # 4
+            t["m_fresnel"][:, None],                   # 5
+            t["m_chromatic"][:, None],                 # 6
+            t["m_diffuse"][:, None],                   # 7
+            t["m_sigma"][:, None],                     # 8
+            t["m_transp"],                             # 9:12
+            t["m_pos"],                                # 12:15
+            t["m_tex1"],                               # 15:18
+            t["m_tex2"],                               # 18:21
             f(self.m_texs)[:, None],                   # 21
             f(self.m_texk)[:, None],                   # 22
             f(self.m_projk)[:, None],                  # 23
             f(self.m_projp),                           # 24:27
             f(self.m_projr).reshape(O, 9),             # 27:36
         ], dim=1)
-        self._kernel_cache.clear()
+
+    def _mats(self):
+        """(tables by name, packed table): the device tables, or under
+        `ovr` the override tensors in their place, built once per `ovr`
+        (the same dict holding the same tensors; the differentiable
+        renderer drops them when its call ends)."""
+        if not self.ovr:
+            return self._dev, self._P
+        if self._ovr_mats is None or not same_ovr(self._ovr_mats[0],
+                                                  self.ovr):
+            t = dict(self._dev)
+            for k, v in self.ovr.items():
+                if k not in _MAT_NAMES:
+                    raise KeyError(k)
+                t[k] = as_table(v, self.tdtype, self.device)
+            self._ovr_mats = (dict(self.ovr), (t, self._pack(t)))
+        return self._ovr_mats[1]
+
+    def _mt(self, name):
+        """Material or light table `name`, with its override from `ovr`."""
+        return self._mats()[0][name]
 
     def mat_params(self):
         """The material and light tables as a dict of numpy arrays, with
@@ -214,9 +254,9 @@ class Integrator:
         return torch.as_tensor(x, dtype=self.tdtype, device=self.device)
 
     def _mat_lookup(self, oid_s):
-        """ALL per-object material fields for a lane batch: one row gather
-        from the packed [O, 36] table."""
-        Pw = self._P[oid_s]
+        """ALL per-object material fields for a lane batch: one row read
+        from the packed [O, 36] table (tracer._rows)."""
+        Pw, = _rows(oid_s, self._mats()[1])
         return dict(
             color=Pw[:, 0:3], radiance=Pw[:, 3], rix=Pw[:, 4],
             fresnel=Pw[:, 5], chromatic=Pw[:, 6], diffuse=Pw[:, 7],
@@ -306,7 +346,7 @@ class Integrator:
         depth, sid = q["depth"], q["sample_id"]
         B = p.shape[0]
         alive = intensity > 0
-        bg = self._dev["background"]
+        bg = self._mt("background")
 
         if mixed:
             is_path = q["kind"] == 1
@@ -486,10 +526,11 @@ class Integrator:
     # ------------------------------------------------------------------
 
     def _nee_kernel_ok(self):
-        """The fused NEE kernel applies: the tracer's kernel rules, a
-        position-seeded render, and a scene within the kernel's
-        coverage."""
-        return (self.tr._kernels_ok() and self.seed_mode == "position"
+        """The fused NEE kernel applies: the tracer's kernel rules, no
+        material overrides, a position-seeded render, and a scene within
+        the kernel's coverage."""
+        return (self.tr._kernels_ok() and not self.ovr
+                and self.seed_mode == "position"
                 and kernels.nee_supported(self))
 
     def _nee(self, pos, surf_d, di, gate, theta_i, on_a, on_b, ray_prj, rv):
@@ -504,9 +545,13 @@ class Integrator:
                 torch.cos(theta_i).contiguous(), on_a.contiguous(),
                 on_b.contiguous(), ray_prj.contiguous(),
                 argn.to_uint32(rv), ns.to(torch.int32))
-        return self._nee_plain(pos, surf_d, di, gate, theta_i, on_a, on_b,
-                               ray_prj, rv, ns, self.tr.shadow_blocked,
-                               self.tr.object_hit_t)
+        lum = self._nee_plain(pos, surf_d, di, gate, theta_i, on_a, on_b,
+                              ray_prj, rv, ns, self.tr.shadow_blocked,
+                              self.tr.object_hit_t)
+        if self.edge_aware:
+            lum = lum + self._nee_edge_terms(pos, surf_d, di, gate, theta_i,
+                                             on_a, on_b, ray_prj)
+        return lum
 
     def _nee_plain(self, pos, surf_d, di, gate, theta_i, on_a, on_b, ray_prj,
                    rv, ns, shadow, obj_hit):
@@ -529,10 +574,10 @@ class Integrator:
                 rv, ns, shadow)
         budget = self._flat_ray_budget()
         for li in legacy:
-            lpos = self._dev["l_pos"][li]
-            lrad = self._dev["l_rad"][li]
-            lr = self._dev["l_radius"][li]
-            lcol = self._dev["l_color"][li]
+            lpos = self._mt("l_pos")[li]
+            lrad = self._mt("l_rad")[li]
+            lr = self._mt("l_radius")[li]
+            lcol = self._mt("l_color")[li]
             if self.l_fov[li] == "plane":
                 # half-space cone (obj_plane_s_fov, reference
                 # src/objects.c:520-526): toward -normal; degenerate when
@@ -604,10 +649,10 @@ class Integrator:
         B = pos.shape[0]
         Le = len(idx)
         li = torch.as_tensor(np.asarray(idx, np.int64), device=dev)
-        lp = self._dev["l_pos"][li]                     # [Le,3]
-        lrad = self._dev["l_rad"][li]
-        lr = self._dev["l_radius"][li]
-        lcol = self._dev["l_color"][li]
+        lp = self._mt("l_pos")[li]                      # [Le,3]
+        lrad = self._mt("l_rad")[li]
+        lr = self._mt("l_radius")[li]
+        lcol = self._mt("l_color")[li]
 
         diff = lp[None] - pos[:, None]                 # [B,Le,3]
         dist2 = _dot(diff, diff)
@@ -669,6 +714,344 @@ class Integrator:
         if self.tr._scene_route_ok() and self.tr._prefer_scene_shadow():
             W = 64
         return min(1 << 20, (1 << 26) // W)
+
+    def _nee_edge_terms(self, pos, surf_d, di, gate, theta_i, on_a, on_b,
+                        ray_prj, K=32):
+        """Silhouette boundary term of the NEE visibility integral
+        (edge-aware gradients; the JAX integrator's `_nee_edge_terms`).
+
+        The NEE estimate of I = (1/pi) int_cap V(w) g(w) dw moves with the
+        occluders: V's discontinuity, the silhouette of each occluder as
+        seen from the shading point, carries the boundary term
+        -(1/pi) oint_C g(w) (nhat . dw/dtheta) sin(alpha) dphi.  Each of
+        K quadrature nodes on the silhouette contributes
+        g.detach() * speed.detach() * (nhat.detach() . w), whose value is
+        zero (nhat is tangent to the direction sphere at w) while its
+        gradient is the boundary integrand; the term adds to the radiance
+        as x - x.detach().
+
+        Occluders: single-leaf spheres (their silhouette circle), single-
+        leaf planes against sphere lights (the plane's rim circle on the
+        light), sphere and quadric leaves of CSG composites (nodes masked
+        to where the composite's blocking jumps), and ellipsoid and
+        cylinder quadrics (`_quadric_sil_nodes`).  Cones, hyperboloids and
+        SDF occluders stay interior-only (diff.edge_coverage_gaps)."""
+        dt, dev = self.tdtype, self.device
+        tr = self.tr
+        tab = tr.tab
+        B = pos.shape[0]
+        out = torch.zeros((B, 3), dtype=dt, device=dev)
+
+        # occluder inventory: (kind, a, b, composite or None) with the
+        # geometry read through the tracer's overrides
+        occs = []
+        if len(tab.sph_rows):
+            sph_c = tr._t("sph_c", tab.sph_c)
+            sph_r = tr._t("sph_r", tab.sph_r)
+        for i, row in enumerate(tab.sph_rows):
+            if tab.single[row] and not tab.is_light[row]:
+                occs.append(("sphere", sph_c[i], sph_r[i], None))
+        for row, key, fam in tab.comp_keys:
+            if fam != sir.SPHERE or tab.is_light[row]:
+                continue
+            occs.append(("sphere", tr._t(key + "c", -tab.m0[row]),
+                         tr._t(key + "r", np.sqrt(-tab.rr[row])),
+                         self._composite_of(row)))
+        if len(tab.pla_rows):
+            pla_n = tr._t("pla_n", tab.pla_n)
+            pla_k = tr._t("pla_k", tab.pla_k)
+        for i, row in enumerate(tab.pla_rows):
+            if tab.single[row] and not tab.is_light[row]:
+                occs.append(("plane", pla_n[i], pla_k[i], None))
+
+        def quad_sig(c2s, rrs):
+            c2s = np.asarray(c2s, float)
+            if (c2s > 0).all() and rrs < 0:
+                return ("ellipsoid", -1)
+            z = np.isclose(c2s, 0.0)
+            if z.sum() == 1 and (c2s[~z] > 0).all() and rrs < 0:
+                return ("cylinder", int(np.flatnonzero(z)[0]))
+            return (None, -1)
+
+        if len(tab.qua_rows):
+            qua = {k: tr._t(k, getattr(tab, k))
+                   for k in ("qua_m", "qua_m0", "qua_coef", "qua_r")}
+        for i, row in enumerate(tab.qua_rows):
+            if not tab.single[row] or tab.is_light[row]:
+                continue
+            sig, free = quad_sig(tab.c2[row], tab.rr[row])
+            if sig is not None:
+                occs.append(("quadric", dict(
+                    M=qua["qua_m"][i], m0=qua["qua_m0"][i],
+                    c2=qua["qua_coef"][i], rr=qua["qua_r"][i], sig=sig,
+                    free=free), None, None))
+        for row, key, fam in tab.comp_keys:
+            if fam != sir.QUADRIC or tab.is_light[row]:
+                continue
+            sig, free = quad_sig(tab.c2[row], tab.rr[row])
+            if sig is not None:
+                occs.append(("quadric", dict(
+                    M=tr._t(key + "m", tab.M[row]),
+                    m0=tr._t(key + "m0", tab.m0[row]),
+                    c2=tr._t(key + "coef", tab.c2[row]),
+                    rr=tr._t(key + "r", tab.rr[row]), sig=sig, free=free),
+                    None, self._composite_of(row)))
+        if not occs:
+            return out
+
+        phis = (np.arange(K) + 0.5) * (2.0 * np.pi / K)
+        cphi = self._as(np.cos(phis))
+        sphi = self._as(np.sin(phis))
+        s_sd, s_ti, s_pos = surf_d.detach(), theta_i.detach(), pos.detach()
+        fp = s_pos[:, None, :].expand(B, K, 3).reshape(B * K, 3)
+        tilt = 1e-3    # predicate probe angle off the curve
+
+        def detached(fn, *args):
+            """A plain forward tracer query: overrides and AD off."""
+            saved = tr.ovr, tr.diff
+            tr.ovr, tr.diff = {}, False
+            try:
+                return fn(*args)
+            finally:
+                tr.ovr, tr.diff = saved
+
+        for li in range(self.n_lights):
+            exact = self.l_sphere_exact[li]
+            lpos = self._mt("l_pos")[li]
+            lrad = self._mt("l_rad")[li]
+            lr = self._mt("l_radius")[li]
+            lcol = self._mt("l_color")[li]
+            s_lpos, s_lr = lpos.detach(), lr.detach()
+            if self.l_fov[li] == "plane":
+                fov_d = (-self._as(self.l_plane_n[li])).expand(s_pos.shape)
+                cos_rs = torch.where(_dot(s_lpos - s_pos, fov_d) > 0,
+                                     0.0, 1.0).to(dt)
+            else:
+                cpos = s_lpos if exact else self._as(self.l_cone_pos[li])
+                ldiff = cpos - s_pos
+                ldist2 = _dot(ldiff, ldiff)
+                fov_d = _norm3(ldiff)
+                r2 = s_lr * s_lr
+                cos_rs = torch.where(
+                    ldist2 > r2,
+                    safe_sqrt(1.0 - r2 / torch.where(ldist2 > 0, ldist2,
+                                                     1.0)), -1.0)
+
+            def light_a(wd, exact=exact, s_lpos=s_lpos, s_lr=s_lr,
+                        oid=self.l_oid[li]):
+                """Light first hit along detached directions [B,K,3]."""
+                if exact:
+                    return self._sphere_hit(s_lpos, s_lr, s_pos[:, None, :],
+                                            wd)
+                return detached(tr.object_hit_t, oid, fp,
+                                wd.reshape(B * K, 3)).reshape(B, K)
+
+            for okind, oa, ob, comp in occs:
+                if okind == "sphere":
+                    c, r = oa, ob
+                    rel = c - pos
+                    dist = safe_sqrt(_dot(rel, rel))
+                    ok0 = (dist > r) & (r > 0) & gate
+                    sin_a = torch.clamp(
+                        r / torch.where(dist > 0, dist, 1.0), 0.0, 1.0)
+                    cos_a = safe_sqrt(1.0 - sin_a * sin_a)
+                    u = _norm3(rel)
+                    fr = self._conz_t(u)                # cols e1, e2, u
+                    circ = (cphi[None, :, None] * fr[:, None, :, 0]
+                            + sphi[None, :, None] * fr[:, None, :, 1])
+                    w_dir = (cos_a[:, None, None] * u[:, None, :]
+                             + sin_a[:, None, None] * circ)
+                elif okind == "quadric":
+                    w_dir, ok0 = self._quadric_sil_nodes(oa, pos, gate,
+                                                         cphi, sphi)
+                else:
+                    if not exact:
+                        # the half-space's discontinuity curve is its rim
+                        # on the light sphere: sphere lights only
+                        continue
+                    nvec, koff = oa, ob
+                    nn = safe_sqrt(_dot(nvec, nvec))
+                    nn_s = torch.where(nn > 0, nn, 1.0)
+                    nh = nvec / nn_s
+                    s_l = torch.sum(nh * lpos) + koff / nn_s
+                    rc2 = lr * lr - s_l * s_l
+                    ok0 = (rc2 > 0) & gate              # plane cuts light
+                    rc = safe_sqrt(torch.clamp(rc2, min=0.0))
+                    q0 = lpos - s_l * nh                # rim centre
+                    frp = self._conz_t(nh[None, :])[0]  # cols e1, e2, nh
+                    xk = q0[None, :] + rc * (cphi[:, None] * frp[None, :, 0]
+                                             + sphi[:, None] * frp[None, :, 1])
+                    w_dir = _norm3(xk[None, :, :] - pos[:, None, :])
+
+                wd = w_dir.detach()                     # [B,K,3]
+                # the curve's tangent, speed and in-sphere normal from the
+                # node ring (central differences)
+                dwd = 0.5 * (torch.roll(wd, -1, dims=1)
+                             - torch.roll(wd, 1, dims=1))
+                speed = torch.sqrt(torch.sum(dwd * dwd, -1)) \
+                    * (K / (2.0 * np.pi))
+                mh = _norm3(m3.cross(wd, _norm3(dwd)))
+
+                def blocked(w, okind=okind, oa=oa, ob=ob, comp=comp):
+                    """This occluder alone blocks the light along detached
+                    directions w [B,K,3]."""
+                    a = light_a(w)
+                    a_inf = torch.where(torch.isfinite(a), a, INF)
+                    if okind == "plane":
+                        nv, kv = oa.detach(), ob.detach()
+                        sp = (torch.sum(nv[None, :] * s_pos, -1) + kv)
+                        den = torch.sum(w * nv, -1)
+                        t_pl = -sp[:, None] / torch.where(den != 0, den, 1.0)
+                        return (den != 0) & (t_pl > 0) & (t_pl < a_inf)
+                    if okind == "quadric" and comp is None:
+                        t_oc = self._quadric_first_hit(oa, s_pos, w)
+                        return torch.isfinite(t_oc) & (t_oc < a_inf)
+                    if comp is None:
+                        t_oc = self._sphere_hit(oa.detach(), ob.detach(),
+                                                s_pos[:, None, :], w)
+                        return torch.isfinite(t_oc) & (t_oc < a_inf)
+                    # composite: its detached boundary query
+                    return detached(tr._shadow_composite, comp, fp,
+                                    w.reshape(B * K, 3),
+                                    a_inf.reshape(B * K)).reshape(B, K)
+
+                # orient mh toward the unblocked side, and demand a jump
+                # across the node (blocked inside, clear outside)
+                b_hi = blocked(_norm3(wd + tilt * mh))
+                b_lo = blocked(_norm3(wd - tilt * mh))
+                mh = torch.where((b_hi & ~b_lo)[..., None], -mh, mh)
+                jump = b_hi ^ b_lo
+
+                w_cos = _dotk(wd, s_sd)
+                g_on = torch.where(
+                    (on_b > 0)[:, None],
+                    self._oren_nayar_b(w_cos, s_ti, on_a.detach(),
+                                       on_b.detach(), wd, s_sd,
+                                       ray_prj.detach()), w_cos)
+                a = light_a(wd)
+                fin = torch.isfinite(a)
+                in_cap = _dotk(wd, fov_d.detach()) >= cos_rs.detach()[:, None]
+                a_safe = torch.where(fin, a, 0.0)
+                hitp = s_pos[:, None, :] + wd * a_safe[..., None]
+                dsq = torch.sum((hitp - s_lpos) ** 2, -1)
+                loc = torch.where(dsq > 0, lrad.detach()
+                                  / torch.where(dsq > 0, dsq, 1.0), F3_MAG)
+                g = torch.where(ok0[:, None] & fin & in_cap & jump
+                                & (w_cos > 0),
+                                loc * g_on * di.detach()[:, None], 0.0)
+                x = -(2.0 / K) * torch.sum(
+                    g.detach() * speed * torch.sum(mh * w_dir, -1), dim=1)
+                xr = lcol.detach()[None, :] * x[:, None]
+                out = out + (xr - xr.detach())
+        return out
+
+    def _composite_of(self, row):
+        """The composite that owns unified leaf row `row`."""
+        oid = self.tr.tab.oid[row]
+        return next(cp for cp in self.tr.composites if cp.oid == oid)
+
+    def _quadric_sil_nodes(self, qd, pos, gate, cphi, sphi):
+        """Silhouette quadrature nodes of a quadric occluder seen from
+        `pos` [B,3]: directions w(phi) [B,K,3] (with autograd) and their
+        validity.  The silhouette of {y: sum c2_i y_i^2 + rr = 0}, y =
+        M x + m0, is closed-form after the map z_i = y_i sqrt(c2_i / -rr)
+        that makes the surface a unit one: for an ellipsoid (all c2 > 0)
+        the sphere silhouette circle of the mapped viewpoint, mapped back;
+        for a cylinder (one c2 = 0) the two tangent generator lines,
+        K/2 nodes each at view angles that crowd near the shading point."""
+        dt, dev = self.tdtype, self.device
+        B = pos.shape[0]
+        K = cphi.shape[0]
+        M, m0, c2, rr = qd["M"], qd["m0"], qd["c2"], qd["rr"]
+        Minv = torch.linalg.inv(M)
+        yp = pos @ M.T + m0[None, :]                   # [B,3] local
+        side = torch.sum(c2[None, :] * yp * yp, -1) + rr
+        if qd["sig"] == "ellipsoid":
+            scale = safe_sqrt(c2 / torch.clamp(-rr, min=1e-30))
+            zp = yp * scale[None, :]
+            zl = safe_sqrt(_dot(zp, zp))
+            ok0 = (zl > 1.0) & (side > 0) & gate
+            zl_s = torch.where(zl > 0, zl, 1.0)
+            cos_a = torch.clamp(1.0 / zl_s, 0.0, 1.0)
+            sin_a = safe_sqrt(1.0 - cos_a * cos_a)
+            u = zp / zl_s[:, None]
+            fr = self._conz_t(u)
+            circ = (cphi[None, :, None] * fr[:, None, :, 0]
+                    + sphi[None, :, None] * fr[:, None, :, 1])
+            zphi = (cos_a[:, None, None] * u[:, None, :]
+                    + sin_a[:, None, None] * circ)     # [B,K,3]
+            yphi = zphi / scale[None, None, :]
+            xphi = (yphi - m0[None, None, :]) @ Minv.T
+            return _norm3(xphi - pos[:, None, :]), ok0
+        free = qd["free"]
+        ij = [k for k in range(3) if k != free]
+        s2 = safe_sqrt(c2[ij] / torch.clamp(-rr, min=1e-30))    # [2]
+        q2 = yp[:, ij] * s2[None, :]                   # [B,2]
+        ql = safe_sqrt(_dot(q2, q2))
+        ok0 = (ql > 1.0) & (side > 0) & gate
+        ql_s = torch.where(ql > 0, ql, 1.0)
+        cos_a = torch.clamp(1.0 / ql_s, 0.0, 1.0)
+        sin_a = safe_sqrt(1.0 - cos_a * cos_a)
+        qhat = q2 / ql_s[:, None]
+        qperp = torch.stack([-qhat[:, 1], qhat[:, 0]], -1)
+        Kh = K // 2
+        th = (torch.arange(Kh, dtype=dt, device=dev) + 0.5) / Kh * math.pi \
+            - math.pi / 2
+        tanth = torch.tan(th)                          # [Kh]
+        axis_x = _norm3(Minv[:, free])                 # free axis in x
+        ws = []
+        for sgn in (1.0, -1.0):
+            T2 = cos_a[:, None] * qhat + sgn * sin_a[:, None] * qperp
+            cols = [None] * 3
+            cols[ij[0]] = T2[:, 0] / s2[0]
+            cols[ij[1]] = T2[:, 1] / s2[1]
+            cols[free] = yp[:, free]
+            x0 = (torch.stack(cols, -1) - m0[None, :]) @ Minv.T
+            base = x0 - pos
+            dist = safe_sqrt(_dot(base, base))
+            xk = x0[:, None, :] + (dist[:, None] * tanth[None, :])[..., None] \
+                * axis_x[None, None, :]                # [B,Kh,3]
+            ws.append(_norm3(xk - pos[:, None, :]))
+        return torch.cat(ws, dim=1), ok0
+
+    def _quadric_first_hit(self, qd, p, w):
+        """Detached first hit of one quadric along directions w [B,K,3]
+        (the quadric family's root policy)."""
+        M, m0, c2, rr = (qd[k].detach() for k in ("M", "m0", "c2", "rr"))
+        pl = (p @ M.T + m0[None, :])[:, None, :]       # [B,1,3]
+        dl = torch.einsum("bki,ji->bkj", w, M)         # [B,K,3]
+        A = torch.sum(c2 * dl * dl, -1)
+        Bq = 2.0 * torch.sum(c2 * dl * pl, -1)
+        Cq = torch.sum(c2 * pl * pl, -1) + rr
+        is_q = A != 0
+        sA = torch.where(is_q, A, 1.0)
+        s = (Bq * 0.5) / sA
+        q = Cq / sA
+        disc = s * s - q
+        ok = is_q & (disc >= 0)
+        root = safe_sqrt(torch.where(ok, disc, 0.0))
+        lin_nz = Bq != 0
+        t_lin = torch.where(lin_nz, -Cq / torch.where(lin_nz, Bq, 1.0), INF)
+        t0 = torch.where(is_q, torch.where(ok, -s - root, INF), t_lin)
+        t1 = torch.where(is_q & ok, -s + root, INF)
+        a = torch.where(t0 >= 0, t0, torch.where(t1 >= 0, t1, INF))
+        return torch.where(torch.isfinite(a), a - self.tr.eps, INF)
+
+    def _oren_nayar(self, weight, theta_i, on_a, on_b, out_d, nor, ray_prj):
+        """Oren-Nayar weighting of one sample per lane (reference
+        src/scene.c:394-416)."""
+        theta_r = safe_acos(weight)
+        proj = _norm3(out_d - nor * _dot(out_d, nor)[:, None])
+        cos_phi = -_dot(proj, ray_prj)
+        tan_arg = torch.clamp(torch.minimum(theta_i, theta_r),
+                              max=math.pi / 2 - 1e-6)
+        return weight * (on_a + on_b * torch.clamp(cos_phi, min=0.0)
+                         * torch.sin(torch.maximum(theta_i, theta_r))
+                         * torch.tan(tan_arg))
+
+    def _sphere_hit(self, c, r, p, d):
+        """Exact sphere first hit, eps-backed (the NEE light hit)."""
+        return _sphere_first_hit(c, r, p, d, self.tr.eps)
 
     def _conz_t(self, v):
         """transposed(con_z(v)): columns = orthonormal frame with z // v

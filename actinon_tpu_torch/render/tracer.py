@@ -1,7 +1,6 @@
 """Vectorized ray-scene intersection over the compiled Scene IR.
 
-PyTorch counterpart of the JAX package's `render/tracer.py` (forward
-rendering; the differentiable overrides belong to a later slice).  Every
+PyTorch counterpart of the JAX package's `render/tracer.py`.  Every
 analytic leaf surface — half-space, sphere, quadric — is one row of a
 unified *generalized quadric* table
 
@@ -12,6 +11,14 @@ two roots of A t^2 + B t + C = 0 for all leaves at once, the family root
 policies (reference src/gmath.h:38-97, src/objects.c:791-801), a
 crossing-parity walk for CSG composites, and one global top-2 merge.
 Normals are rebuilt for the winners only: grad side = (2 c2 y + c1) M.
+
+The differentiable renderer (`render/diff.py`) sets `ovr`, a dict of
+tensors keyed as `geom_params()`: the queries then read leaf tables that
+`_assemble` builds from them, so autograd reaches every override.  With
+`diff` set, the SDF marches run on detached rays and a standalone SDF
+hit is reattached by one Newton step of its implicit function.  Under
+either, every query takes the plain torch path, as the JAX package
+turns its Pallas routes off under traced overrides and AD.
 
 Distance (SDF) leaves are marched: a standalone SDF object by one
 bidirectional sphere march (reference src/objects.c:903-959), an SDF leaf
@@ -113,6 +120,22 @@ def _sphere_first_hit(c, r, p, d, eps):
     return torch.where(ok, a - eps, INF)
 
 
+def as_table(v, dtype, device):
+    """An override value as a table tensor: a tensor keeps its autograd
+    graph; an array or number is copied."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(v, numpy_dtype(dtype)), dtype=dtype,
+                           device=device)
+
+
+def same_ovr(saved, ovr) -> bool:
+    """`saved`, a copy of an override dict, holds the very objects that
+    `ovr` holds now (tables built from it are still current)."""
+    return saved.keys() == ovr.keys() and all(
+        ovr[k] is v for k, v in saved.items())
+
+
 @dataclasses.dataclass
 class _BigScene:
     """The sphere blocks of K6/K7 and their device tensors: the block
@@ -124,14 +147,50 @@ class _BigScene:
     rows_padded: torch.Tensor
 
 
+def _min_idx(a, dim, keepdim=False):
+    """(min, argmin) over `dim`; ties take the first index.  A tensor that
+    needs a gradient takes `amin`, whose backward shares the gradient
+    among tied entries as `jnp.min`'s does (torch.min gives it to one)."""
+    if a.requires_grad:
+        return (torch.amin(a, dim=dim, keepdim=keepdim),
+                torch.argmin(a, dim=dim, keepdim=keepdim))
+    return torch.min(a, dim=dim, keepdim=keepdim)
+
+
+ONE_HOT_ROWS = 64   # tables up to this many rows: one-hot row lookups
+                    # under autograd (the JAX tracer's L <= 64 rule)
+
+
+def _rows(idx, *tabs):
+    """tab[idx] for each of `tabs` (row-aligned tables).  Under autograd a
+    small table is read through one one-hot product, as the JAX package
+    reads it: the backward is then one matmul, where a gather's backward
+    sums thousands of duplicate rows one by one (CUDA's deterministic
+    index_put).  The one-hot product is exact: each output is one row
+    times 1 plus zeros."""
+    n = tabs[0].shape[0]
+    if not (any(t.requires_grad for t in tabs) and n <= ONE_HOT_ROWS):
+        return tuple(t[idx] for t in tabs)
+    flat = torch.cat([t.reshape(n, -1) for t in tabs], dim=1)
+    oh = (idx[..., None] == torch.arange(n, device=idx.device)).to(
+        flat.dtype)
+    got = torch.matmul(oh, flat)
+    out, k = [], 0
+    for t in tabs:
+        w = int(np.prod(t.shape[1:], dtype=np.int64))
+        out.append(got[..., k:k + w].reshape(idx.shape + t.shape[1:]))
+        k += w
+    return tuple(out)
+
+
 def _top2_cols(a):
     """Smallest and second-smallest over the last axis of [R, K] (K >= 1).
     Returns (vals [R,2], idx [R,2]); ties take the first column."""
     K = a.shape[1]
-    t1, i1 = torch.min(a, dim=1)
+    t1, i1 = _min_idx(a, 1)
     cols = torch.arange(K, device=a.device)
     a2 = torch.where(cols[None, :] == i1[:, None], INF, a)
-    t2, i2 = torch.min(a2, dim=1)
+    t2, i2 = _min_idx(a2, 1)
     return torch.stack([t1, t2], dim=1), torch.stack([i1, i2], dim=1)
 
 
@@ -481,21 +540,23 @@ class Tracer:
     transition / shadow queries on one device."""
 
     def __init__(self, ir: sir.SceneIR, dtype=np.float32, eps=None,
-                 device="cuda"):
+                 device="cuda", use_kernels=True):
         self.ir = ir
         self.dtype = numpy_dtype(dtype)
         self.tdtype = torch_dtype(dtype)
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and self.dtype != np.float32:
+        if self.device.type == "cuda" and self.dtype != np.float32 \
+                and use_kernels:
             raise ValueError(
                 "CUDA renders run in float32: the trace kernels are f32, "
-                "as the Pallas kernels are; use dtype=float32 or "
-                "device='cpu'")
+                "as the Pallas kernels are; use dtype=float32, "
+                "device='cpu', or use_kernels=False (the plain path)")
         self.eps = eps if eps is not None else \
             (1e-6 if self.dtype == np.float64 else 1e-4)
         # counterpart of the JAX tracer's `use_pallas`: False keeps every
-        # query on the plain PyTorch path (set only by A/B comparisons)
-        self.use_kernels = True
+        # query on the plain PyTorch path (A/B comparisons, and f64 on a
+        # card)
+        self.use_kernels = use_kernels
         # counterpart of the JAX tracer's `use_scene_interpret`: tests set
         # it to take the scene-kernel route on a CPU tracer, where the
         # kernels' wrappers run their plain versions
@@ -503,6 +564,14 @@ class Tracer:
         # counterpart of the JAX tracer's `use_bigscene_interpret`: tests
         # set it to take the big-scene route (K6, K7) on a CPU tracer
         self.bigscene_on_cpu = False
+        # differentiable-path hooks (render/diff.py): `ovr` maps
+        # geom_params keys to tensors that replace the scene's own values
+        # in the queries (autograd reaches them); `diff` marches the SDF
+        # leaves on detached rays and reattaches standalone SDF hits
+        # through their implicit function
+        self.ovr = {}
+        self.diff = False
+        self._ovr_tabs = None
 
         self.n_obj = len(ir.objects)
         self.is_light = np.array([o.is_light for o in ir.objects], bool)
@@ -658,9 +727,11 @@ class Tracer:
         tracer's `_assemble` with `ovr` set: the family arrays are written
         first, then the per-leaf composite keys.  The `sdfs{i}_*` keys
         replace the standalone SDF objects' frames and parameters (the
-        JAX package reads them in its differentiable renderer only; the
-        port, forward-only so far, renders with them).  The kernels'
-        tables are rebuilt from the new values at their next use."""
+        JAX package reads them in its differentiable renderer only; a
+        forward render here marches with them).  This is the numpy route
+        of forward renders; the differentiable renderer passes tensors
+        through `ovr` instead.  The kernels' tables are rebuilt from the
+        new values at their next use."""
         t = self.tab
         dt = self.dtype
         self._geom_ovr = {k: np.asarray(v, dt) for k, v in params.items()}
@@ -708,12 +779,77 @@ class Tracer:
     def _as(self, x):
         return torch.as_tensor(x, dtype=self.tdtype, device=self.device)
 
+    # -- differentiable table access ------------------------------------------
+
+    def _traced(self) -> bool:
+        """Overrides or AD are on: the queries stay on the plain path."""
+        return bool(self.ovr) or self.diff
+
+    def _t(self, name, value):
+        """Table read with an optional override from `ovr` (a tensor keeps
+        its autograd graph)."""
+        o = self.ovr.get(name)
+        return as_table(value if o is None else o, self.tdtype, self.device)
+
+    def _assemble(self):
+        """The (M, m0, c2, c1, rr) leaf tables built from the `ovr`
+        tensors, in the order of writes of set_geom (the JAX tracer's
+        `_assemble`): the family arrays first, then the per-leaf composite
+        keys.  Out-of-place writes, so autograd reaches every override."""
+        t = self.tab
+        M, m0, c2, c1, rr = (self._as(a) for a in (t.M, t.m0, t.c2, t.c1,
+                                                    t.rr))
+
+        def put(tab, rows, val):
+            idx = self._idx(np.atleast_1d(np.asarray(rows, np.int64)))
+            return tab.index_copy(0, idx, val.reshape(
+                (idx.shape[0],) + tab.shape[1:]))
+
+        if len(t.sph_rows):
+            sr = self._t("sph_r", t.sph_r)
+            m0 = put(m0, t.sph_rows, -self._t("sph_c", t.sph_c))
+            rr = put(rr, t.sph_rows, -sr * sr)
+        if len(t.pla_rows):
+            c1 = put(c1, t.pla_rows, self._t("pla_n", t.pla_n))
+            rr = put(rr, t.pla_rows, self._t("pla_k", t.pla_k))
+        if len(t.qua_rows):
+            M = put(M, t.qua_rows, self._t("qua_m", t.qua_m))
+            m0 = put(m0, t.qua_rows, self._t("qua_m0", t.qua_m0))
+            c2 = put(c2, t.qua_rows, self._t("qua_coef", t.qua_coef))
+            rr = put(rr, t.qua_rows, self._t("qua_r", t.qua_r))
+        for row, key, fam in t.comp_keys:
+            if fam == sir.PLANE:
+                c1 = put(c1, row, self._t(key + "n", t.c1[row]))
+                rr = put(rr, row, self._t(key + "k", t.rr[row]))
+            elif fam == sir.SPHERE:
+                r = self._t(key + "r", np.sqrt(-t.rr[row]))
+                m0 = put(m0, row, -self._t(key + "c", -t.m0[row]))
+                rr = put(rr, row, -r * r)
+            elif fam == sir.QUADRIC:
+                M = put(M, row, self._t(key + "m", t.M[row]))
+                m0 = put(m0, row, self._t(key + "m0", t.m0[row]))
+                c2 = put(c2, row, self._t(key + "coef", t.c2[row]))
+                rr = put(rr, row, self._t(key + "r", t.rr[row]))
+        return M, m0, c2, c1, rr
+
+    def _tables(self):
+        """The leaf tables the queries read: the device tables, or under
+        `ovr` the assembled ones, built once per `ovr` (the same dict
+        holding the same tensors; the differentiable renderer drops them
+        when its call ends)."""
+        if not self.ovr:
+            return self.tabs
+        if self._ovr_tabs is None or not same_ovr(self._ovr_tabs[0],
+                                                  self.ovr):
+            self._ovr_tabs = (dict(self.ovr), self._assemble())
+        return self._ovr_tabs[1]
+
     # -- unified root math ---------------------------------------------------
 
     def _quads(self, rows, p, d):
         """A t^2 + B t + C coefficients of all `rows` leaves along p+td
         ([R, c] each); C equals side(p), the origin inside-ness."""
-        M, m0, c2, c1, rr = self.tabs
+        M, m0, c2, c1, rr = self._tables()
         idx = self._idx(rows)
         Mr = M[idx]                                     # [c,3,3]
         pl = (p[:, None, None, 0] * Mr[None, :, :, 0]
@@ -850,10 +986,23 @@ class Tracer:
         nor = _norm3(torch.matmul(grad[..., None, :], m)[..., 0, :])
         return -nor if neg else nor
 
-    def _hit_sdf_leaf(self, lf, env_c, env_r, p, d):
+    def _hit_sdf_leaf(self, lf, env_c, env_r, p, d, si=None):
         """First hit of a standalone SDF object: envelope-clipped entry,
-        one bounded march, gradient normal (the forward branch of the JAX
-        tracer's _hit_sdf_leaf).  Returns (a [R] eps-backed, nor [R,3])."""
+        one bounded march, gradient normal.  Returns (a [R] eps-backed,
+        nor [R,3]).
+
+        Under `diff` the march is a root-finder on detached rays.  For
+        standalone object `si` the converged offset t* is reattached by
+        the Newton step t* - f / fp.detach() of its implicit function
+        f(t) = sdf(m (p + t d) + m0; prm), with f read through the
+        overrides sdfs{si}_m, _m0 and _prm: the primal moves by at most
+        the march's acceptance shell, and the tangent is the
+        implicit-function derivative -(df/dθ) / (df/dt) (the JAX
+        tracer's _hit_sdf_leaf).  Grazing rays, whose slope fp is below
+        0.01 of the local direction norm, are not reattached."""
+        p_t, d_t = p, d
+        if self.diff:
+            p, d = p.detach(), d.detach()
         R = p.shape[0]
         if env_c is not None and env_r > 0:
             ec = self._as(np.asarray(env_c))
@@ -872,8 +1021,32 @@ class Tracer:
                                        pl, dl, torch.zeros_like(dn), dead)
         hit = ~dead & (torch.abs(dist) <= MARCH_ACCEPT * self.eps)
         t_star = offs0w + offs_l / torch.where(dn > 0, dn, 1.0)
-        nor = self._sdf_normal(lf.sdf_kind, lf.sdf_param, m, lf.neg,
-                               pl + dl * offs_l[:, None])
+        if self.diff and si is not None:
+            m_t = self._t(f"sdfs{si}_m", lf.m)
+            m0_t = self._t(f"sdfs{si}_m0", lf.m0)
+            prm_t = self._t(f"sdfs{si}_prm", lf.sdf_param)
+            # missed lanes evaluate at the origin: their offset may be
+            # huge, and an overflow there would turn the masked-out
+            # gradient into NaN
+            t_w = torch.where(hit, t_star, 0.0)
+            ql_t = _affine(m_t, m0_t, p_t + d_t * t_w[:, None])
+            f = _sdf_eval(lf.sdf_kind, prm_t, ql_t)
+            # detached slope df/dt: the forward-difference local gradient
+            # dotted with the local direction per world unit
+            ql_d, prm_d = ql_t.detach(), prm_t.detach()
+            d0 = _sdf_eval(lf.sdf_kind, prm_d, ql_d)
+            ex = torch.eye(3, dtype=self.tdtype, device=self.device)
+            grad_l = torch.stack([
+                (_sdf_eval(lf.sdf_kind, prm_d, ql_d + ex[i] * self.eps)
+                 - d0) / self.eps for i in range(3)], dim=-1)
+            fp = _dot(grad_l, _affine(m_t.detach(), None, d))
+            fp_ok = torch.abs(fp) > 0.01 * dn
+            fp_safe = torch.where(fp_ok, fp, 1.0)
+            t_star = t_star - torch.where(fp_ok, f / fp_safe, 0.0)
+            nor = self._sdf_normal(lf.sdf_kind, prm_t, m_t, lf.neg, ql_t)
+        else:
+            nor = self._sdf_normal(lf.sdf_kind, lf.sdf_param, m, lf.neg,
+                                   pl + dl * offs_l[:, None])
         return torch.where(hit, t_star - self.eps, INF), nor
 
     def _sdf_crossings(self, kind, cycles, prm, m, m0, p, d, alive=None):
@@ -883,7 +1056,11 @@ class Tracer:
         pair-marching, src/objects.c:1052-1094).  Each crossing is found
         by a bounded march from the ray origin; the next march restarts
         just past the surface shell.  Lanes where `alive` is False never
-        march."""
+        march.  Under `diff` the rays are detached: the crossings feed a
+        discrete parity walk, and composite SDF leaves carry no gradient,
+        as in the JAX tracer."""
+        if self.diff:
+            p, d = p.detach(), d.detach()
         pl, dl, dn = self._sdf_local(m, m0, p, d)
         dn_safe = torch.where(dn > 0, dn, 1.0)
         offs = torch.zeros_like(dn)
@@ -1049,7 +1226,7 @@ class Tracer:
             flips.append((v2[:, 0] != v2[:, 1]) & vl)
         flip = torch.cat(flips, dim=0)                 # [R, G, NC]
         tcand = torch.where(flip, cross, INF)
-        hit_t, j = torch.min(tcand, dim=-1)
+        hit_t, j = _min_idx(tcand, -1)
         return hit_t, lcol[j]
 
     def _group_hit(self, members, p, d):
@@ -1231,14 +1408,14 @@ class Tracer:
                 if want2:
                     tkc, ikc = _top2_cols(a)
                 else:
-                    tkc, ikc = torch.min(a, dim=1, keepdim=True)
+                    tkc, ikc = _min_idx(a, 1, keepdim=True)
                 rkc = self._idx(rows)[ikc]
                 cand_t = torch.cat([best_t, tkc], dim=1)
                 cand_r = torch.cat([best_row, rkc], dim=1)
                 if want2:
                     best_t, sel = _top2_cols(cand_t)
                 else:
-                    best_t, sel = torch.min(cand_t, dim=1, keepdim=True)
+                    best_t, sel = _min_idx(cand_t, 1, keepdim=True)
                 best_row = torch.gather(cand_r, 1, sel)
             # 2. final candidate columns: the kw single winners, then one
             # column per composite and per standalone SDF object
@@ -1288,7 +1465,7 @@ class Tracer:
                 continue
             if matter_only and light:
                 continue
-            a, nor = self._hit_sdf_leaf(lf, env_c, env_r, p, d)
+            a, nor = self._hit_sdf_leaf(lf, env_c, env_r, p, d, si=si)
             if lane_matter is not None and light:
                 a = torch.where(lane_matter, INF, a)
             k = len(cols_t)
@@ -1303,19 +1480,19 @@ class Tracer:
         if want2:
             t12, sel = _top2_cols(T)
         else:
-            t12, sel = torch.min(T, dim=1, keepdim=True)
+            t12, sel = _min_idx(T, 1, keepdim=True)
         row12 = torch.gather(ROWS, 1, sel)             # [R, kw]
 
         # 3. winner normals + oid from the unified table: the analytic
         # gradient (2 c2 y + c1) M
-        M, m0, c2, c1, rr = self.tabs
+        M, m0, c2, c1, rr = self._tables()
         t_safe = torch.where(torch.isfinite(t12), t12, 0.0)
         x = p[:, None, :] + d[:, None, :] * t_safe[..., None]  # [R,kw,3]
         if len(self.tab):
             row_s = torch.clamp(row12, min=0)
-            Mw = M[row_s]                              # [R,kw,3,3]
-            y = torch.sum(Mw * x[..., None, :], -1) + m0[row_s]
-            g = 2.0 * c2[row_s] * y + c1[row_s]
+            Mw, m0w, c2w, c1w = _rows(row_s, M, m0, c2, c1)
+            y = torch.sum(Mw * x[..., None, :], -1) + m0w
+            g = 2.0 * c2w * y + c1w
             grad = torch.sum(g[..., :, None] * Mw, -2)
             nor = _norm3(grad)
             nor = torch.where(self.t_neg[row_s][..., None], -nor, nor)
@@ -1419,8 +1596,10 @@ class Tracer:
 
     def _kernel_device_ok(self):
         """The hand-written kernels run on this tracer: a CUDA device, f32,
-        and not switched off for an A/B comparison."""
-        return (self.use_kernels and self.device.type == "cuda"
+        no overrides or AD (the kernels have no backward), and not
+        switched off for an A/B comparison."""
+        return (self.use_kernels and not self._traced()
+                and self.device.type == "cuda"
                 and self.dtype == np.float32)
 
     def _kernels_ok(self):
@@ -1436,7 +1615,7 @@ class Tracer:
         down the kernel route (`scene_kernels_on_cpu`)."""
         return self._kernel_device_ok() or (
             self.scene_kernels_on_cpu and self.use_kernels
-            and self.dtype == np.float32)
+            and not self._traced() and self.dtype == np.float32)
 
     def _prefer_scene_shadow(self):
         """Scenes with SDF composites or standalone matter SDFs shadow
@@ -1480,8 +1659,9 @@ class Tracer:
         if len(self.big_rows) < self.BIG_MIN_ROWS \
                 or self.dtype != np.float32:
             return False
-        return self._kernel_device_ok() or (self.bigscene_on_cpu
-                                            and self.use_kernels)
+        return self._kernel_device_ok() or (
+            self.bigscene_on_cpu and self.use_kernels
+            and not self._traced())
 
     def _bigscene(self) -> _BigScene:
         """The Morton sphere blocks of K6/K7 over `big_rows`, from the
@@ -1536,6 +1716,7 @@ class Tracer:
 
     # -- shadow queries ------------------------------------------------------
 
+    @torch.no_grad()
     def shadow_blocked(self, p, d, limit):
         """True where ANY matter hit lies within (.., limit] — the NEE
         shadow test `compound_s_ray_hit(matter) > a` (reference
@@ -1543,7 +1724,8 @@ class Tracer:
         kernel-covered scene subset runs as one hand-written kernel (K5
         for SDF scenes, K2 for small analytic ones), and the spheres of a
         big scene as K7; what a kernel leaves out stays on the plain
-        walks."""
+        walks.  The answer is boolean, so no gradient flows through it
+        and autograd records nothing here."""
         dt = self.tdtype
         p = p.to(dt)
         d = d.to(dt)
@@ -1640,8 +1822,9 @@ class Tracer:
             if comp.oid == oid:
                 a, _, _ = self._hit_composite(comp, p, d)
                 return a
-        for lf, o, env_c, env_r, _light in self.sdf_singles:
+        for si, (lf, o, env_c, env_r, _light) in \
+                enumerate(self.sdf_singles):
             if o == oid:
-                a, _ = self._hit_sdf_leaf(lf, env_c, env_r, p, d)
+                a, _ = self._hit_sdf_leaf(lf, env_c, env_r, p, d, si=si)
                 return a
         raise ValueError(f"object {oid} not found")

@@ -87,15 +87,32 @@ Phases, each printing one line of numbers:
                division must be bit-equal), and the einsum check; then each
                op code's time against its own torch call, in turns over
                OP_ROUNDS rounds, with its spread;
- 14. wine_glass — the corpus scene at the headline shape, when the
+ 14. diff    — the differentiable renderer (render/diff.py) at bench.py's
+               fwd_bwd leg: DiffRenderer.value_and_grad on the smoke scene
+               at the headline shape, 8,192 camera samples of
+               default_rng(3), balanced selection, 25 bounces, f32: one
+               warm-up, then the median of 3 ("diff value_and_grad": wall
+               seconds, fwd+bwd lane-bounces/s = 8,192 x 25 over the
+               median, warm-up, peak memory), with no kernel launched (the
+               replay runs the plain torch path, as the JAX package turns
+               its Pallas kernels off under overrides and AD), a finite
+               loss and finite gradients ("diff grad norms"); the same
+               first 256 lanes in f64 on the card and on the CPU (loss
+               within rel 1e-6, each gradient within 1e-5 of its table's
+               largest magnitude plus rel 1e-5); central differences in
+               f64 on the card, uniform selection, for the sphere lamp's
+               radiance and the goblet's outer bowl radius, at
+               tests/test_diff.py's tolerances; one edge-aware call on 1,024
+               lanes with finite gradients, and any EdgeCoverageWarning;
+ 15. wine_glass — the corpus scene at the headline shape, when the
                directory named by $ACTINON_CORPUS holds wine_glass.acn.
 
 The glass_table phases hold slice 1 still: the headline hash repeats
 GLASS_HASH, and no scene or big-scene kernel launches there.  lamp_row
 (528 beads) crosses the big-scene gate, so its phases launch K4-K7.
 --profile adds, per render, each kernel's launches and device time
-(K2 and K7 by design), and K1's device time over the shipped render's
-calls.
+(K2 and K7 by design), K1's device time over the shipped render's
+calls, and the device time of one diff value_and_grad by op.
 
 Any failure exits non-zero.  The line before the last is one JSON object
 with every kernel's numbers; the last line is
@@ -1422,6 +1439,170 @@ def phase_ops():
     return out
 
 
+# the differentiable renderer (render/diff.py) at bench.py:159's fwd_bwd
+# leg: value_and_grad of the mean radiance of DIFF_LANES camera samples
+# (default_rng(3), bench.py:169-171) over the scene's 25 bounces
+DIFF_LANES = 8192
+DIFF_REPS = 3
+DIFF_CHECK = 256    # lanes of the card-against-CPU and FD checks, in f64
+DIFF_EDGE = 1024    # lanes of the edge-aware call
+
+
+def diff_renderer(sc, dtype, device, **kw):
+    """A DiffRenderer over scene sc; f64 on the card takes the plain
+    path (use_kernels=False), which is all the differentiable renderer
+    runs."""
+    from actinon_tpu_torch.render.diff import DiffRenderer
+    from actinon_tpu_torch.render.integrator import Integrator
+    from actinon_tpu_torch.render.tracer import Tracer
+    from actinon_tpu_torch.scene import ir as sir
+    tr = Tracer(sir.compile_scene(sc), dtype=dtype, device=device,
+                use_kernels=dtype == np.float32)
+    return DiffRenderer(Integrator(tr, batch=DIFF_LANES), **kw)
+
+
+def diff_positions(cfg, n):
+    rng = np.random.default_rng(3)
+    return np.stack([rng.uniform(0, cfg.image_width, n),
+                     rng.uniform(0, cfg.image_height, n)], -1)
+
+
+def grads_np(grads):
+    return {f"{g}.{k}": v.detach().double().cpu().numpy()
+            for g, grp in grads.items() for k, v in grp.items()}
+
+
+def diff_fd(dr, q0, group, key, idx, delta, rtol, atol=1e-9):
+    """Central differences of the loss against its autograd entry
+    (tests/test_diff.py:fd_check)."""
+    import torch
+    _, grads = dr.value_and_grad(q0)
+    params = dr.params()
+    g_ad = float(grads[group][key].reshape(-1)[idx])
+    leaf = params[group][key]
+
+    def at(eps):
+        pert = leaf.clone().reshape(-1)
+        pert[idx] += eps
+        ps = {g: dict(v) for g, v in params.items()}
+        ps[group][key] = pert.reshape(leaf.shape)
+        with torch.no_grad():
+            return float(dr.render_loss(ps, q0))
+
+    g_fd = (at(delta) - at(-delta)) / (2 * delta)
+    ok = abs(g_ad - g_fd) <= atol + rtol * max(abs(g_ad), abs(g_fd))
+    say(f"diff fd {key}[{idx}]", g_autograd=f"{g_ad:.9g}",
+        g_fd=f"{g_fd:.9g}", delta=delta, rtol=rtol)
+    if not ok or g_ad == 0:
+        fail(f"diff: {key}[{idx}] autograd {g_ad} against central "
+             f"differences {g_fd}")
+
+
+def phase_diff():
+    """The differentiable renderer on the card (module docstring, phase
+    14); returns the replay's numbers."""
+    import warnings
+    import torch
+    from actinon_tpu_torch.render import kernels
+    from actinon_tpu_torch.render.diff import EdgeCoverageWarning
+    sc = load_scene(SCENE, *HEADLINE)
+    pos = diff_positions(sc.cfg, DIFF_LANES)
+    dr = diff_renderer(sc, np.float32, "cuda")
+    q0 = dr.primary(pos)
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = dr.value_and_grad(q0)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    secs = []
+    for _ in range(DIFF_REPS):
+        t0 = time.perf_counter()
+        loss, grads = dr.value_and_grad(q0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                if v != before[k]}
+    if launched:
+        fail(f"diff: value_and_grad launched kernels {launched}")
+    g = grads_np(grads)
+    bad = sorted(k for k, v in g.items() if not np.isfinite(v).all())
+    if not np.isfinite(float(loss)) or bad:
+        fail(f"diff: loss {float(loss)}, non-finite gradients {bad}")
+    med = float(np.median(secs))
+    out = dict(lanes=DIFF_LANES, steps=dr.n_steps, steps_run=dr.steps_run,
+               warmup_s=warm, seconds=med,
+               lane_bounces_per_s=DIFF_LANES * dr.n_steps / med,
+               peak_bytes=peak, loss=float(loss))
+    say("diff value_and_grad", scene="glass_table", size="200x150",
+        direct=sc.cfg.direct_samples, depth=sc.cfg.trace_depth,
+        lanes=DIFF_LANES, sel_mode=dr.sel_mode, steps=dr.n_steps,
+        steps_run=dr.steps_run, warmup_s=f"{warm:.3f}",
+        seconds=f"{med:.4f}",
+        spread=f"{min(secs):.4f}-{max(secs):.4f}",
+        lane_bounces_per_s=f"{out['lane_bounces_per_s']:.6g}",
+        peak_mib=f"{peak / 2**20:.1f}", loss=f"{float(loss):.6f}",
+        launches=json.dumps(launched))
+    say("diff grad norms", norms=json.dumps(
+        {k: float(f"{np.linalg.norm(v):.4g}") for k, v in g.items()},
+        separators=(",", ":")))
+    del grads, dr, q0
+
+    # the card against the CPU in f64 on the first DIFF_CHECK lanes
+    got = {}
+    for dev in ("cuda", "cpu"):
+        d64 = diff_renderer(sc, np.float64, dev)
+        t0 = time.perf_counter()
+        loss, grads = d64.value_and_grad(d64.primary(pos[:DIFF_CHECK]))
+        got[dev] = (float(loss), grads_np(grads), time.perf_counter() - t0)
+    (lc, gc, sc_), (lh, gh, sh) = got["cuda"], got["cpu"]
+    rel = abs(lc - lh) / abs(lh)
+    worst = max((np.max(np.abs(gc[k] - gh[k])
+                        / (1e-5 * np.abs(gh[k]).max(initial=0.0)
+                           + 1e-5 * np.abs(gh[k]) + 1e-300)), k)
+                for k in gh)
+    say("diff card vs cpu f64", lanes=DIFF_CHECK, loss_card=f"{lc:.15g}",
+        loss_cpu=f"{lh:.15g}", rel=f"{rel:.2e}",
+        worst_grad_over_tol=f"{worst[0]:.3g}", worst_key=worst[1],
+        card_s=f"{sc_:.3f}", cpu_s=f"{sh:.3f}")
+    if not (rel <= 1e-6 and worst[0] <= 1.0):
+        fail(f"diff: card and CPU disagree in f64: loss rel {rel}, "
+             f"{worst[1]} at {worst[0]} of its tolerance")
+
+    # central differences on the card, f64, uniform selection: the sphere
+    # lamp's radiance and the goblet's outer bowl radius (CSG leaf c0_l0)
+    d64 = diff_renderer(sc, np.float64, "cuda", sel_mode="uniform")
+    q64 = d64.primary(pos[:DIFF_CHECK])
+    diff_fd(d64, q64, "mat", "l_rad", 0, 1e-3, 1e-5)
+    diff_fd(d64, q64, "geom", "c0_l0_r", 0, 1e-5, 3e-2)
+    del d64, q64
+
+    # the edge-aware NEE terms: one call, finite gradients
+    with warnings.catch_warnings(record=True) as ws:
+        warnings.simplefilter("always", EdgeCoverageWarning)
+        de = diff_renderer(sc, np.float32, "cuda", edge_aware=True)
+    gaps = [str(w.message) for w in ws
+            if issubclass(w.category, EdgeCoverageWarning)]
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    loss, grads = de.value_and_grad(de.primary(pos[:DIFF_EDGE]))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    g = grads_np(grads)
+    bad = sorted(k for k, v in g.items() if not np.isfinite(v).all())
+    if not np.isfinite(float(loss)) or bad:
+        fail(f"diff edge: loss {float(loss)}, non-finite gradients {bad}")
+    say("diff edge_aware", lanes=DIFF_EDGE, seconds=f"{secs:.3f}",
+        loss=f"{float(loss):.6f}", coverage_warnings=json.dumps(gaps),
+        launches=json.dumps({k: v - before[k] for k, v in
+                             kernels.LAUNCHES.items() if v != before[k]}),
+        norm_qua_m0=f"{np.linalg.norm(g['geom.qua_m0']):.4g}",
+        norm_c0_l0_c=f"{np.linalg.norm(g['geom.c0_l0_c']):.4g}")
+    return out
+
+
 def phase_profile():
     """Under torch.profiler: phase 3 again, with each kernel's device time
     per launch beside its CUDA-graph time; then the headline,
@@ -1480,6 +1661,37 @@ def phase_profile():
                 say(f"profile {tag} {sym}", launches=sum(e.count for e in ev),
                     device_ms=f"{sum(map(dev, ev)) / 1e3:.3f}")
     shipped_nee()
+    profile_diff()
+
+
+def profile_diff():
+    """One value_and_grad of phase 14 under torch.profiler (after one
+    untraced call): wall and device busy seconds, and the device time of
+    its largest op kinds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sc = load_scene(SCENE, *HEADLINE)
+    dr = diff_renderer(sc, np.float32, "cuda")
+    q0 = dr.primary(diff_positions(sc.cfg, DIFF_LANES))
+    dr.value_and_grad(q0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        dr.value_and_grad(q0)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    dev = lambda e: e.self_device_time_total
+    busy = sum(dev(e) for e in kern) / 1e6
+    say("profile diff", wall_s=f"{wall:.3f}", device_busy_s=f"{busy:.4f}",
+        busy_share=f"{busy / wall:.4f}", kernel_names=len(kern),
+        launches=sum(e.count for e in kern))
+    for e in sorted(kern, key=dev, reverse=True)[:12]:
+        print(f"  device_ms={dev(e) / 1e3:.3f} calls={e.count} "
+              f"name={e.key[:90]!r}", flush=True)
 
 
 def shipped_nee():
@@ -1570,6 +1782,7 @@ def main(argv):
     k7_sweep("sphere_fractal", cap["big_anyhit"])
     phase_fractal_counter(fractal)
     ks.update(phase_ops())
+    phase_diff()
     wine = os.path.join(CORPUS, "wine_glass.acn")
     if CORPUS and os.path.exists(wine):
         render("wine_glass", load_scene(wine, *HEADLINE), 1 << 15)

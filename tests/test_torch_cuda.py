@@ -863,3 +863,97 @@ def test_diag_kernels_match_torch():
     assert kernels.LAUNCHES["diag_expr"] == before + 2
     err = torch.abs(got - (a * b + c))
     assert bool((err <= 2.0 ** -23 * (torch.abs(a * b) + torch.abs(c))).all())
+
+
+# -- the differentiable renderer (render/diff.py) ----------------------------
+
+
+def _diff_glass_table(dtype, device, n, **kw):
+    """A DiffRenderer over glass_table at 40x30, direct=4, depth=8, and
+    its first n camera samples of default_rng(3)."""
+    from actinon_tpu_torch.acn.interp import run_file
+    from actinon_tpu_torch.render.diff import DiffRenderer
+    from actinon_tpu_torch.render.integrator import Integrator
+    from actinon_tpu_torch.render.tracer import Tracer
+    from actinon_tpu_torch.scene import ir as sir
+    cap = []
+    run_file(SCENE, render_fn=lambda sc, fn: cap.append(sc.clone()),
+             args=["-f"])
+    sc = cap[0]
+    sc.cfg.image_width, sc.cfg.image_height = 40, 30
+    sc.cfg.direct_samples, sc.cfg.trace_depth = 4, 8
+    tr = Tracer(sir.compile_scene(sc), dtype=dtype, device=device,
+                use_kernels=dtype == np.float32)
+    dr = DiffRenderer(Integrator(tr, batch=n), **kw)
+    rng = np.random.default_rng(3)
+    pos = np.stack([rng.uniform(0, 40, n), rng.uniform(0, 30, n)], -1)
+    return dr, dr.primary(pos)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: runs the port on the card")
+
+
+@pytest.mark.parametrize("edge_aware", [False, True])
+def test_diff_on_card_finite_and_launches_no_kernel(edge_aware):
+    """value_and_grad on the card in f32: a finite loss and gradients.
+    The replay launches no kernel; the edge terms' detached light hits
+    may (K3, as the JAX package's forward query would)."""
+    _need_card()
+    from actinon_tpu_torch.render import kernels
+    dr, q0 = _diff_glass_table(np.float32, "cuda", 512,
+                               edge_aware=edge_aware)
+    before = dict(kernels.LAUNCHES)
+    loss, grads = dr.value_and_grad(q0)
+    torch.cuda.synchronize()
+    moved = {k for k, v in kernels.LAUNCHES.items() if v != before[k]}
+    assert moved <= ({"object_hit"} if edge_aware else set()), moved
+    assert np.isfinite(float(loss))
+    for g, grp in grads.items():
+        for k, v in grp.items():
+            assert bool(torch.isfinite(v).all()), (g, k)
+    assert float(grads["mat"]["l_rad"].abs().max()) > 0
+
+
+def test_diff_card_matches_cpu_f64():
+    """The same lanes in f64 on the card (the plain path) and on the CPU:
+    the loss within rel 1e-6, each gradient within 1e-5 of its table's
+    largest magnitude plus rel 1e-5."""
+    _need_card()
+    got = []
+    for dev in ("cuda", "cpu"):
+        dr, q0 = _diff_glass_table(np.float64, dev, 128)
+        loss, grads = dr.value_and_grad(q0)
+        got.append((float(loss), grads))
+    (lc, gc), (lh, gh) = got
+    np.testing.assert_allclose(lc, lh, rtol=1e-6)
+    for g, grp in gh.items():
+        for k, want in grp.items():
+            want = want.numpy()
+            np.testing.assert_allclose(
+                gc[g][k].cpu().numpy(), want, rtol=1e-5,
+                atol=1e-5 * float(np.abs(want).max(initial=0.0)),
+                err_msg=f"{g}.{k}")
+
+
+def test_diff_fd_on_card():
+    """Central differences in f64 on the card, uniform selection: the
+    sphere lamp's radiance (tests/test_diff.py's tolerance)."""
+    _need_card()
+    dr, q0 = _diff_glass_table(np.float64, "cuda", 128, sel_mode="uniform")
+    _, grads = dr.value_and_grad(q0)
+    params = dr.params()
+    g_ad = float(grads["mat"]["l_rad"][0])
+
+    def at(eps):
+        ps = {g: dict(v) for g, v in params.items()}
+        ps["mat"]["l_rad"] = params["mat"]["l_rad"].clone()
+        ps["mat"]["l_rad"][0] += eps
+        with torch.no_grad():
+            return float(dr.render_loss(ps, q0))
+
+    g_fd = (at(1e-3) - at(-1e-3)) / 2e-3
+    assert g_ad > 0
+    assert abs(g_ad - g_fd) <= 1e-9 + 1e-5 * max(abs(g_ad), abs(g_fd)), \
+        (g_ad, g_fd)

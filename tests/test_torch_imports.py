@@ -36,4 +36,5 @@ def test_port_imports_no_jax():
     assert "actinon_tpu_torch.render.tracer" in out["modules"]
     assert "actinon_tpu_torch.render.bigscene" in out["modules"]
     assert "actinon_tpu_torch.diag_ops" in out["modules"]
+    assert "actinon_tpu_torch.render.diff" in out["modules"]
     assert out["bad"] == []
