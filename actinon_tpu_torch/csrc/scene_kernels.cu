@@ -173,7 +173,7 @@ __device__ __forceinline__ void roots_lane(float A, float B, float C,
     const float safe_A = is_quad ? A : 1.0f;
     s = (B * 0.5f) / safe_A;
     q = C / safe_A;
-    const float disc = s * s - q;
+    const float disc = fmaf(s, s, -q);   // rounded once, as tracer._disc
     ok = is_quad && (disc >= 0.0f);
     const float root = sqrtf(ok ? disc : 0.0f);
     const float ta = -s - root;

@@ -184,7 +184,7 @@ __device__ __forceinline__ void stable_roots(float A, float B, float C,
     const float safe_A = A != 0.0f ? A : 1.0f;
     s = (B * 0.5f) / safe_A;
     q = C / safe_A;
-    const float disc = s * s - q;
+    const float disc = fmaf(s, s, -q);   // rounded once, as tracer._disc
     ok = (A != 0.0f) && (disc >= 0.0f);
     const bool pos = ok && (disc > 0.0f);
     const float root = pos ? sqrtf(disc) : 0.0f;

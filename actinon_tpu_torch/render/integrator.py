@@ -1171,12 +1171,26 @@ class Integrator:
         compaction and accumulation stay on the device; the host loop
         reads one count per trip.  Path configs (path_samples > 0) run the
         mixed-kind drain."""
-        dt, dev = self.tdtype, self.device
         N = len(pos_xy)
         # bucket the sample count to a power of two (pad lanes are dead:
         # never popped)
         Np = 1 << int(np.ceil(np.log2(max(N, 64))))
-        B = self.batch
+        pos = torch.zeros((Np, 2), dtype=self.tdtype, device=self.device)
+        pos[:N] = self._as(np.asarray(pos_xy))
+        acc, dropped, queries, trips = self._drain(pos, N, self.batch)
+        self.rays_traced += int(queries) * self.per_lane_queries
+        self.last_trips = trips
+        self._drain_warnings(dropped, trips)
+        return acc[:N].to(torch.float64).cpu().numpy()
+
+    def _drain(self, pos, count, B):
+        """Drain the camera samples at subpixel positions `pos` [Np, 2]
+        (Np a power of two; the first `count` rows are live, the rest
+        dead padding) with trips of at most B lanes.  Returns (acc [Np, 3]
+        on the device, dropped rays, live lanes traced as a device
+        tensor, trips).  Sample ids are the rows of `pos`."""
+        dt, dev = self.tdtype, self.device
+        Np = pos.shape[0]
         nb = self._n_child_blocks
         # queue capacity: path configs queue path children transiently,
         # so they get double the slack
@@ -1184,10 +1198,8 @@ class Integrator:
         C = 1 << int(np.ceil(np.log2(max(cap_fac * Np, 4 * B))))
         size = C + nb * B   # the child write-back is always in bounds
 
-        pos = torch.zeros((Np, 2), dtype=dt, device=dev)
-        pos[:N] = self._as(np.asarray(pos_xy))
         p0, d0 = self._camera_rays_dev(pos)
-        live = (torch.arange(Np, device=dev) < N).to(dt)
+        live = (torch.arange(Np, device=dev) < count).to(dt)
         q = dict(
             p=torch.zeros((size, 3), dtype=dt, device=dev),
             d=self._as([0.0, 0.0, 1.0]).repeat(size, 1),
@@ -1209,7 +1221,7 @@ class Integrator:
                 q[k] = torch.zeros((size,), dtype=dt, device=dev)
         acc = torch.zeros((Np, 3), dtype=dt, device=dev)
         queries = torch.zeros((), dtype=torch.int64, device=dev)
-        count, trips, dropped = N, 0, 0
+        trips, dropped = 0, 0
 
         # cascade of batch sizes [B, B/8, ...]: the wavefront decays
         # geometrically, and stage k runs while the queue holds more than
@@ -1228,9 +1240,10 @@ class Integrator:
             queries = queries + tq
             dropped += n_drop
             trips += 1
+        return acc, dropped, queries, trips
 
-        self.rays_traced += int(queries) * self.per_lane_queries
-        self.last_trips = trips
+    @staticmethod
+    def _drain_warnings(dropped, trips):
         if dropped:
             print(f"warning: ray queue overflow, {dropped} rays dropped",
                   flush=True)
@@ -1238,7 +1251,6 @@ class Integrator:
             print(f"warning: drain trip cap ({DRAIN_TRIP_CAP}) reached — "
                   f"wavefront terminated early, image under-rendered",
                   flush=True)
-        return acc[:N].to(torch.float64).cpu().numpy()
 
     def _trip(self, q, acc, count, Bk, C):
         """One drain trip: pop up to Bk lanes from the queue's tail, step

@@ -103,14 +103,45 @@ def safe_acos(x):
     return torch.where(inside, torch.arccos(xin), edge)
 
 
+def _fma32(a, b, c):
+    """a * b + c of f32 tensors, rounded once to f32: formed in f64, where
+    the product of two f32 values is exact (the same bits on the CPU and
+    on CUDA; autograd passes through the casts)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _dot_fma32(a, b):
+    """a . b of f32 tensors over the last axis as XLA's compiled CPU code
+    rounds it: fma(a2, b2, fma(a1, b1, a0 b0))."""
+    t = a[..., 0] * b[..., 0]
+    return _fma32(a[..., 2], b[..., 2], _fma32(a[..., 1], b[..., 1], t))
+
+
+def _disc(s, q):
+    """The discriminant s * s - q; in f32 rounded once, fma(s, s, -q), as
+    the JAX package's compiled code rounds it.  Rounded twice, the light
+    hit of a far-field NEE sample whose cone is one ulp wide cancels to 0
+    and lands on the light's centre, where the NEE takes its 1e30 cap."""
+    if s.dtype == torch.float32:
+        return _fma32(s, s, -q)
+    return s * s - q
+
+
 def _sphere_first_hit(c, r, p, d, eps):
     """Reference sphere_ray_hit semantics (src/gmath.h:64-85): entry root
     when outside+approaching, exit root when inside or behind-center.
-    Used by the integrator's NEE light intersection."""
+    Used by the integrator's NEE light intersection.  In f32 the dots, q
+    and the discriminant round as XLA's compiled code rounds them on the
+    CPU (each multiply-add once); f64 keeps the plain formulas."""
     pp = p - c
-    s = _dot(pp, d)
-    q = _dot(pp, pp) - r * r
-    disc = s * s - q
+    if pp.dtype == torch.float32:
+        r = torch.as_tensor(r, dtype=pp.dtype, device=pp.device)
+        s = _dot_fma32(pp, d)
+        q = _fma32(-r, r, _dot_fma32(pp, pp))
+    else:
+        s = _dot(pp, d)
+        q = _dot(pp, pp) - r * r
+    disc = _disc(s, q)
     ok = disc >= 0
     root = safe_sqrt(torch.where(ok, disc, 0.0))
     entering = (s < 0) & (q > 0)
@@ -875,7 +906,7 @@ class Tracer:
         safe_A = torch.where(is_quad, A, 1.0)
         s = (Bq * 0.5) / safe_A
         q = Cq / safe_A
-        disc = s * s - q
+        disc = _disc(s, q)
         ok = is_quad & (disc >= 0)
         root = safe_sqrt(torch.where(ok, disc, 0.0))
         ta = -s - root
@@ -1797,6 +1828,16 @@ class Tracer:
             a, _ = self._hit_sdf_leaf(lf, env_c, env_r, p, d)
             blocked = blocked | (a <= limit)
         return blocked
+
+    def shadow_nearest_t(self, p, d):
+        """Nearest matter hit distance (normals irrelevant, roughness
+        skipped).  The recursive oracle's shadow test; the integrator
+        uses shadow_blocked."""
+        t, _, _, _ = self.nearest(p, d, matter_only=True, rng_rough=False)
+        return t
+
+    def shadow_t(self, p, d):
+        return self.shadow_nearest_t(p, d)
 
     def object_hit_t(self, oid: int, p, d):
         """First-hit distance of ONE object (eps-backed, INF on miss) —

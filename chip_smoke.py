@@ -4,6 +4,9 @@
     python3 chip_smoke.py            # every phase, on the first card
     python3 chip_smoke.py --profile  # where the renders' time goes
 
+(`--mesh-worker` runs one rank of phase 16's two-rank world; the script
+starts those itself.)
+
 Phases, each printing one line of numbers:
 
   1. card    — torch's device name and nvidia-smi's name and power limit;
@@ -104,7 +107,31 @@ Phases, each printing one line of numbers:
                radiance and the goblet's outer bowl radius, at
                tests/test_diff.py's tolerances; one edge-aware call on 1,024
                lanes with finite gradients, and any EdgeCoverageWarning;
- 15. wine_glass — the corpus scene at the headline shape, when the
+               the f32 forward lane by lane ("diff c3"): a finite loss and
+               no lane at or above 1e3 (ROADMAP C3: far-floor lanes 898
+               and 2084 took the NEE's 1e30 cap while the discriminants
+               rounded twice), those two lanes printed beside the f64
+               plain run on the card;
+ 15. oracle  — the recursive oracle (render/reference_oracle.py) in f64 on
+               the card (the plain path): 12 camera samples of glass_table
+               at 8x6, direct=4, depth=8, against run_device on the same
+               rays, rtol 1e-6 and atol 1e-9;
+ 16. sharded — multi-device rendering (parallel/mesh.py): (a) a world of
+               one over NCCL at the headline shape, ShardedIntegrator
+               bit for bit run_device's image, with K1 launched; (c)
+               ShardedDiffRenderer at world size 1 against value_and_grad
+               at the fwd_bwd width (loss within 1e-5, gradients rtol
+               2e-4 and atol 2e-5, tests/test_mesh.py); (b) two ranks
+               sharing the card (this script run twice as
+               `--mesh-worker`, gloo over a FileStore, collectives through
+               the host, the kernels on cuda:0 in both, killed at
+               SHARD_LIMIT_S): __graft_entry__.py's dryrun_multichip shapes
+               (draft 32x24, the mixed path drain 16x12, production
+               200x150) each within 2e-5 of the single-device drain with
+               its queries, the two ranks' images equal, and each
+               shape's load balance beside MULTICHIP_r05.json's on 8 TPU
+               devices; then ShardedDiffRenderer on the two ranks;
+ 17. wine_glass — the corpus scene at the headline shape, when the
                directory named by $ACTINON_CORPUS holds wine_glass.acn.
 
 The glass_table phases hold slice 1 still: the headline hash repeats
@@ -145,9 +172,11 @@ LAMP_COUNTER = (16, 12)            # counter-mode A/B size of lamp_row
 FRACTAL_SHAPE = (160, 120, 10, 0, 11)  # bench.py:82 many_spheres, not cut
 FRACTAL_AB = (64, 48)              # counter-mode size, kernels vs none
 FRACTAL_CPU = (64, 48, 1, 0, 3)    # counter-mode shape, card vs CPU
-GLASS_HASH = 7572424404618532405   # glass_table headline hash on the H100
-LAMP_HASH = 11545389823726910507   # lamp_row at LAMP_SHAPE on the H100
-FRACTAL_HASH = 13759777862295610734  # sphere_fractal at FRACTAL_SHAPE
+# the pinned fold hashes on the H100 (re-pinned when the f32 roots came to
+# round their discriminants once, ROADMAP C3)
+GLASS_HASH = 1838053121656986330   # glass_table headline hash on the H100
+LAMP_HASH = 9581574344572724440    # lamp_row at LAMP_SHAPE on the H100
+FRACTAL_HASH = 1924618234713347685  # sphere_fractal at FRACTAL_SHAPE
 MANY_DIRECT = (8, 6, 8000, 0, 25)  # K1 at 2 lights x 8,000 samples
 
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): FP32 outside the tensor
@@ -909,9 +938,7 @@ def counter_render(sc, batch, use_kernels, device="cuda"):
     tr.use_kernels = use_kernels
     integ = Integrator(tr, batch=batch)
     integ.seed_mode = "counter"
-    cfg = sc.cfg
-    ys, xs = np.mgrid[0:cfg.image_height, 0:cfg.image_width]
-    pos = np.stack([xs.reshape(-1) + 0.5, ys.reshape(-1) + 0.5], -1)
+    pos = pixel_centres(sc.cfg)
     kernels.reset_launches()
     t0 = time.time()
     acc = integ.run_samples(pos)
@@ -1446,6 +1473,7 @@ DIFF_LANES = 8192
 DIFF_REPS = 3
 DIFF_CHECK = 256    # lanes of the card-against-CPU and FD checks, in f64
 DIFF_EDGE = 1024    # lanes of the edge-aware call
+C3_LANES = (898, 2084)   # far-floor lanes that took the NEE's cap (C3)
 
 
 def diff_renderer(sc, dtype, device, **kw):
@@ -1548,6 +1576,7 @@ def phase_diff():
     say("diff grad norms", norms=json.dumps(
         {k: float(f"{np.linalg.norm(v):.4g}") for k, v in g.items()},
         separators=(",", ":")))
+    phase_c3(sc, pos, dr, q0, float(loss))
     del grads, dr, q0
 
     # the card against the CPU in f64 on the first DIFF_CHECK lanes
@@ -1601,6 +1630,302 @@ def phase_diff():
         norm_qua_m0=f"{np.linalg.norm(g['geom.qua_m0']):.4g}",
         norm_c0_l0_c=f"{np.linalg.norm(g['geom.c0_l0_c']):.4g}")
     return out
+
+
+def phase_c3(sc, pos, dr, q0, loss):
+    """ROADMAP C3 on the card: the f32 forward of the fwd_bwd lanes, lane
+    by lane, stays below 1e3 (the NEE's 1e30 cap took lanes 898 and 2084
+    to 9.5e19 and 1.1e20 when the discriminants rounded twice), with the
+    two lanes beside the f64 plain run on the card."""
+    import torch
+    with torch.no_grad():
+        lane = dr.radiance(dr.params(), q0).max(dim=1).values
+    n_big = int((lane >= 1e3).sum())
+    d64 = diff_renderer(sc, np.float64, "cuda")
+    q64 = d64.primary(pos)
+    idx = torch.tensor(C3_LANES, device=q64["p"].device)
+    with torch.no_grad():
+        lane64 = d64.radiance(d64.params(), {k: v[idx] for k, v in
+                                             q64.items()}).max(dim=1).values
+    f32 = lane[idx.to(lane.device)].double().cpu().numpy()
+    f64 = lane64.cpu().numpy()
+    rel = np.abs(f32 - f64) / np.abs(f64)
+    say("diff c3", loss_f32=f"{loss:.9g}", lanes_ge_1e3=n_big,
+        max_lane=f"{float(lane.max()):.6g}",
+        **{f"lane{k}_f32": f"{a:.6g}" for k, a in zip(C3_LANES, f32)},
+        **{f"lane{k}_f64": f"{a:.6g}" for k, a in zip(C3_LANES, f64)},
+        **{f"lane{k}_rel": f"{r:.3g}" for k, r in zip(C3_LANES, rel)})
+    if not (np.isfinite(loss) and n_big == 0 and np.isfinite(f32).all()):
+        fail(f"diff c3: f32 loss {loss}, {n_big} lanes at or above 1e3, "
+             f"lanes {C3_LANES} {f32}")
+
+
+# the recursive oracle (render/reference_oracle.py) on the card: glass_table
+# cut to ORACLE_SHAPE, in f64 (the plain path), ORACLE_N camera samples of
+# default_rng(3) against run_device at tests/test_integrator.py's bounds
+ORACLE_SHAPE = (8, 6, 4, 0, 8)
+ORACLE_N = 12
+
+
+def phase_oracle(card):
+    import torch
+    from actinon_tpu_torch.render.integrator import Integrator
+    from actinon_tpu_torch.render.reference_oracle import RecursiveOracle
+    from actinon_tpu_torch.render.tracer import Tracer
+    from actinon_tpu_torch.scene import ir as sir
+    sc = load_scene(SCENE, *ORACLE_SHAPE)
+    integ = Integrator(Tracer(sir.compile_scene(sc), dtype=np.float64,
+                              device="cuda", use_kernels=False), batch=64)
+    rng = np.random.default_rng(3)
+    pos = np.stack([rng.uniform(0, sc.cfg.image_width, ORACLE_N),
+                    rng.uniform(0, sc.cfg.image_height, ORACLE_N)], -1)
+    t0 = time.perf_counter()
+    got = integ.run_device(pos)
+    t_w = time.perf_counter() - t0
+    # run_device's own rays: the same padded position block
+    pad = torch.zeros((64, 2), dtype=torch.float64, device="cuda")
+    pad[:ORACLE_N] = torch.as_tensor(pos, device="cuda")
+    p, d = (x[:ORACLE_N].cpu().numpy() for x in integ._camera_rays_dev(pad))
+    oracle = RecursiveOracle(integ)
+    t0 = time.perf_counter()
+    want = np.stack([oracle.sample(p[i], d[i]) for i in range(ORACLE_N)])
+    t_o = time.perf_counter() - t0
+    err = np.abs(got - want) / (1e-9 + 1e-6 * np.abs(want))
+    say("oracle", scene="glass_table", size="8x6", direct=4, depth=8,
+        samples=ORACLE_N, dtype="f64", wavefront_s=f"{t_w:.3f}",
+        oracle_s=f"{t_o:.3f}", worst_over_tol=f"{err.max():.3g}",
+        mean=f"{want.mean():.9g}", card=repr(card))
+    if not (np.isfinite(got).all() and err.max() <= 1.0
+            and want.max() > 0):
+        fail(f"oracle: run_device against the recursion, worst "
+             f"{err.max()} of rtol 1e-6 / atol 1e-9")
+
+
+# multi-device rendering (parallel/mesh.py), __graft_entry__.py's
+# dryrun_multichip shapes on glass_table: name -> ((w, h, direct, path,
+# depth), batch)
+SHARD_SHAPES = {"draft": ((32, 24, 4, 0, 8), 1 << 12),
+                "mixed": ((16, 12, 2, 2, 12), 1 << 12),
+                "production": (HEADLINE, 1 << 15)}
+# MULTICHIP_r05.json's load balance of the JAX package over 8 TPU devices,
+# printed beside the card's (not compared: another device count)
+TPU_BALANCE = {"draft": 0.855, "mixed": 0.658, "production": 0.976}
+SHARD_RANKS = 2
+SHARD_LIMIT_S = 420   # the two-rank world's time limit
+
+
+def pixel_centres(cfg):
+    ys, xs = np.mgrid[0:cfg.image_height, 0:cfg.image_width]
+    return np.stack([xs.reshape(-1) + 0.5, ys.reshape(-1) + 0.5],
+                    -1).astype(np.float64)
+
+
+def grad_worst(got, want):
+    """The worst gradient entry over its bound (rtol 2e-4, atol 2e-5,
+    tests/test_mesh.py:103), and its key."""
+    return max((float(np.max(np.abs(got[k] - want[k])
+                             / (2e-5 + 2e-4 * np.abs(want[k])),
+                             initial=0.0)), k) for k in want)
+
+
+def sharded_drain(shape, batch, mesh, device):
+    """One ShardedIntegrator pass over the pixel centres of glass_table at
+    `shape`: (acc, rays_traced, last_balance, wall seconds)."""
+    import torch
+    from actinon_tpu_torch.parallel.mesh import ShardedIntegrator
+    from actinon_tpu_torch.render.tracer import Tracer
+    from actinon_tpu_torch.scene import ir as sir
+    sc = load_scene(SCENE, *shape)
+    sh = ShardedIntegrator(Tracer(sir.compile_scene(sc), dtype=np.float32,
+                                  device=device), mesh, batch=batch)
+    pos = pixel_centres(sc.cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = sh.run_samples(pos)
+    return acc, sh.rays_traced, sh.last_balance, time.perf_counter() - t0
+
+
+def single_drain(shape, batch):
+    """The single-device drain of the same pass: (acc, rays_traced,
+    seconds)."""
+    import torch
+    from actinon_tpu_torch.render.integrator import Integrator
+    from actinon_tpu_torch.render.tracer import Tracer
+    from actinon_tpu_torch.scene import ir as sir
+    sc = load_scene(SCENE, *shape)
+    integ = Integrator(Tracer(sir.compile_scene(sc), dtype=np.float32,
+                              device="cuda"), batch=batch)
+    pos = pixel_centres(sc.cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = integ.run_device(pos)
+    return acc, integ.rays_traced, time.perf_counter() - t0
+
+
+def sharded_diff(mesh):
+    """ShardedDiffRenderer.value_and_grad at the fwd_bwd width: (loss and
+    grads as numpy, wall seconds)."""
+    import torch
+    from actinon_tpu_torch.parallel.mesh import ShardedDiffRenderer
+    sc = load_scene(SCENE, *HEADLINE)
+    dr = diff_renderer(sc, np.float32, "cuda")
+    q0 = dr.primary(diff_positions(sc.cfg, DIFF_LANES))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = ShardedDiffRenderer(dr, mesh).value_and_grad(q0)
+    torch.cuda.synchronize()
+    return dict(grads_np(grads), loss=float(loss)), time.perf_counter() - t0
+
+
+def mesh_worker(rank, n, store, out):
+    """One rank of the two-rank world (`chip_smoke.py --mesh-worker`):
+    gloo over a FileStore, the kernels on cuda:0 beside the other rank;
+    every SHARD_SHAPES pass, then the sharded fwd_bwd, saved to `out`."""
+    import torch
+    import torch.distributed as dist
+    from actinon_tpu_torch.parallel.mesh import make_mesh
+    rank, n = int(rank), int(n)
+    dist.init_process_group("gloo", store=dist.FileStore(store, n),
+                            rank=rank, world_size=n)
+    mesh = make_mesh(n, device="cuda:0", backend="gloo")
+    res = {}
+    for name, (shape, batch) in SHARD_SHAPES.items():
+        acc, rays, bal, secs = sharded_drain(shape, batch, mesh, "cuda:0")
+        res.update({f"{name}/acc": acc, f"{name}/rays": rays,
+                    f"{name}/balance": bal, f"{name}/seconds": secs})
+    got, secs = sharded_diff(mesh)
+    res.update({f"diff/{k}": v for k, v in got.items()})
+    res["diff/seconds"] = secs
+    np.savez(out, **res)
+    dist.destroy_process_group()
+    return 0
+
+
+def launch_mesh_workers(n, limit_s):
+    """The two-rank world as n processes of this script: each rank's
+    results, or a failure when a worker fails or outlives limit_s (the
+    others are killed)."""
+    import tempfile
+    os.makedirs(OUT, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="mesh_", dir=OUT)
+    store = os.path.join(tmp, "store")
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w") for r in range(n)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+         str(r), str(n), store, os.path.join(tmp, f"rank{r}.npz")],
+        cwd=HERE, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(n)]
+    deadline = time.time() + limit_s
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.time() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = open(os.path.join(tmp, f"rank{r}.log")).read()[-3000:]
+            fail(f"sharded: rank {r} of {n} exited {p.returncode} (killed "
+                 f"at the {limit_s} s limit if negative)\n{tail}")
+    out = []
+    for r in range(n):
+        with np.load(os.path.join(tmp, f"rank{r}.npz")) as z:
+            out.append({k: z[k] for k in z.files})
+    return out
+
+
+def phase_sharded(card):
+    """Multi-device rendering on the card (module docstring, phase 16)."""
+    import torch
+    from actinon_tpu_torch.parallel.mesh import make_mesh
+    # (a) a world of one over NCCL at the headline width: bit for bit
+    # run_device's image, through K1
+    from actinon_tpu_torch.render import kernels
+    mesh = make_mesh(1, device="cuda")
+    acc_1, rays_1, s_1 = single_drain(HEADLINE, 1 << 15)
+    before = dict(kernels.LAUNCHES)
+    acc_s, rays_s, bal, s_s = sharded_drain(HEADLINE, 1 << 15, mesh, "cuda")
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                if v != before[k]}
+    same = bool(np.array_equal(acc_s, acc_1))
+    say("sharded world1 headline", backend=mesh.backend,
+        size="x".join(map(str, HEADLINE[:2])),
+        batch=1 << 15, sharded_s=f"{s_s:.3f}", single_s=f"{s_1:.3f}",
+        bit_equal=same, rays_traced=rays_s, balance=bal,
+        launches=json.dumps(launched, separators=(",", ":")),
+        card=repr(card))
+    if not same or rays_s != rays_1 or launched.get("nee", 0) <= 0:
+        fail(f"sharded world of one: bit-equal {same}, rays {rays_s} "
+             f"against {rays_1}, launches {launched}")
+    # (c) at world size 1: ShardedDiffRenderer against value_and_grad
+    sc = load_scene(SCENE, *HEADLINE)
+    dr = diff_renderer(sc, np.float32, "cuda")
+    q0 = dr.primary(diff_positions(sc.cfg, DIFF_LANES))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = dr.value_and_grad(q0)
+    torch.cuda.synchronize()
+    s_vg = time.perf_counter() - t0
+    want = dict(grads_np(grads), loss=float(loss))
+    del dr, q0, grads
+    got, s_d = sharded_diff(mesh)
+    check_sharded_diff("world1", got, want, s_d, s_vg, card)
+
+    # (b) two ranks sharing the card (gloo, collectives through the host)
+    singles = {name: single_drain(shape, batch)
+               for name, (shape, batch) in SHARD_SHAPES.items()}
+    t0 = time.perf_counter()
+    ranks = launch_mesh_workers(SHARD_RANKS, SHARD_LIMIT_S)
+    say("sharded world2 launch", ranks=SHARD_RANKS, backend="gloo",
+        wall_s=f"{time.perf_counter() - t0:.1f}", card=repr(card))
+    for name, (shape, batch) in SHARD_SHAPES.items():
+        acc_1, rays_1, s_1 = singles[name]
+        acc = ranks[0][f"{name}/acc"]
+        err = float(np.abs(acc - acc_1).max())
+        agree = all(np.array_equal(r[f"{name}/acc"], acc) for r in ranks)
+        rays = [int(r[f"{name}/rays"]) for r in ranks]
+        say(f"sharded world2 {name}", size="x".join(map(str, shape[:2])),
+            direct=shape[2], path=shape[3], depth=shape[4], batch=batch,
+            sharded_s=f"{max(float(r[f'{name}/seconds']) for r in ranks):.3f}",
+            single_s=f"{s_1:.3f}", max_err=f"{err:.3g}",
+            ranks_agree=agree, rays_traced=rays[0], rays_single=rays_1,
+            balance=f"{float(ranks[0][f'{name}/balance']):.4f}",
+            tpu_balance_8dev=TPU_BALANCE[name], card=repr(card))
+        if not (np.isfinite(acc).all() and err < 2e-5 and agree
+                and rays == [rays_1] * SHARD_RANKS):
+            fail(f"sharded world2 {name}: max err {err} (bound 2e-5), "
+                 f"ranks agree {agree}, rays {rays} against {rays_1}")
+    for r in ranks[1:]:
+        if r["diff/loss"] != ranks[0]["diff/loss"]:
+            fail("sharded diff: the ranks' losses differ")
+    got = {k[5:]: v for k, v in ranks[0].items() if k.startswith("diff/")
+           and k != "diff/seconds"}
+    check_sharded_diff("world2", got, want,
+                       max(float(r["diff/seconds"]) for r in ranks), s_vg,
+                       card)
+
+
+def check_sharded_diff(tag, got, want, secs, single_s, card):
+    """ShardedDiffRenderer against value_and_grad: loss within 1e-5,
+    every gradient within rtol 2e-4 and atol 2e-5 (test_mesh.py:98-103)."""
+    d_loss = abs(float(got["loss"]) - want["loss"])
+    worst = grad_worst({k: v for k, v in got.items() if k != "loss"},
+                       {k: v for k, v in want.items() if k != "loss"})
+    say(f"sharded diff {tag}", lanes=DIFF_LANES, sharded_s=f"{secs:.3f}",
+        single_s=f"{single_s:.3f}", loss=f"{float(got['loss']):.9g}",
+        loss_single=f"{want['loss']:.9g}", d_loss=f"{d_loss:.3g}",
+        worst_grad_over_tol=f"{worst[0]:.3g}", worst_key=worst[1],
+        card=repr(card))
+    if set(got) != set(want) or not (d_loss < 1e-5 and worst[0] <= 1.0):
+        fail(f"sharded diff {tag}: loss off by {d_loss}, {worst[1]} at "
+             f"{worst[0]} of its bound")
 
 
 def phase_profile():
@@ -1735,8 +2060,10 @@ def main(argv):
         print(f"FAIL: the port is not in this checkout ({e})", flush=True)
         return 2
 
+    if argv[:1] == ["--mesh-worker"]:
+        return mesh_worker(*argv[1:])
     t_all = time.time()
-    kind, _ = phase_card()
+    kind, card = phase_card()
     phase_build()
     if "--profile" in argv:
         phase_profile()
@@ -1783,6 +2110,8 @@ def main(argv):
     phase_fractal_counter(fractal)
     ks.update(phase_ops())
     phase_diff()
+    phase_oracle(card)
+    phase_sharded(card)
     wine = os.path.join(CORPUS, "wine_glass.acn")
     if CORPUS and os.path.exists(wine):
         render("wine_glass", load_scene(wine, *HEADLINE), 1 << 15)

@@ -957,3 +957,100 @@ def test_diff_fd_on_card():
     assert g_ad > 0
     assert abs(g_ad - g_fd) <= 1e-9 + 1e-5 * max(abs(g_ad), abs(g_fd)), \
         (g_ad, g_fd)
+
+
+# -- multi-device rendering (parallel/mesh.py) and the C3 discriminants ------
+
+
+def test_world_of_one_nccl_equals_run_device():
+    """A world of one over NCCL: ShardedIntegrator's image is
+    run_device's, bit for bit, on a small glass_table render."""
+    _need_card()
+    from actinon_tpu_torch.acn.interp import run_file
+    from actinon_tpu_torch.parallel.mesh import ShardedIntegrator, make_mesh
+    from actinon_tpu_torch.render.integrator import Integrator
+    from actinon_tpu_torch.render.tracer import Tracer
+    from actinon_tpu_torch.scene import ir as sir
+    mesh = make_mesh(1, device="cuda")
+    assert (mesh.size, mesh.backend) == (1, "nccl")
+    cap = []
+    run_file(SCENE, render_fn=lambda sc, fn: cap.append(sc.clone()),
+             args=["-f"])
+    sc = cap[0]
+    sc.cfg.image_width, sc.cfg.image_height = 40, 30
+    sc.cfg.direct_samples, sc.cfg.trace_depth = 4, 8
+    ir = sir.compile_scene(sc)
+    ys, xs = np.mgrid[0:30, 0:40]
+    pos = np.stack([xs.reshape(-1) + 0.5, ys.reshape(-1) + 0.5], -1)
+    sh = ShardedIntegrator(Tracer(ir, dtype=np.float32), mesh, batch=1024)
+    single = Integrator(Tracer(ir, dtype=np.float32), batch=1024)
+    acc_sh = sh.run_samples(pos)
+    acc_1 = single.run_device(pos)
+    assert np.array_equal(acc_sh, acc_1) and acc_1.max() > 0
+    assert sh.rays_traced == single.rays_traced and sh.last_balance == 1.0
+
+
+def test_sharded_diff_world_of_one_equals_value_and_grad():
+    _need_card()
+    from actinon_tpu_torch.parallel.mesh import ShardedDiffRenderer, make_mesh
+    dr, q0 = _diff_glass_table(np.float32, "cuda", 512)
+    loss, grads = dr.value_and_grad(q0)
+    loss_s, grads_s = ShardedDiffRenderer(
+        dr, make_mesh(1, device="cuda")).value_and_grad(q0)
+    assert abs(float(loss_s) - float(loss)) < 1e-5
+    for g, grp in grads.items():
+        for k, want in grp.items():
+            np.testing.assert_allclose(grads_s[g][k].cpu().numpy(),
+                                       want.cpu().numpy(), rtol=2e-4,
+                                       atol=2e-5, err_msg=f"{g}.{k}")
+
+
+def test_sphere_first_hit_same_bits_on_card_and_cpu():
+    """The f32 light hit's dots, q and discriminant, each rounded once
+    (formed in f64), and Tracer._roots' s, q and discriminant test: the
+    same bits on the card as on the CPU.  The hits themselves take a
+    square root, which torch's CPU f32 sqrt rounds up to an ulp away from
+    the card's (IEEE) one: the same finiteness, rel 1e-6."""
+    _need_card()
+    from actinon_tpu_torch.render.tracer import (Tracer, _disc, _dot_fma32,
+                                                 _fma32, _sphere_first_hit)
+    rng = np.random.default_rng(11)
+    n = 65536
+    c = torch.tensor([2.0, -1.0, 5.0])
+    u = rng.normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    p = torch.as_tensor(c.numpy() + u * rng.uniform(1, 2700, n)[:, None],
+                        dtype=torch.float32)
+    d = torch.as_tensor(c.numpy() + rng.normal(0, 0.3, (n, 3)),
+                        dtype=torch.float32) - p
+    d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+    r = torch.tensor(0.37)
+
+    def parts(c, r, p, d):
+        pp = p - c
+        s = _dot_fma32(pp, d)
+        q = _fma32(-r, r, _dot_fma32(pp, pp))
+        return s, q, _disc(s, q), _sphere_first_hit(c, r, p, d, 1e-4)
+
+    cpu = parts(c, r, p, d)
+    card = [x.cpu() for x in parts(c.cuda(), r.cuda(), p.cuda(), d.cuda())]
+    for a, b in zip(cpu[:3], card[:3]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    fin = torch.isfinite(cpu[3])
+    assert fin.any() and (~fin).any()
+    assert torch.equal(fin, torch.isfinite(card[3]))
+    torch.testing.assert_close(card[3][fin], cpu[3][fin], rtol=1e-6,
+                               atol=0)
+    A, B, C = (torch.as_tensor(x, dtype=torch.float32) for x in (
+        np.ones(n), 2 * (u * rng.normal(size=(n, 3))).sum(1),
+        rng.normal(size=n)))
+    got_cpu = Tracer._roots(A, B, C)
+    got_card = [x.cpu() for x in Tracer._roots(A.cuda(), B.cuda(),
+                                                C.cuda())]
+    for k in (2, 3, 4):                                # s, q, ok
+        assert torch.equal(got_cpu[k], got_card[k])
+    for k in (0, 1):                                   # t0u, t1u
+        f = torch.isfinite(got_cpu[k])
+        assert torch.equal(f, torch.isfinite(got_card[k]))
+        torch.testing.assert_close(got_card[k][f], got_cpu[k][f],
+                                   rtol=1e-6, atol=1e-6)

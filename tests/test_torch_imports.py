@@ -37,4 +37,6 @@ def test_port_imports_no_jax():
     assert "actinon_tpu_torch.render.bigscene" in out["modules"]
     assert "actinon_tpu_torch.diag_ops" in out["modules"]
     assert "actinon_tpu_torch.render.diff" in out["modules"]
+    assert "actinon_tpu_torch.parallel.mesh" in out["modules"]
+    assert "actinon_tpu_torch.render.reference_oracle" in out["modules"]
     assert out["bad"] == []
