@@ -122,9 +122,11 @@ __device__ __forceinline__ float sphere_cand(const float* __restrict__ blk,
     const float ppy = r.py - __ldg(blk + LB + lane);
     const float ppz = r.pz - __ldg(blk + 2 * LB + lane);
     const float r2 = __ldg(blk + 3 * LB + lane);
-    const float s = (ppx * r.dx + ppy * r.dy) + ppz * r.dz;
-    const float q = ((ppx * ppx + ppy * ppy) + ppz * ppz) - r2;
-    const float disc = s * s - q;
+    // each multiply-add rounded once, as bigscene._sphere_cands and XLA's
+    // compiled Pallas helper round them
+    const float s = fmaf(ppz, r.dz, fmaf(ppx, r.dx, ppy * r.dy));
+    const float q = fmaf(ppz, ppz, fmaf(ppx, ppx, ppy * ppy)) - r2;
+    const float disc = fmaf(s, s, -q);
     if (!(disc >= 0.0f)) return inf;
     const float root = sqrtf(disc);
     const float ta = -s - root;
@@ -147,9 +149,9 @@ __device__ __forceinline__ bool bound_hit(float bx, float by, float bz,
                                           float br2, const Ray& r,
                                           bool has_lim, float lim) {
     const float ex = bx - r.px, ey = by - r.py, ez = bz - r.pz;
-    const float s = (ex * r.dx + ey * r.dy) + ez * r.dz;
-    const float q = ((ex * ex + ey * ey) + ez * ez) - br2;
-    const float disc = s * s - q;
+    const float s = fmaf(ez, r.dz, fmaf(ex, r.dx, ey * r.dy));
+    const float q = fmaf(ez, ez, fmaf(ex, ex, ey * ey)) - br2;
+    const float disc = fmaf(s, s, -q);
     const bool hit = (disc >= 0.0f) && ((s > 0.0f) || (q < 0.0f));
     if (!has_lim) return hit;
     const float te = fmaxf(s - sqrtf(disc >= 0.0f ? disc : 0.0f), 0.0f);

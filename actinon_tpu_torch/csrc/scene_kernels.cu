@@ -209,9 +209,12 @@ __device__ __forceinline__ bool env_interval_lane(const Lane& L,
                                                   float& t_out) {
     const float er = L[5];
     const float ex = r.px - L[2], ey = r.py - L[3], ez = r.pz - L[4];
-    const float s = (ex * r.dx + ey * r.dy) + ez * r.dz;
-    const float q = ((ex * ex + ey * ey) + ez * ez) - er * er;
-    const float disc = s * s - q;
+    // each multiply-add rounded once, er er apart, as
+    // scene_kernels._env_interval_lane and XLA's compiled Pallas helper
+    // round them
+    const float s = fmaf(ez, r.dz, fmaf(ex, r.dx, ey * r.dy));
+    const float q = fmaf(ez, ez, fmaf(ex, ex, ey * ey)) - __fmul_rn(er, er);
+    const float disc = fmaf(s, s, -q);
     const bool hit = (disc >= 0.0f) && ((s < 0.0f) || (q < 0.0f));
     const bool no_env = er <= 0.0f;
     const float root = sqrtf(disc > 0.0f ? disc : 0.0f);
@@ -427,9 +430,9 @@ __device__ __forceinline__ bool bound_hit(float bx, float by, float bz,
                                           bool has_lim, float lim) {
     if (r2 < 0.0f) return true;
     const float ex = bx - r.px, ey = by - r.py, ez = bz - r.pz;
-    const float s = (ex * r.dx + ey * r.dy) + ez * r.dz;
-    const float q = ((ex * ex + ey * ey) + ez * ez) - r2;
-    const float disc = s * s - q;
+    const float s = fmaf(ez, r.dz, fmaf(ex, r.dx, ey * r.dy));
+    const float q = fmaf(ez, ez, fmaf(ex, ex, ey * ey)) - r2;
+    const float disc = fmaf(s, s, -q);
     const bool hit = (disc >= 0.0f) && ((s > 0.0f) || (q < 0.0f));
     if (!has_lim) return hit;
     const float te = fmaxf(s - sqrtf(disc >= 0.0f ? disc : 0.0f), 0.0f);

@@ -227,13 +227,15 @@ __device__ float leaf_first_hit(const float* __restrict__ L, int kind,
     return is_finite(a) ? a - eps : finf();
 }
 
-// Envelope-sphere hit-exists test (envelope_s_ray_hits).
+// Envelope-sphere hit-exists test (envelope_s_ray_hits): the dots and
+// s s - q each rounded once, as the tracer's envelope gates and XLA's
+// compiled jnp.sum(a * b, -1) round them.
 __device__ __forceinline__ bool env_gate(const float* __restrict__ c,
                                          float r2, const Ray& r) {
     const float ex = r.px - c[0], ey = r.py - c[1], ez = r.pz - c[2];
-    const float s = (ex * r.dx + ey * r.dy) + ez * r.dz;
-    const float q = ((ex * ex + ey * ey) + ez * ez) - r2;
-    return (s * s - q >= 0.0f) && ((s < 0.0f) || (q < 0.0f));
+    const float s = fmaf(ez, r.dz, fmaf(ey, r.dy, ex * r.dx));
+    const float q = fmaf(ez, ez, fmaf(ey, ey, ex * ex)) - r2;
+    return (fmaf(s, s, -q) >= 0.0f) && ((s < 0.0f) || (q < 0.0f));
 }
 
 // First hit of a single-leaf object, its envelope gate applied.

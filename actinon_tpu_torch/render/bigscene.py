@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from actinon_tpu_torch.render import kernels
+from actinon_tpu_torch.render.tracer import _disc, _fma32
 
 INF = math.inf
 F32_BIG = float(np.float32(3e38))
@@ -183,9 +184,11 @@ def _sphere_cands(p, d, blk, eps):
     ppx = px - cx
     ppy = py - cy
     ppz = pz - cz
-    s = ppx * dx + ppy * dy + ppz * dz
-    q = ppx * ppx + ppy * ppy + ppz * ppz - r2
-    disc = s * s - q
+    # each multiply-add rounded once, as XLA's compiled CPU code rounds
+    # the Pallas helper: fma(z, dz, fma(x, dx, y dy)), then fma(s, s, -q)
+    s = _fma32(ppz, dz, _fma32(ppx, dx, ppy * dy))
+    q = _fma32(ppz, ppz, _fma32(ppx, ppx, ppy * ppy)) - r2
+    disc = _disc(s, q)
     ok = disc >= 0
     root = torch.sqrt(torch.where(ok, disc, 0.0))
     ta = -s - root
@@ -214,9 +217,9 @@ def _cull(bounds, g, p, d, lim=None):
     ex = bcx - p[:, 0]
     ey = bcy - p[:, 1]
     ez = bcz - p[:, 2]
-    s = ex * d[:, 0] + ey * d[:, 1] + ez * d[:, 2]
-    q = ex * ex + ey * ey + ez * ez - br2
-    disc = s * s - q
+    s = _fma32(ez, d[:, 2], _fma32(ex, d[:, 0], ey * d[:, 1]))
+    q = _fma32(ez, ez, _fma32(ex, ex, ey * ey)) - br2
+    disc = _disc(s, q)
     hit = (disc >= 0) & ((s > 0) | (q < 0))
     if lim is None:
         return hit

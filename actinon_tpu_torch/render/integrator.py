@@ -41,7 +41,8 @@ from actinon_tpu_torch import math3d as m3
 from actinon_tpu_torch import rng as argn
 from actinon_tpu_torch.render import kernels
 from actinon_tpu_torch.render.tracer import (CHUNK, INF, Tracer, _dot,
-                                             _norm3, _rows, _sphere_first_hit,
+                                             _dot_fma32, _norm3, _rows,
+                                             _sphere_first_hit,
                                              as_table, safe_acos, safe_sqrt,
                                              same_ovr)
 from actinon_tpu_torch.scene import ir as sir
@@ -1020,9 +1021,12 @@ class Integrator:
         M, m0, c2, rr = (qd[k].detach() for k in ("M", "m0", "c2", "rr"))
         pl = (p @ M.T + m0[None, :])[:, None, :]       # [B,1,3]
         dl = torch.einsum("bki,ji->bkj", w, M)         # [B,K,3]
-        A = torch.sum(c2 * dl * dl, -1)
-        Bq = 2.0 * torch.sum(c2 * dl * pl, -1)
-        Cq = torch.sum(c2 * pl * pl, -1) + rr
+        # f32: the sums as the JAX package's compiled code rounds them (an
+        # FMA chain over (c2 dl) dl), and s s - q rounded twice: XLA does
+        # not contract it here
+        A = _dot_fma32(c2 * dl, dl)
+        Bq = 2.0 * _dot_fma32(c2 * dl, pl)
+        Cq = _dot_fma32(c2 * pl, pl) + rr
         is_q = A != 0
         sA = torch.where(is_q, A, 1.0)
         s = (Bq * 0.5) / sA

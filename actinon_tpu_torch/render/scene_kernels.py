@@ -43,8 +43,8 @@ import numpy as np
 import torch
 
 from actinon_tpu_torch.render import kernels
-from actinon_tpu_torch.render.tracer import (Tracer, _merge_bounds,
-                                             _tree_eval_mask)
+from actinon_tpu_torch.render.tracer import (Tracer, _disc, _fma32,
+                                             _merge_bounds, _tree_eval_mask)
 from actinon_tpu_torch.scene import ir as sir
 
 INF = math.inf
@@ -509,9 +509,12 @@ def _env_interval_lane(px, py, pz, dx, dy, dz, ecx, ecy, ecz, er):
     """(gate, t_in, t_out) of per-lane envelope spheres; er <= 0 lanes
     gate True with the full line."""
     ex, ey, ez = px - ecx, py - ecy, pz - ecz
-    s = ex * dx + ey * dy + ez * dz
-    q = ex * ex + ey * ey + ez * ez - er * er
-    disc = s * s - q
+    # each multiply-add rounded once, as XLA's compiled CPU code rounds
+    # the Pallas helper: fma(z, dz, fma(x, dx, y dy)), er er apart, then
+    # fma(s, s, -q)
+    s = _fma32(ez, dz, _fma32(ex, dx, ey * dy))
+    q = _fma32(ez, ez, _fma32(ex, ex, ey * ey)) - er * er
+    disc = _disc(s, q)
     hit = (disc >= 0) & ((s < 0) | (q < 0))
     no_env = er <= 0
     root = torch.sqrt(torch.where(disc > 0, disc, 0.0))
@@ -730,9 +733,9 @@ def _cull(st, bid, p, d, lim=None):
     if r2 < 0:
         return torch.ones((p.shape[0],), dtype=torch.bool, device=p.device)
     ex, ey, ez = cx - p[:, 0], cy - p[:, 1], cz - p[:, 2]
-    s = ex * d[:, 0] + ey * d[:, 1] + ez * d[:, 2]
-    q = ex * ex + ey * ey + ez * ez - r2
-    disc = s * s - q
+    s = _fma32(ez, d[:, 2], _fma32(ex, d[:, 0], ey * d[:, 1]))
+    q = _fma32(ez, ez, _fma32(ex, ex, ey * ey)) - r2
+    disc = _disc(s, q)
     hit = (disc >= 0) & ((s > 0) | (q < 0))
     if lim is None:
         return hit

@@ -111,8 +111,11 @@ def _fma32(a, b, c):
 
 
 def _dot_fma32(a, b):
-    """a . b of f32 tensors over the last axis as XLA's compiled CPU code
-    rounds it: fma(a2, b2, fma(a1, b1, a0 b0))."""
+    """a . b over the last axis as XLA's compiled CPU code rounds a
+    `jnp.sum(a * b, -1)` of f32 tensors: fma(a2, b2, fma(a1, b1, a0 b0));
+    in f64 the plain dot."""
+    if a.dtype != torch.float32:
+        return _dot(a, b)
     t = a[..., 0] * b[..., 0]
     return _fma32(a[..., 2], b[..., 2], _fma32(a[..., 1], b[..., 1], t))
 
@@ -952,18 +955,20 @@ class Tracer:
         ec = self.t_env_c[idx][None]                  # [1,c,3]
         er = self.t_env_r[idx][None]                  # [1,c]
         pp = p[:, None, :] - ec
-        s = _dot(pp, d[:, None, :])
-        q = _dot(pp, pp) - er * er
-        disc = s * s - q
+        # f32: the dots and s s - q each rounded once, er er apart (a
+        # constant to XLA), as the JAX package's compiled gate rounds them
+        s = _dot_fma32(pp, d[:, None, :])
+        q = _dot_fma32(pp, pp) - er * er
+        disc = _disc(s, q)
         exists = (disc >= 0) & ((s < 0) | (q < 0))
         return (er <= 0) | exists
 
     def _env_gate_one(self, env_c, env_r, p, d):
         ec = self._as(np.asarray(env_c, self.dtype))
         pp = p - ec
-        s = _dot(pp, d)
-        q = _dot(pp, pp) - float(self.dtype.type(env_r) ** 2)
-        disc = s * s - q
+        s = _dot_fma32(pp, d)
+        q = _dot_fma32(pp, pp) - float(self.dtype.type(env_r) ** 2)
+        disc = _disc(s, q)
         return (disc >= 0) & ((s < 0) | (q < 0))
 
     # -- SDF leaves ----------------------------------------------------------
@@ -1110,11 +1115,16 @@ class Tracer:
 
     def _env_interval(self, env_c, env_r, p, d):
         """(gate, t_in, t_out) of envelope spheres along p+td; t_in
-        clamped to 0 when starting inside."""
+        clamped to 0 when starting inside.  In f32 the gate's dots and
+        discriminant round as the JAX package's compiled code rounds them
+        (each multiply-add once; env_r env_r apart).  That code splits
+        the t's where-mask into fusions of their own, which round s s - q
+        twice; on the CPU the JAX tracer reads only the gate, as the
+        port's caller does."""
         pp = p - env_c
-        s = _dot(pp, d)
-        q = _dot(pp, pp) - env_r * env_r
-        disc = s * s - q
+        s = _dot_fma32(pp, d)
+        q = _dot_fma32(pp, pp) - env_r * env_r
+        disc = _disc(s, q)
         gate = (disc >= 0) & ((s < 0) | (q < 0))
         root = safe_sqrt(torch.clamp(disc, min=0.0))
         return gate, torch.clamp(-s - root, min=0.0), -s + root
@@ -1285,9 +1295,9 @@ class Tracer:
         ec = self._as(np.asarray(env_c, self.dtype))[None]   # [1, G, 3]
         er = self._as(np.asarray(env_r, self.dtype))[None]
         pp = p[:, None, :] - ec
-        s = torch.sum(pp * d[:, None, :], -1)
-        q = torch.sum(pp * pp, -1) - er * er
-        disc = s * s - q
+        s = _dot_fma32(pp, d[:, None, :])
+        q = _dot_fma32(pp, pp) - er * er
+        disc = _disc(s, q)
         gate = (er <= 0) | ((disc >= 0) & ((s < 0) | (q < 0)))
         hit_t = torch.where(gate, hit_t, INF)
         a = torch.where(torch.isfinite(hit_t), hit_t - self.eps, INF)

@@ -359,6 +359,7 @@ using std::min;
 #define __global__
 #define __launch_bounds__(x)
 template <class T> static inline T __ldg(const T* p) { return *p; }
+static inline float __fmul_rn(float a, float b) { return a * b; }
 static inline float __int_as_float(int i) {
     float f; memcpy(&f, &i, 4); return f;
 }
