@@ -16,7 +16,11 @@ CPU), as a launcher such as `torchrun` starts them:
     processes need no agreement on trip counts inside the loop, so the
     only collectives run after the drain: an all-gather of the
     accumulators and one of each rank's (dropped, queries, trips).
-    Every rank returns the full image.
+    Every rank returns the full image.  An arbitrary primary queue
+    (`run`, `run_device(primary, n)`) is dealt the same way by rows:
+    each rank runs the host drain (`Integrator._run_host`) on its share
+    into an accumulator of every sample, and the ranks' accumulators
+    are all-gathered and summed in rank order.
   * `ShardedDiffRenderer` splits a primary batch into contiguous shares,
     differentiates each share's part of the mean loss, and sums the loss
     and every gradient in one all-reduce.  Every rank builds the same
@@ -39,7 +43,7 @@ import torch
 import torch.distributed as dist
 
 from actinon_tpu_torch.render.diff import DiffRenderer
-from actinon_tpu_torch.render.integrator import Integrator
+from actinon_tpu_torch.render.integrator import Integrator, RayQueue
 
 
 @dataclasses.dataclass
@@ -107,10 +111,12 @@ def _all_reduce_sum(mesh: Mesh, x: torch.Tensor):
 
 
 class ShardedIntegrator(Integrator):
-    """Integrator whose device drain is sharded over the ranks of `mesh`:
-    run_samples() and run_device() deal the samples round-robin, drain
-    each rank's share locally and gather the full image on every rank.
-    Path configs shard the same way, through the mixed drain."""
+    """Integrator whose drains are sharded over the ranks of `mesh`:
+    run_samples() and run_device(None, n, pos_xy) deal the camera samples
+    round-robin, drain each rank's share on the device and gather the
+    full image on every rank (path configs through the mixed drain);
+    run() and run_device(primary, n) deal a primary queue's rows the same
+    way and run the host drain on each share."""
 
     def __init__(self, tracer, mesh: Mesh, batch: int = 1 << 16):
         self.mesh = mesh
@@ -119,9 +125,43 @@ class ShardedIntegrator(Integrator):
         super().__init__(tracer, batch=batch)
         self.last_balance = None
 
-    def run_device(self, pos_xy: np.ndarray) -> np.ndarray:
-        # run_samples comes here too
+    def run_samples(self, pos_xy: np.ndarray) -> np.ndarray:
+        # path configs run the mixed-kind drain (parents expand in place
+        # on their own rank), so every workload shards the same way
         return self._run_sharded(np.asarray(pos_xy))
+
+    def run_device(self, primary: Optional[RayQueue], n_samples: int,
+                   pos_xy: Optional[np.ndarray] = None) -> np.ndarray:
+        if pos_xy is not None:
+            return self._run_sharded(np.asarray(pos_xy))
+        # arbitrary primary queues (not camera samples): the host drain
+        # on each rank's share of the rows
+        return self._run_queue_sharded(primary, n_samples)
+
+    def run(self, primary: RayQueue, n_samples: int,
+            progress=None) -> np.ndarray:
+        return self._run_queue_sharded(primary, n_samples, progress)
+
+    def _run_queue_sharded(self, primary, n_samples, progress=None):
+        if not isinstance(primary, RayQueue):
+            raise TypeError("primary queue required")
+        n, k = self.mesh.size, self.mesh.rank
+        share = RayQueue(*[getattr(primary, f.name)[k::n]
+                           for f in dataclasses.fields(RayQueue)])
+        B = max(64, self.batch // n)        # lanes per rank per step
+        before = self.rays_traced
+        acc = self._run_host(share, n_samples, B, progress)
+        rays = torch.tensor([self.rays_traced - before], dtype=torch.int64,
+                            device=self.device)
+        accs = _all_gather(self.mesh, torch.as_tensor(acc,
+                                                      device=self.device))
+        rays = torch.cat(_all_gather(self.mesh, rays)).cpu().numpy()
+        out = accs[0].clone()
+        for a in accs[1:]:
+            out += a                        # in rank order
+        self.rays_traced = before + int(rays.sum())
+        self.last_balance = float(rays.sum()) / max(1, n * int(rays.max()))
+        return out.cpu().numpy()
 
     def _run_sharded(self, pos: np.ndarray) -> np.ndarray:
         n, k = self.mesh.size, self.mesh.rank
@@ -137,8 +177,9 @@ class ShardedIntegrator(Integrator):
         live = mine < N
         pos_l[live] = pos[mine[live]]
         B = max(64, self.batch // n)        # lanes per rank per trip
+        count = int(live.sum())
         acc, dropped, queries, trips = self._drain(
-            self._as(pos_l), int(live.sum()), B)
+            self._pos_rows(self._as(pos_l), count), count, Nl, B)
         stats = torch.tensor([dropped, int(queries), trips],
                              dtype=torch.int64, device=acc.device)
         acc_sh = torch.cat(_all_gather(self.mesh, acc)).to(

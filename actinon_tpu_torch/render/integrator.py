@@ -6,10 +6,14 @@ recursion; here it is flattened into a wavefront: rays are queue entries
 carrying (p, d, intensity, tint_rgb, depth, sample_id), and one *step*
 processes a batch — trace, classify, accumulate local contributions
 (emitter / background / NEE direct light), emit child rays for the
-specular branches and path samples.  The drain is a Python loop over
-steps; the queue, the child compaction and the accumulator stay on the
-device.  Path configs run the mixed drain: path-spawn parents live in
-the same queue and expand in place.
+specular branches and path samples.  Two drains, as in the JAX package:
+the device drain (`run_device`) is a Python loop over steps whose queue,
+child compaction and accumulator stay on the device (path configs run
+the mixed drain: path-spawn parents live in the same queue and expand in
+place); the host drain (`run`, path configs or `device_drain = False`)
+keeps a normal and a path queue of `RayQueue`s on the host, copies each
+step's results back in one transfer and accumulates in f64.  It is the
+mixed drain's oracle: the same RNG counters and estimator factors.
 
 All reference semantics are those of the JAX package: the depth budget
 (specular and refraction cost 1, path costs 10 and is gated on depth >
@@ -31,8 +35,9 @@ silhouette boundary term of the NEE visibility integral
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -86,6 +91,56 @@ def _scatter_add(acc, idx, val):
         acc.index_add_(0, idx, val)
 
 
+@dataclasses.dataclass
+class RayQueue:
+    """Host-side struct-of-arrays ray queue."""
+
+    p: np.ndarray
+    d: np.ndarray
+    intensity: np.ndarray
+    tint: np.ndarray
+    depth: np.ndarray
+    sample_id: np.ndarray
+
+    @staticmethod
+    def empty(dtype):
+        return RayQueue(np.zeros((0, 3), dtype), np.zeros((0, 3), dtype),
+                        np.zeros((0,), dtype), np.zeros((0, 3), dtype),
+                        np.zeros((0,), np.int32), np.zeros((0,), np.int32))
+
+    def __len__(self):
+        return len(self.intensity)
+
+    def append(self, other: "RayQueue"):
+        for f in dataclasses.fields(self):
+            k = f.name
+            setattr(self, k, np.concatenate([getattr(self, k),
+                                             getattr(other, k)]))
+
+    def pop(self, n: int) -> "RayQueue":
+        out = RayQueue(*[getattr(self, f.name)[:n]
+                         for f in dataclasses.fields(self)])
+        for f in dataclasses.fields(self):
+            k = f.name
+            setattr(self, k, getattr(self, k)[n:])
+        return out
+
+    def padded(self, n: int, dtype) -> "RayQueue":
+        """Pad to length n with dead rays (intensity 0, depth 0)."""
+        m = len(self)
+        if m == n:
+            return self
+        pad = n - m
+        return RayQueue(
+            np.concatenate([self.p, np.zeros((pad, 3), dtype)]),
+            np.concatenate([self.d, np.tile(np.array([[0, 0, 1]], dtype),
+                                            (pad, 1))]),
+            np.concatenate([self.intensity, np.zeros(pad, dtype)]),
+            np.concatenate([self.tint, np.zeros((pad, 3), dtype)]),
+            np.concatenate([self.depth, np.zeros(pad, np.int32)]),
+            np.concatenate([self.sample_id, np.zeros(pad, np.int32)]))
+
+
 class Integrator:
     def __init__(self, tracer: Tracer, batch: int = 1 << 14):
         self.tr = tracer
@@ -99,6 +154,9 @@ class Integrator:
         # src/scene.c:537); "counter": from (sample_id, depth), frozen
         # randomness whose samples do not move with the scene
         self.seed_mode = "position"
+        # False: run() and run_samples() take the host drain for every
+        # config (path configs always do)
+        self.device_drain = True
         # differentiable-path hooks (render/diff.py): `ovr` maps
         # mat_params keys to tensors that replace the tables (autograd
         # reaches them); `edge_aware` adds the NEE silhouette terms
@@ -1080,6 +1138,41 @@ class Integrator:
 
     # ------------------------------------------------------------------
 
+    def _spawn_paths(self, pp: Dict):
+        """Expand path-spawn descriptors into child rays [B, path_cap]
+        (reference src/scene.c:584-621): hemisphere cap sampling with cos
+        weight, Oren-Nayar adjust, child tint with albedo and the 2/ns
+        estimator factor.  The host drain's form of _expand_parents: the
+        same RNG counters and factors."""
+        dt, dev = self.tdtype, self.device
+        pos, surf_d = pp["pos"], pp["surf_d"]
+        B = pos.shape[0]
+        frame = self._conz_t(surf_d)
+        ns = pp["ns"]
+        cap = self.path_cap
+        js = torch.arange(cap, device=dev)
+        c0 = 4 * self.direct_cap * max(self.n_lights, 1)
+        rv = argn.as_u32(pp["rv"])[:, None]
+        u1 = argn.uniform(rv, c0 + 2 * js[None, :], dt)
+        u2 = argn.uniform(rv, c0 + 2 * js[None, :] + 1, dt)
+        local = m3.sphere_cap_sample(u1, u2, 1.0)       # hemisphere cap
+        out_d = _frame_apply(frame, local)               # [B, cap, 3]
+        w = _dotk(out_d, surf_d)
+        ok = pp["mask"][:, None] & (js[None, :] < ns[:, None]) & (w > 0)
+        won = torch.where(
+            (pp["on_b"] > 0)[:, None],
+            self._oren_nayar_b(w, pp["theta_i"], pp["on_a"], pp["on_b"],
+                               out_d, surf_d, pp["ray_prj"]), w)
+        fac = (2.0 / ns.to(dt))[:, None, None]
+        return dict(
+            mask=ok,
+            p=pos[:, None, :].expand(B, cap, 3),
+            d=out_d,
+            intensity=won * pp["di"][:, None],
+            tint=(pp["tint"][:, None, :] * fac).expand(B, cap, 3),
+            depth=pp["depth"][:, None].expand(B, cap),
+            sample_id=pp["sample_id"][:, None].expand(B, cap))
+
     def _expand_parents(self, q: Dict, allow):
         """Expand parent lanes of a mixed batch into PATH_EXPAND path
         children each plus one continuation (reference
@@ -1153,8 +1246,21 @@ class Integrator:
 
     def run_samples(self, pos_xy: np.ndarray) -> np.ndarray:
         """Render primary camera samples at subpixel positions [N,2]
-        (x, y); returns per-sample radiance [N,3] (f64, un-saturated)."""
-        return self.run_device(pos_xy)
+        (x, y); returns per-sample radiance [N,3] (f64, un-saturated).
+        The device drain builds the rays on the device; with
+        device_drain = False the host makes them (driver.camera_rays, in
+        f64 rounded to the working type) and run() drains them."""
+        n = len(pos_xy)
+        if self.device_drain:
+            return self.run_device(None, n, pos_xy=pos_xy)
+        from actinon_tpu_torch.render.driver import camera_rays
+        p, d = camera_rays(self.ir, np.asarray(pos_xy, np.float64),
+                           self.dtype)
+        primary = RayQueue(
+            p, d, np.ones(n, self.dtype), np.ones((n, 3), self.dtype),
+            np.full(n, self.cfg.trace_depth, np.int32),
+            np.arange(n, dtype=np.int32))
+        return self.run(primary, n)
 
     @property
     def _n_child_blocks(self):
@@ -1170,31 +1276,65 @@ class Integrator:
                            "rv", "j0", "ns")
         return base
 
-    def run_device(self, pos_xy: np.ndarray) -> np.ndarray:
-        """Device-resident wavefront drain: raygen, the queue, child
-        compaction and accumulation stay on the device; the host loop
-        reads one count per trip.  Path configs (path_samples > 0) run the
-        mixed-kind drain."""
-        N = len(pos_xy)
+    def run_device(self, primary: Optional[RayQueue], n_samples: int,
+                   pos_xy: Optional[np.ndarray] = None) -> np.ndarray:
+        """Device-resident wavefront drain of n_samples samples: the
+        queue, child compaction and accumulation stay on the device; the
+        host loop reads one count per trip.  With pos_xy [n_samples, 2]
+        the primary camera rays are built on the device; otherwise the
+        RayQueue `primary` (any rays: sample ids below n_samples, its
+        first n_samples rows live) is uploaded.  Path configs
+        (path_samples > 0) run the mixed-kind drain."""
+        N = n_samples
         # bucket the sample count to a power of two (pad lanes are dead:
         # never popped)
         Np = 1 << int(np.ceil(np.log2(max(N, 64))))
-        pos = torch.zeros((Np, 2), dtype=self.tdtype, device=self.device)
-        pos[:N] = self._as(np.asarray(pos_xy))
-        acc, dropped, queries, trips = self._drain(pos, N, self.batch)
+        if pos_xy is not None:
+            pos = torch.zeros((Np, 2), dtype=self.tdtype, device=self.device)
+            pos[:N] = self._as(np.asarray(pos_xy))
+            rows = self._pos_rows(pos, N)
+        else:
+            if not isinstance(primary, RayQueue):
+                raise TypeError("run_device: a RayQueue or pos_xy needed")
+            rows = self._queue_rows(primary)
+        acc, dropped, queries, trips = self._drain(rows, N, Np, self.batch)
         self.rays_traced += int(queries) * self.per_lane_queries
         self.last_trips = trips
         self._drain_warnings(dropped, trips)
         return acc[:N].to(torch.float64).cpu().numpy()
 
-    def _drain(self, pos, count, B):
-        """Drain the camera samples at subpixel positions `pos` [Np, 2]
-        (Np a power of two; the first `count` rows are live, the rest
-        dead padding) with trips of at most B lanes.  Returns (acc [Np, 3]
-        on the device, dropped rays, live lanes traced as a device
-        tensor, trips).  Sample ids are the rows of `pos`."""
+    def _pos_rows(self, pos, count):
+        """Queue rows of the camera samples at subpixel positions `pos`
+        [Np, 2]: the first `count` live, the rest dead; sample ids are
+        the rows."""
         dt, dev = self.tdtype, self.device
         Np = pos.shape[0]
+        p, d = self._camera_rays_dev(pos)
+        live = (torch.arange(Np, device=dev) < count).to(dt)
+        return dict(
+            p=p, d=d, intensity=live, tint=live[:, None].expand(Np, 3),
+            depth=torch.full((Np,), int(self.cfg.trace_depth),
+                             dtype=torch.int64, device=dev),
+            sample_id=torch.arange(Np, device=dev))
+
+    def _queue_rows(self, queue: RayQueue):
+        """Queue rows of a host RayQueue, uploaded."""
+        dev = self.device
+        rows = {k: self._as(getattr(queue, k))
+                for k in ("p", "d", "intensity", "tint")}
+        for k in ("depth", "sample_id"):
+            rows[k] = torch.as_tensor(
+                np.asarray(getattr(queue, k), np.int64), device=dev)
+        return rows
+
+    def _drain(self, rows, count, Np, B):
+        """Drain a queue whose first rows are `rows` (a dict of the six
+        ray fields, from _pos_rows or _queue_rows; the first `count` rows
+        live) into an accumulator of Np samples (a power of two at least
+        the count; sample ids below it), with trips of at most B lanes.
+        Returns (acc [Np, 3] on the device, dropped rays, live lanes
+        traced as a device tensor, trips)."""
+        dt, dev = self.tdtype, self.device
         nb = self._n_child_blocks
         # queue capacity: path configs queue path children transiently,
         # so they get double the slack
@@ -1202,8 +1342,6 @@ class Integrator:
         C = 1 << int(np.ceil(np.log2(max(cap_fac * Np, 4 * B))))
         size = C + nb * B   # the child write-back is always in bounds
 
-        p0, d0 = self._camera_rays_dev(pos)
-        live = (torch.arange(Np, device=dev) < count).to(dt)
         q = dict(
             p=torch.zeros((size, 3), dtype=dt, device=dev),
             d=self._as([0.0, 0.0, 1.0]).repeat(size, 1),
@@ -1211,12 +1349,9 @@ class Integrator:
             tint=torch.zeros((size, 3), dtype=dt, device=dev),
             depth=torch.zeros((size,), dtype=torch.int64, device=dev),
             sample_id=torch.zeros((size,), dtype=torch.int64, device=dev))
-        q["p"][:Np] = p0
-        q["d"][:Np] = d0
-        q["intensity"][:Np] = live
-        q["tint"][:Np] = live[:, None]
-        q["depth"][:Np] = int(self.cfg.trace_depth)
-        q["sample_id"][:Np] = torch.arange(Np, device=dev)
+        m = rows["p"].shape[0]
+        for k, v in rows.items():
+            q[k][:m] = v
         if self.path_cap:
             for k in ("kind", "rv", "j0", "ns"):
                 q[k] = torch.zeros((size,), dtype=torch.int64, device=dev)
@@ -1300,3 +1435,131 @@ class Integrator:
         if mixed:
             alive = alive & (lanes["kind"] != 2)
         return s + nv_fit, nv - nv_fit, alive.sum()
+
+    # ------------------------------------------------------------------
+
+    def run(self, primary: RayQueue, n_samples: int,
+            progress=None) -> np.ndarray:
+        """Drain the wavefront of the rays in `primary` (sample ids below
+        n_samples); returns per-sample radiance [n_samples, 3] (f64,
+        un-saturated).  Path configs, and every config with
+        device_drain = False, take the host drain; the rest run_device.
+        progress(steps, normal queue, path queue) is called after each
+        host step."""
+        if self.path_cap == 0 and self.device_drain:
+            return self.run_device(primary, n_samples)
+        return self._run_host(primary, n_samples, self.batch, progress)
+
+    def _run_host(self, primary: RayQueue, n_samples: int, batch: int,
+                  progress=None) -> np.ndarray:
+        """The host drain (the JAX integrator's `run` loop): a normal and
+        a path queue on the host, the longer one stepped first (the path
+        queue on ties), in power-of-two buckets of at most `batch` lanes;
+        each step's outputs come back in one transfer and add into an f64
+        accumulator with np.add.at (a fixed order)."""
+        dt = self.dtype
+        acc = np.zeros((n_samples, 3), np.float64)
+        qn = RayQueue.empty(dt)
+        qn.append(primary)
+        qp = RayQueue.empty(dt)
+        # path batches are wide ([B, path_cap] children): keep B modest
+        path_parent_batch = max(1, (1 << 22) // max(self.path_cap, 1)) \
+            if self.path_cap else 0
+        steps = 0
+        while len(qn) or len(qp):
+            use_path = len(qp) >= len(qn)
+            queue = qp if use_path else qn
+            B = min(batch, max(len(queue), 1))
+            # bucket B to a power of two, as the JAX drain does to limit
+            # its recompiles
+            B = 1 << max(int(np.ceil(np.log2(B))), 6)
+            n_eff = min(B, len(queue))
+            # the shared accounting definition (per_lane_queries)
+            self.rays_traced += n_eff * self.per_lane_queries
+            got = queue.pop(n_eff).padded(B, dt)
+            rows = self._queue_rows(got)
+            sid, contrib, children, path_parent = self._to_host(
+                self._step(rows, path_ray=use_path))
+            np.add.at(acc, sid, contrib.astype(np.float64))
+            for ch in children.values():
+                self._enqueue(qn, ch)
+            if path_parent is not None:
+                self._enqueue_paths(qp, path_parent, path_parent_batch)
+            steps += 1
+            if progress:
+                progress(steps, len(qn), len(qp))
+        return acc
+
+    def _to_host(self, tree):
+        """A nest of dicts, tuples and tensors that share a leading batch
+        axis, on the host as numpy arrays of the same types: one
+        device-to-host copy (every value widened to f64, which holds the
+        working type's floats, the sample ids and the u32 seeds exactly)."""
+        leaves = []
+
+        def walk(x):
+            if isinstance(x, dict):
+                return {k: walk(v) for k, v in x.items()}
+            if isinstance(x, (tuple, list)):
+                return type(x)(walk(v) for v in x)
+            if x is None:
+                return None
+            leaves.append(x)
+            return len(leaves) - 1
+
+        shape = walk(tree)
+        n = leaves[0].shape[0]
+        flat = torch.cat([t.reshape(n, -1).to(torch.float64)
+                          for t in leaves], dim=1).cpu().numpy()
+        out, at = [], 0
+        for t in leaves:
+            w = int(np.prod(t.shape[1:], dtype=np.int64))
+            a = flat[:, at:at + w].reshape(t.shape)
+            at += w
+            if t.dtype == torch.bool:
+                a = a != 0
+            elif t.is_floating_point():
+                a = a.astype(self.dtype)
+            else:
+                a = a.astype(np.int64)
+            out.append(a)
+
+        def build(x):
+            if isinstance(x, dict):
+                return {k: build(v) for k, v in x.items()}
+            if isinstance(x, (tuple, list)):
+                return type(x)(build(v) for v in x)
+            return None if x is None else out[x]
+
+        return build(shape)
+
+    def _enqueue(self, queue: RayQueue, ch: Dict):
+        """Append a child block's live rays.  A depth-0 child still
+        contributes background on a miss (reference parent-side miss
+        handling, src/scene.c:484-493), so only intensity-0 rays are
+        dropped."""
+        keep = ch["mask"] & (ch["intensity"] > 0)
+        if not keep.any():
+            return
+        queue.append(RayQueue(
+            ch["p"][keep], ch["d"][keep], ch["intensity"][keep],
+            ch["tint"][keep], ch["depth"][keep].astype(np.int32),
+            ch["sample_id"][keep].astype(np.int32)))
+
+    def _enqueue_paths(self, queue: RayQueue, pp: Dict, pb: int):
+        """Spawn the path children of the masked descriptors of `pp`
+        (host arrays), `pb` descriptors at a time, and append them."""
+        idx = np.flatnonzero(pp["mask"])
+        for s in range(0, len(idx), pb):
+            sel = idx[s:s + pb]
+            sub = {k: torch.as_tensor(v[sel], device=self.device)
+                   for k, v in pp.items()}
+            ch = self._to_host(self._spawn_paths(sub))
+            m = ch["mask"].reshape(-1)
+            if not m.any():
+                continue
+            flat = lambda a: a.reshape((-1,) + a.shape[2:])[m]
+            queue.append(RayQueue(
+                flat(ch["p"]), flat(ch["d"]), flat(ch["intensity"]),
+                flat(ch["tint"]), flat(ch["depth"]).astype(np.int32),
+                flat(ch["sample_id"]).astype(np.int32)))

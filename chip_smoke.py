@@ -1680,7 +1680,7 @@ def phase_oracle(card):
     pos = np.stack([rng.uniform(0, sc.cfg.image_width, ORACLE_N),
                     rng.uniform(0, sc.cfg.image_height, ORACLE_N)], -1)
     t0 = time.perf_counter()
-    got = integ.run_device(pos)
+    got = integ.run_device(None, len(pos), pos_xy=pos)
     t_w = time.perf_counter() - t0
     # run_device's own rays: the same padded position block
     pad = torch.zeros((64, 2), dtype=torch.float64, device="cuda")
@@ -1758,7 +1758,7 @@ def single_drain(shape, batch):
     pos = pixel_centres(sc.cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    acc = integ.run_device(pos)
+    acc = integ.run_device(None, len(pos), pos_xy=pos)
     return acc, integ.rays_traced, time.perf_counter() - t0
 
 

@@ -10,10 +10,13 @@ cannot hang the suite.
 
 A job is a dict: kind "drain" renders the pixel centres of the smoke
 scene glass_table.acn at (w, h, direct, path, depth) through
-ShardedIntegrator.run_samples; kind "diff" runs
+ShardedIntegrator.run_samples; kind "queue" renders the same samples'
+host camera rays as an arbitrary primary queue through
+ShardedIntegrator.run_device(primary, n) (each rank the host drain on
+its share of the rows); kind "diff" runs
 ShardedDiffRenderer.value_and_grad on `lanes` camera samples of
-default_rng(5).  The single-device counterparts are `single_drain` and
-`single_diff`, run in the test's own process."""
+default_rng(5).  The single-device counterparts are `single_drain`,
+`single_queue` and `single_diff`, run in the test's own process."""
 
 import json
 import os
@@ -80,7 +83,30 @@ def single_drain(job):
     """The single-device drain of a "drain" job: (acc, rays_traced)."""
     from actinon_tpu_torch.render.integrator import Integrator
     integ = _integ(Integrator, job)
-    acc = integ.run_device(pixel_centres(integ.cfg))
+    pos = pixel_centres(integ.cfg)
+    acc = integ.run_device(None, len(pos), pos_xy=pos)
+    return acc, integ.rays_traced
+
+
+def primary_queue(integ):
+    """The pixel centres' host camera rays as a RayQueue."""
+    from actinon_tpu_torch.render.driver import camera_rays
+    from actinon_tpu_torch.render.integrator import RayQueue
+    pos = pixel_centres(integ.cfg)
+    n, dt = len(pos), integ.dtype
+    p, d = camera_rays(integ.ir, pos, dt)
+    return RayQueue(p, d, np.ones(n, dt), np.ones((n, 3), dt),
+                    np.full(n, integ.cfg.trace_depth, np.int32),
+                    np.arange(n, dtype=np.int32)), n
+
+
+def single_queue(job):
+    """A "queue" job through the single-device host drain, run() with
+    device_drain = False: (acc, rays_traced)."""
+    from actinon_tpu_torch.render.integrator import Integrator
+    integ = _integ(Integrator, job)
+    integ.device_drain = False
+    acc = integ.run(*primary_queue(integ))
     return acc, integ.rays_traced
 
 
@@ -97,9 +123,12 @@ def single_diff(job):
 def _run_job(job, mesh):
     from actinon_tpu_torch.parallel.mesh import (ShardedDiffRenderer,
                                                  ShardedIntegrator)
-    if job["kind"] == "drain":
+    if job["kind"] in ("drain", "queue"):
         integ = _integ(ShardedIntegrator, job, mesh)
-        acc = integ.run_samples(pixel_centres(integ.cfg))
+        if job["kind"] == "drain":
+            acc = integ.run_samples(pixel_centres(integ.cfg))
+        else:
+            acc = integ.run_device(*primary_queue(integ))
         return {"acc": acc, "rays_traced": np.asarray(integ.rays_traced),
                 "balance": np.asarray(integ.last_balance)}
     from actinon_tpu_torch.render.diff import DiffRenderer

@@ -985,7 +985,7 @@ def test_world_of_one_nccl_equals_run_device():
     sh = ShardedIntegrator(Tracer(ir, dtype=np.float32), mesh, batch=1024)
     single = Integrator(Tracer(ir, dtype=np.float32), batch=1024)
     acc_sh = sh.run_samples(pos)
-    acc_1 = single.run_device(pos)
+    acc_1 = single.run_device(None, len(pos), pos_xy=pos)
     assert np.array_equal(acc_sh, acc_1) and acc_1.max() > 0
     assert sh.rays_traced == single.rays_traced and sh.last_balance == 1.0
 

@@ -85,7 +85,7 @@ def test_radiance_matches_forward_expectation():
                     rng.uniform(0, cfg.image_height, 32)], -1)
     rad = dr.radiance(dr.params(), dr.primary(pos)).numpy()
     dr.integ.seed_mode = "counter"
-    acc = dr.integ.run_device(pos)
+    acc = dr.integ.run_device(None, len(pos), pos_xy=pos)
     assert rad.max() > 0
     np.testing.assert_allclose(rad, acc, rtol=1e-8, atol=1e-10)
 

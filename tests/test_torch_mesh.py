@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from _torch_mesh import glass_table, launch, pixel_centres, single_diff, \
-    single_drain
+    single_drain, single_queue
 
 # glass_table at (w, h, direct, path, depth)
 DRAIN = dict(kind="drain", shape=(16, 12, 3, 0, 6), dtype="float32",
@@ -20,7 +20,10 @@ NONDIV = dict(DRAIN, shape=(7, 5, 3, 0, 6), batch=128)
 MIXED = dict(DRAIN, shape=(8, 6, 2, 2, 12))
 DIFF = dict(kind="diff", shape=(16, 8, 3, 0, 5), dtype="float32",
             lanes=128, steps=4)
-JOBS2 = {"drain": DRAIN, "nondiv": NONDIV, "mixed": MIXED, "diff": DIFF}
+# an arbitrary primary queue: the host drain on each rank's rows
+QUEUE = dict(DRAIN, kind="queue", shape=(12, 9, 3, 0, 6), batch=256)
+JOBS2 = {"drain": DRAIN, "nondiv": NONDIV, "mixed": MIXED, "diff": DIFF,
+         "queue": QUEUE}
 JOBS3 = {"drain": DRAIN, "nondiv": NONDIV}
 # the slice against the JAX package: f64, counter seeding
 VS_JAX = dict(DRAIN, shape=(10, 8, 2, 0, 5), dtype="float64", batch=128,
@@ -56,7 +59,7 @@ def test_world_of_one_equals_run_device():
     single = Integrator(_tracer(DRAIN), batch=DRAIN["batch"])
     pos = pixel_centres(sh.cfg)
     acc_sh = sh.run_samples(pos)
-    acc_1 = single.run_device(pos)
+    acc_1 = single.run_device(None, len(pos), pos_xy=pos)
     assert np.array_equal(acc_sh, acc_1)
     assert sh.rays_traced == single.rays_traced
     assert sh.last_trips == single.last_trips and sh.last_balance == 1.0
@@ -89,6 +92,24 @@ def test_mixed_path_drain_sharded(world2, singles):
     assert np.isfinite(acc_sh).all()
     assert abs(acc_sh.mean() - acc_1.mean()) < 1e-5
     assert np.abs(acc_sh - acc_1).max() < 1e-2
+
+
+def test_sharded_queue_matches_single_run(world2):
+    """ShardedIntegrator.run_device(primary, n) on an arbitrary queue (the
+    JAX package's mesh.py:91-104 branch: the host drain, here on each
+    rank's round-robin share of the rows) against a single run() of the
+    host drain, within tests/test_mesh.py's 2e-5, with its queries;
+    every rank holds the same image."""
+    acc_1, rays_1 = single_queue(QUEUE)
+    for rank in world2:
+        got = rank["queue"]
+        assert got["acc"].shape == acc_1.shape
+        assert np.isfinite(got["acc"]).all() and acc_1.max() > 0
+        assert np.abs(got["acc"] - acc_1).max() < 2e-5
+        assert int(got["rays_traced"]) == rays_1 > 0
+        assert 0.5 < float(got["balance"]) <= 1.0
+    assert np.array_equal(world2[0]["queue"]["acc"],
+                          world2[1]["queue"]["acc"])
 
 
 @pytest.mark.parametrize("name", ["drain", "mixed"])

@@ -85,7 +85,7 @@ def port_rays(kind, n=12, seed=3):
     rng = np.random.default_rng(seed)
     pos = np.stack([rng.uniform(0, cfg.image_width, n),
                     rng.uniform(0, cfg.image_height, n)], -1)
-    got = integ.run_device(pos)
+    got = integ.run_device(None, len(pos), pos_xy=pos)
     # run_device's own rays: the same padded position block
     Np = 1 << int(np.ceil(np.log2(max(n, 64))))
     pad = torch.zeros((Np, 2), dtype=torch.float64)
