@@ -1405,6 +1405,12 @@ class Integrator:
 
         sid, contrib, children, _ = self._step(lanes, mixed=mixed)
         _scatter_add(acc, sid, torch.where(valid[:, None], contrib, 0.0))
+        # count only LIVE non-parent lanes (the shared accounting
+        # definition, per_lane_queries), before the children's write-back
+        # below overwrites the queue rows that `lanes` views
+        alive = valid & (lanes["intensity"] > 0)
+        if mixed:
+            alive = alive & (lanes["kind"] != 2)
 
         ch = list(children.values())
         if mixed:
@@ -1429,11 +1435,6 @@ class Integrator:
                    for f in self._fields()}
         for f, v in compact.items():
             q[f][s:s + nv_fit] = v.to(q[f].dtype)
-        # count only LIVE non-parent lanes (the shared accounting
-        # definition, per_lane_queries)
-        alive = valid & (lanes["intensity"] > 0)
-        if mixed:
-            alive = alive & (lanes["kind"] != 2)
         return s + nv_fit, nv - nv_fit, alive.sum()
 
     # ------------------------------------------------------------------

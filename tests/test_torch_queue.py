@@ -207,11 +207,14 @@ def test_host_drain_matches_mixed_drain_f32(path_samples, depth):
     assert np.abs(acc_host - acc_dev).max() < 1e-2
 
 
-@pytest.mark.parametrize("path_samples", [0, 4])
+@pytest.mark.parametrize("path_samples", [0, 4, 20])
 def test_host_and_device_drain_count_the_same_queries(path_samples):
     """tests/test_accounting.py:60-83: rays_traced means the same through
     the host drain and the device drain (device-precision primaries, so
-    the position-seeded streams and spawn counts agree)."""
+    the position-seeded streams and spawn counts agree).  At path 20 a
+    parent expands over two trips (PATH_EXPAND = 16), and the mixed drain
+    must count the lanes it popped, not the children written back over
+    their queue rows."""
     dt = np.float32
 
     def integ():
