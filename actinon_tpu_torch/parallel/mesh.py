@@ -136,13 +136,10 @@ class ShardedIntegrator(Integrator):
             return self._run_sharded(np.asarray(pos_xy))
         # arbitrary primary queues (not camera samples): the host drain
         # on each rank's share of the rows
-        return self._run_queue_sharded(primary, n_samples)
+        return self.run(primary, n_samples)
 
     def run(self, primary: RayQueue, n_samples: int,
             progress=None) -> np.ndarray:
-        return self._run_queue_sharded(primary, n_samples, progress)
-
-    def _run_queue_sharded(self, primary, n_samples, progress=None):
         if not isinstance(primary, RayQueue):
             raise TypeError("primary queue required")
         n, k = self.mesh.size, self.mesh.rank

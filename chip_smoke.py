@@ -4,8 +4,8 @@
     python3 chip_smoke.py            # every phase, on the first card
     python3 chip_smoke.py --profile  # where the renders' time goes
 
-(`--mesh-worker` runs one rank of phase 16's two-rank world; the script
-starts those itself.)
+(`--mesh-worker` runs one rank of phase 16's two-rank world, which also
+serves phase 17 (e); the script starts those itself.)
 
 Phases, each printing one line of numbers:
 
@@ -52,7 +52,9 @@ Phases, each printing one line of numbers:
                repeat LAMP_HASH, and the scene kernels K4 and K5 launched;
   8. scene kernels — K4 and K5 against their plain versions on the inputs
                of the lamp_row render's largest calls (the drain batch for
-               K4, one NEE chunk of flattened shadow rays for K5), with
+               K4, one NEE chunk of flattened shadow rays for K5; the rays
+               whose outcome differs, "differ", beside the count with the
+               parent's twice-rounded plain arithmetic, "differ_before"), with
                device time, plain time, the bound and K4's and K5's launch
                geometry (threads and rays a thread block, shared bytes);
   9. counter-mode lamp_row — the image mean with the kernels and without
@@ -131,7 +133,25 @@ Phases, each printing one line of numbers:
                its queries, the two ranks' images equal, and each
                shape's load balance beside MULTICHIP_r05.json's on 8 TPU
                devices; then ShardedDiffRenderer on the two ranks;
- 17. wine_glass — the corpus scene at the headline shape, when the
+ 17. queue   — the primary-queue entry points (RayQueue, run,
+               run_device(primary, n), the host drain): (a) at the
+               headline shape, run_device on the primaries of the port's
+               device-precision raygen bit for bit run_device(None, n,
+               pos_xy), through K1; (b) the host drain (device_drain =
+               False) at that shape launches K1 and agrees with the device
+               drain within tests/test_path_device.py's bounds (mean 1e-5,
+               max 1e-2) with its queries, and again in counter mode (K2,
+               K3); (c) lamp_row's host drain at LAMP_SHAPE launches K4-K7
+               and agrees with its device drain; (d) the path configs of
+               test_path_device.py on glass_table at 64x48: the host drain
+               (its own path queue) against the mixed device drain; (e)
+               phase 16's two ranks on the arbitrary-queue branch at the
+               draft shape bit for bit a single run(); each drain's
+               seconds, and the "queue c4" line: K4-K7's lanes that differ
+               from their plain versions on the batches of phases 8 and
+               11, the plain versions with the parent's twice-rounded
+               arithmetic -> the once-rounded one (ROADMAP C4);
+ 18. wine_glass — the corpus scene at the headline shape, when the
                directory named by $ACTINON_CORPUS holds wine_glass.acn.
 
 The glass_table phases hold slice 1 still: the headline hash repeats
@@ -173,9 +193,10 @@ FRACTAL_SHAPE = (160, 120, 10, 0, 11)  # bench.py:82 many_spheres, not cut
 FRACTAL_AB = (64, 48)              # counter-mode size, kernels vs none
 FRACTAL_CPU = (64, 48, 1, 0, 3)    # counter-mode shape, card vs CPU
 # the pinned fold hashes on the H100 (re-pinned when the f32 roots came to
-# round their discriminants once, ROADMAP C3)
+# round their discriminants once, ROADMAP C3, and lamp_row's when its
+# envelope gates and bound tests did, C4)
 GLASS_HASH = 1838053121656986330   # glass_table headline hash on the H100
-LAMP_HASH = 9581574344572724440    # lamp_row at LAMP_SHAPE on the H100
+LAMP_HASH = 10893503699642244067   # lamp_row at LAMP_SHAPE on the H100
 FRACTAL_HASH = 1924618234713347685  # sphere_fractal at FRACTAL_SHAPE
 MANY_DIRECT = (8, 6, 8000, 0, 25)  # K1 at 2 lights x 8,000 samples
 
@@ -432,6 +453,35 @@ def bound(n_bytes, n_ops):
 
 
 # ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def twice_rounded():
+    """The plain K4-K7 versions with the parent commit's arithmetic
+    (before ROADMAP C4): every multiply-add of their envelope and bound
+    tests and of the big-scene sphere roots rounded twice, s s - q too
+    (the twice-rounded forms of tracer._fma32 and _disc in the two
+    modules' names)."""
+    from actinon_tpu_torch.render import bigscene, scene_kernels
+    mods = (bigscene, scene_kernels)
+    saved = [(m._fma32, m._disc) for m in mods]
+    for m in mods:
+        m._fma32 = lambda a, b, c: a * b + c
+        m._disc = lambda s, q: s * s - q
+    try:
+        yield
+    finally:
+        for m, (fma, disc) in zip(mods, saved):
+            m._fma32, m._disc = fma, disc
+
+
+def top2_differ(got_t, got_c, want_t, want_c):
+    """Rays whose top-2 outcome differs between kernel and plain: a slot
+    finite on one side only, or finite on both with another winner."""
+    import torch
+    fin_g, fin_w = torch.isfinite(got_t), torch.isfinite(want_t)
+    bad = (fin_g != fin_w) | (fin_g & fin_w & (got_c != want_c))
+    return int(bad.any(1).sum())
 
 
 def phase_card():
@@ -1068,6 +1118,10 @@ def phase_scene_kernels(cap):
     torch.cuda.synchronize()
     work = sk._Work()
     want_t, want_c = sk.scene_top2_plain(st, p, d, lm, work=work)
+    differ = top2_differ(got_t, got_c, want_t, want_c)
+    with twice_rounded():
+        differ_before = top2_differ(got_t, got_c,
+                                    *sk.scene_top2_plain(st, p, d, lm))
     fin_g, fin_w = torch.isfinite(got_t), torch.isfinite(want_t)
     fin_agree = float((fin_g == fin_w).float().mean())
     both = fin_g & fin_w
@@ -1088,7 +1142,8 @@ def phase_scene_kernels(cap):
                        scene_ops(work, anyhit=False))
     say("kernel scene_top2", n=n, hits=int(fin_w[:, 0].sum()),
         finite_agree=f"{fin_agree:.6f}", codes_agree=f"{code_agree:.6f}",
-        max_abs_err=f"{max_err:.3e}", ms=f"{ms:.4f}",
+        max_abs_err=f"{max_err:.3e}", differ=differ,
+        differ_before=differ_before, ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.5f}", bound_by=b_by,
         steps=work.steps, sweeps=work.sweeps, **sk.top2_launch(st))
     out["scene_top2"] = dict(
@@ -1096,7 +1151,8 @@ def phase_scene_kernels(cap):
         source="actinon_tpu_torch/csrc/scene_kernels.cu",
         replaces="actinon_tpu/render/pallas_scene.py:831",
         max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, agree=code_agree, n=n)
+        bound_by=b_by, library_ms=None, agree=code_agree, n=n,
+        differ=differ, differ_before=differ_before)
 
     tr, p, d, lim = cap["scene_anyhit"]
     n = p.shape[0]
@@ -1104,6 +1160,10 @@ def phase_scene_kernels(cap):
     torch.cuda.synchronize()
     work = sk._Work()
     want = sk.scene_anyhit_plain(stm, p, d, lim, work=work)
+    differ = int((got != want).sum())
+    with twice_rounded():
+        differ_before = int((got != sk.scene_anyhit_plain(
+            stm, p, d, lim)).sum())
     agree = float((got == want).float().mean())
     if not agree >= 0.998:
         fail(f"scene any-hit kernel agreement {agree}")
@@ -1113,7 +1173,8 @@ def phase_scene_kernels(cap):
     tables = stm.table.nbytes + stm.bounds.nbytes + 4 * stm.desc_t.numel()
     b_ms, b_by = bound(n * (7 * 4 + 1) + tables, scene_ops(work, True))
     say("kernel scene_anyhit", n=n, blocked=int(want.sum()),
-        agree=f"{agree:.6f}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        agree=f"{agree:.6f}", differ=differ, differ_before=differ_before,
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         bound_ms=f"{b_ms:.5f}", bound_by=b_by, steps=work.steps,
         **sk.anyhit_launch(stm))
     out["scene_anyhit"] = dict(
@@ -1122,7 +1183,7 @@ def phase_scene_kernels(cap):
         replaces="actinon_tpu/render/pallas_scene.py:892",
         max_abs_err=float((got != want).float().max()), ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        agree=agree, n=n)
+        agree=agree, n=n, differ=differ, differ_before=differ_before)
     return out
 
 
@@ -1218,6 +1279,10 @@ def phase_big_kernels(cap):
     work = bs._Work()
     want_t, want_g = bs.big_top2_plain(blocks, p, d, work=work,
                                        table=big.table)
+    differ = top2_differ(got_t, got_g, want_t, want_g)
+    with twice_rounded():
+        differ_before = top2_differ(got_t, got_g, *bs.big_top2_plain(
+            blocks, p, d, table=big.table))
     fin_g, fin_w = torch.isfinite(got_t), torch.isfinite(want_t)
     fin_agree = float((fin_g == fin_w).float().mean())
     both = fin_g & fin_w
@@ -1237,6 +1302,7 @@ def phase_big_kernels(cap):
     say("kernel big_top2", n=n, blocks=blocks.G,
         hits=int(fin_w[:, 0].sum()), finite_agree=f"{fin_agree:.6f}",
         idx_agree=f"{idx_agree:.6f}", max_abs_err=f"{max_err:.3e}",
+        differ=differ, differ_before=differ_before,
         ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.5f}",
         bound_by=b_by, block_tests=work.culls, blocks_evaluated=work.blocks,
         lanes=work.lanes, merges=work.merges, **bs.TOP2_LAUNCH)
@@ -1245,7 +1311,8 @@ def phase_big_kernels(cap):
         source="actinon_tpu_torch/csrc/bigscene_kernels.cu",
         replaces="actinon_tpu/render/pallas_bigscene.py:159",
         max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, agree=idx_agree, n=n)
+        bound_by=b_by, library_ms=None, agree=idx_agree, n=n,
+        differ=differ, differ_before=differ_before)
 
     out["big_anyhit"] = check_big_anyhit("sphere_fractal",
                                          cap["big_anyhit"])
@@ -1276,6 +1343,10 @@ def check_big_anyhit(tag, entry):
     work = bs._Work()
     want = bs.big_anyhit_plain(blocks, p, d, lim, work=work,
                                table=big.table)
+    differ = int((got[design] != want).sum())
+    with twice_rounded():
+        differ_before = int((got[design] != bs.big_anyhit_plain(
+            blocks, p, d, lim, table=big.table)).sum())
     agree = float((got[design] == want).float().mean())
     if not agree >= 0.998:
         fail(f"big any-hit kernel ({tag}) agreement {agree}")
@@ -1290,7 +1361,8 @@ def check_big_anyhit(tag, entry):
     tables = 4 * blocks.G * bs.LB * 4 + 4 * blocks.G * 4   # the rows read
     b_ms, b_by = bound(n * (7 * 4 + 1) + tables, big_ops(work, True))
     say(f"kernel big_anyhit {tag}", n=n, blocks=blocks.G, design=design,
-        blocked=int(want.sum()), agree=f"{agree:.6f}", designs_equal=True,
+        blocked=int(want.sum()), agree=f"{agree:.6f}", differ=differ,
+        differ_before=differ_before, designs_equal=True,
         ms_warp=f"{ms['warp']:.4f}", spread_warp=spread["warp"],
         ms_thread=f"{ms['thread']:.4f}", spread_thread=spread["thread"],
         rounds=K7_ROUNDS, plain_ms=f"{plain_ms:.4f}",
@@ -1303,7 +1375,8 @@ def check_big_anyhit(tag, entry):
         replaces="actinon_tpu/render/pallas_bigscene.py:260",
         max_abs_err=float((got[design] != want).float().max()),
         ms=ms[design], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, agree=agree, n=n, design=design)
+        library_ms=None, agree=agree, n=n, design=design, differ=differ,
+        differ_before=differ_before)
 
 
 # block counts of K7's design sweep, on each render's largest K7 call
@@ -1780,7 +1853,8 @@ def sharded_diff(mesh):
 def mesh_worker(rank, n, store, out):
     """One rank of the two-rank world (`chip_smoke.py --mesh-worker`):
     gloo over a FileStore, the kernels on cuda:0 beside the other rank;
-    every SHARD_SHAPES pass, then the sharded fwd_bwd, saved to `out`."""
+    every SHARD_SHAPES pass, the sharded fwd_bwd, then the arbitrary-queue
+    branch at QUEUE_DRAFT (phase 17 (e)), saved to `out`."""
     import torch
     import torch.distributed as dist
     from actinon_tpu_torch.parallel.mesh import make_mesh
@@ -1796,6 +1870,9 @@ def mesh_worker(rank, n, store, out):
     got, secs = sharded_diff(mesh)
     res.update({f"diff/{k}": v for k, v in got.items()})
     res["diff/seconds"] = secs
+    acc, rays, secs = sharded_queue(QUEUE_DRAFT, mesh)
+    res.update({"queue/acc": acc, "queue/rays": rays,
+                "queue/seconds": secs})
     np.savez(out, **res)
     dist.destroy_process_group()
     return 0
@@ -1910,6 +1987,199 @@ def phase_sharded(card):
     check_sharded_diff("world2", got, want,
                        max(float(r["diff/seconds"]) for r in ranks), s_vg,
                        card)
+    return ranks
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the primary-queue entry points (RayQueue, run, run_device with
+# a queue, the host drain)
+
+QUEUE_PATHS = {"path20": (64, 48, 4, 20, 12), "path8": (64, 48, 4, 8, 22)}
+QUEUE_PATH_BATCH = 1 << 12
+QUEUE_DRAFT = SHARD_SHAPES["draft"]
+
+
+def queue_integ(path, shape, batch, seed_mode="position", integ_cls=None,
+                **kw):
+    """An f32 integrator of the scene at `path` at `shape` on cuda:0 (kw
+    to the class: the mesh of a ShardedIntegrator) and its pixel
+    centres."""
+    from actinon_tpu_torch.render.integrator import Integrator
+    from actinon_tpu_torch.render.tracer import Tracer
+    from actinon_tpu_torch.scene import ir as sir
+    sc = load_scene(path, *shape)
+    integ = (integ_cls or Integrator)(
+        Tracer(sir.compile_scene(sc), dtype=np.float32, device="cuda:0"),
+        batch=batch, **kw)
+    integ.seed_mode = seed_mode
+    return integ, pixel_centres(sc.cfg)
+
+
+def camera_queue(integ, pos):
+    """The primaries of pos as a RayQueue, from the port's device-precision
+    raygen on the position block padded to run_device's power of two (the
+    block that run_device(None, n, pos_xy) builds its own rays from)."""
+    import torch
+    from actinon_tpu_torch.render.integrator import RayQueue
+    n, dt = len(pos), integ.dtype
+    blk = np.zeros((1 << int(np.ceil(np.log2(max(n, 64)))), 2))
+    blk[:n] = pos
+    p, d = integ._camera_rays_dev(torch.as_tensor(
+        blk, dtype=integ.tdtype, device=integ.device))
+    return RayQueue(p[:n].cpu().numpy(), d[:n].cpu().numpy(),
+                    np.ones(n, dt), np.ones((n, 3), dt),
+                    np.full(n, integ.cfg.trace_depth, np.int32),
+                    np.arange(n, dtype=np.int32))
+
+
+def drain(integ, fn):
+    """One drain: (acc, its queries, its launches, wall seconds), the
+    launch counts set to 0 just before it and read just after."""
+    import torch
+    from actinon_tpu_torch.render import kernels
+    rays0 = integ.rays_traced
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    acc = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return acc, integ.rays_traced - rays0, dict(kernels.LAUNCHES), secs
+
+
+def sharded_queue(shape, mesh):
+    """ShardedIntegrator.run_device(primary, n) at `shape` (one rank of
+    the two-rank world): (acc, rays_traced, wall seconds)."""
+    from actinon_tpu_torch.parallel.mesh import ShardedIntegrator
+    sh, pos = queue_integ(SCENE, *shape, integ_cls=ShardedIntegrator,
+                          mesh=mesh)
+    acc, rays, _, secs = drain(sh, lambda: sh.run_device(
+        camera_queue(sh, pos), len(pos)))
+    return acc, rays, secs
+
+
+def agree_bounds(tag, host, dev, rays_h, rays_d):
+    """tests/test_path_device.py's bounds (mean within 1e-5, max within
+    1e-2) and test_accounting.py's equal queries; fails otherwise."""
+    d_mean = abs(float(host.mean()) - float(dev.mean()))
+    d_max = float(np.abs(host - dev).max())
+    ok = (np.isfinite(host).all() and np.isfinite(dev).all()
+          and d_mean < 1e-5 and d_max < 1e-2 and rays_h == rays_d)
+    if not ok:
+        fail(f"queue {tag}: host drain against device drain mean off by "
+             f"{d_mean}, max {d_max}, queries {rays_h} against {rays_d}")
+    return dict(d_mean=f"{d_mean:.3g}", d_max=f"{d_max:.3g}")
+
+
+def phase_queue(card, ranks, ks):
+    """The primary-queue entry points on the card (module docstring,
+    phase 17)."""
+    t_phase = time.perf_counter()
+    lj = lambda L: json.dumps({k: v for k, v in L.items() if v},
+                              separators=(",", ":"))
+    # (a) run_device(primary, n) on the device-precision primaries against
+    # run_device(None, n, pos_xy): bit for bit, through K1 (the second
+    # call, the queue's, finds the tables built: its seconds are the
+    # device drain's)
+    integ, pos = queue_integ(SCENE, HEADLINE, 1 << 15)
+    n = len(pos)
+    q = camera_queue(integ, pos)
+    acc_p, rays_p, L_p, s_p = drain(
+        integ, lambda: integ.run_device(None, n, pos_xy=pos))
+    acc_q, rays_q, L_q, s_q = drain(integ, lambda: integ.run_device(q, n))
+    same = bool(np.array_equal(acc_q, acc_p))
+    say("queue run_device headline", n=n, batch=integ.batch,
+        queue_s=f"{s_q:.3f}", positions_s=f"{s_p:.3f}", bit_equal=same,
+        rays_traced=rays_q, launches=lj(L_q), card=repr(card))
+    if not same or rays_q != rays_p or min(L_q["nee"], L_p["nee"]) <= 0:
+        fail(f"queue (a): bit-equal {same}, queries {rays_q} against "
+             f"{rays_p}, launches {L_q} / {L_p}")
+    # (b) the host drain at the same width, through K1; then both drains
+    # in counter mode
+    integ.device_drain = False
+    acc_h, rays_h, L_h, s_h = drain(integ, lambda: integ.run(q, n))
+    if L_h["nee"] <= 0:
+        fail(f"queue (b): the host drain launched {L_h}")
+    say("queue host headline", n=n, batch=integ.batch, host_s=f"{s_h:.3f}",
+        device_s=f"{s_q:.3f}", rays_traced=rays_h, launches=lj(L_h),
+        **agree_bounds("headline", acc_h, acc_p, rays_h, rays_p),
+        card=repr(card))
+    ks["nee"]["host_launches"] = L_h["nee"]
+    integ_c, _ = queue_integ(SCENE, HEADLINE, 1 << 15, seed_mode="counter")
+    for _ in range(2):     # the first call builds the tables: time the second
+        acc_cd, rays_cd, L_cd, s_cd = drain(
+            integ_c, lambda: integ_c.run_device(q, n))
+    integ_c.device_drain = False
+    acc_ch, rays_ch, L_ch, s_ch = drain(integ_c, lambda: integ_c.run(q, n))
+    say("queue host headline counter", n=n, host_s=f"{s_ch:.3f}",
+        device_s=f"{s_cd:.3f}", rays_traced=rays_ch, launches=lj(L_ch),
+        **agree_bounds("headline counter", acc_ch, acc_cd, rays_ch,
+                       rays_cd), card=repr(card))
+    for k, name in (("shadow_any_hit", "shadow"), ("object_hit",
+                                                   "object_hit")):
+        ks[k]["host_launches"] = L_ch[name]
+    del integ, integ_c
+    # (c) lamp_row's host drain at its bench shape: K4-K7
+    integ, pos = queue_integ(LAMP, LAMP_SHAPE, 1 << 15)
+    n = len(pos)
+    q = camera_queue(integ, pos)
+    for _ in range(2):
+        acc_d, rays_d, _, s_d = drain(integ,
+                                      lambda: integ.run_device(q, n))
+    integ.device_drain = False
+    acc_h, rays_h, L_h, s_h = drain(integ, lambda: integ.run(q, n))
+    say("queue host lamp_row", n=n, batch=integ.batch, host_s=f"{s_h:.3f}",
+        device_s=f"{s_d:.3f}", rays_traced=rays_h, launches=lj(L_h),
+        **agree_bounds("lamp_row", acc_h, acc_d, rays_h, rays_d),
+        card=repr(card))
+    if min(L_h[k] for k in SCENE_KEYS) <= 0:
+        fail(f"queue (c): lamp_row's host drain launched {L_h}")
+    for k in ("scene_top2", "scene_anyhit", "big_top2"):
+        ks[k]["host_launches"] = L_h[k]
+    ks["big_anyhit_lamp"]["host_launches"] = L_h["big_anyhit"]
+    del integ
+    # (d) the path configs: the host drain (its own path queue) against
+    # the mixed device drain
+    for name, shape in QUEUE_PATHS.items():
+        integ, pos = queue_integ(SCENE, shape, QUEUE_PATH_BATCH)
+        n = len(pos)
+        q = camera_queue(integ, pos)
+        for _ in range(2):
+            acc_d, rays_d, L_d, s_d = drain(
+                integ, lambda: integ.run_device(q, n))
+        acc_h, rays_h, L_h, s_h = drain(integ, lambda: integ.run(q, n))
+        say(f"queue host {name}", size="x".join(map(str, shape[:2])),
+            direct=shape[2], path=shape[3], depth=shape[4],
+            batch=QUEUE_PATH_BATCH, host_s=f"{s_h:.3f}",
+            device_s=f"{s_d:.3f}", rays_traced=rays_h, launches=lj(L_h),
+            **agree_bounds(name, acc_h, acc_d, rays_h, rays_d),
+            card=repr(card))
+    # (e) two ranks sharing the card (phase 16's world) on the arbitrary-
+    # queue branch, against a single run() of the host drain
+    integ, pos = queue_integ(SCENE, *QUEUE_DRAFT)
+    integ.device_drain = False
+    acc_1, rays_1, _, s_1 = drain(integ, lambda: integ.run(
+        camera_queue(integ, pos), len(pos)))
+    acc = ranks[0]["queue/acc"]
+    same = all(np.array_equal(r["queue/acc"], acc_1) for r in ranks)
+    rays = [int(r["queue/rays"]) for r in ranks]
+    say("queue sharded world2 draft",
+        size="x".join(map(str, QUEUE_DRAFT[0][:2])), batch=QUEUE_DRAFT[1],
+        sharded_s=f"{max(float(r['queue/seconds']) for r in ranks):.3f}",
+        single_s=f"{s_1:.3f}", bit_equal=same,
+        max_err=f"{float(np.abs(acc - acc_1).max()):.3g}",
+        rays_traced=rays[0], rays_single=rays_1, card=repr(card))
+    if not same or rays != [rays_1] * len(ranks):
+        fail(f"queue (e): bit-equal {same}, queries {rays} against "
+             f"{rays_1}")
+    # ROADMAP C4: K4-K7's lanes that differ from their plain versions,
+    # the plain versions with the parent's twice-rounded arithmetic and
+    # with the once-rounded arithmetic, on the same captured batches
+    say("queue c4", **{k: f"{ks[k]['differ_before']}->{ks[k]['differ']}"
+                       f"/{ks[k]['n']}" for k in (
+                           "scene_top2", "scene_anyhit", "big_top2",
+                           "big_anyhit", "big_anyhit_lamp")},
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
 
 
 def check_sharded_diff(tag, got, want, secs, single_s, card):
@@ -2111,7 +2381,8 @@ def main(argv):
     ks.update(phase_ops())
     phase_diff()
     phase_oracle(card)
-    phase_sharded(card)
+    ranks = phase_sharded(card)
+    phase_queue(card, ranks, ks)
     wine = os.path.join(CORPUS, "wine_glass.acn")
     if CORPUS and os.path.exists(wine):
         render("wine_glass", load_scene(wine, *HEADLINE), 1 << 15)

@@ -1054,3 +1054,53 @@ def test_sphere_first_hit_same_bits_on_card_and_cpu():
         assert torch.equal(f, torch.isfinite(got_card[k]))
         torch.testing.assert_close(got_card[k][f], got_cpu[k][f],
                                    rtol=1e-6, atol=1e-6)
+
+
+# -- the primary-queue entry points ------------------------------------------
+
+
+def test_run_device_queue_equals_positions_on_card():
+    """run_device(primary, n) on the primaries of the device-precision
+    raygen (the padded position block run_device builds its own rays
+    from) is run_device(None, n, pos_xy)'s image bit for bit, with its
+    queries, through K1; the host drain (run, device_drain = False) on
+    the same queue launches K1 too and agrees within
+    tests/test_path_device.py's bounds."""
+    _need_card()
+    from actinon_tpu_torch.acn.interp import run_file
+    from actinon_tpu_torch.render import kernels
+    from actinon_tpu_torch.render.integrator import Integrator, RayQueue
+    from actinon_tpu_torch.render.tracer import Tracer
+    from actinon_tpu_torch.scene import ir as sir
+    cap = []
+    run_file(SCENE, render_fn=lambda sc, fn: cap.append(sc.clone()),
+             args=["-f"])
+    sc = cap[0]
+    sc.cfg.image_width, sc.cfg.image_height = 40, 30
+    sc.cfg.direct_samples, sc.cfg.trace_depth = 4, 8
+    integ = Integrator(Tracer(sir.compile_scene(sc), dtype=np.float32),
+                       batch=1024)
+    ys, xs = np.mgrid[0:30, 0:40]
+    pos = np.stack([xs.reshape(-1) + 0.5, ys.reshape(-1) + 0.5], -1)
+    n = len(pos)
+    blk = np.zeros((2048, 2))
+    blk[:n] = pos
+    p, d = integ._camera_rays_dev(torch.as_tensor(blk, dtype=torch.float32,
+                                                  device="cuda"))
+    q = RayQueue(p[:n].cpu().numpy(), d[:n].cpu().numpy(),
+                 np.ones(n, np.float32), np.ones((n, 3), np.float32),
+                 np.full(n, 8, np.int32), np.arange(n, dtype=np.int32))
+    acc_p = integ.run_device(None, n, pos_xy=pos)
+    rays_p = integ.rays_traced
+    kernels.reset_launches()
+    acc_q = integ.run_device(q, n)
+    assert kernels.LAUNCHES["nee"] > 0
+    assert np.array_equal(acc_q, acc_p) and acc_p.max() > 0
+    assert integ.rays_traced == 2 * rays_p
+    integ.device_drain = False
+    kernels.reset_launches()
+    acc_h = integ.run(q, n)
+    assert kernels.LAUNCHES["nee"] > 0
+    assert abs(acc_h.mean() - acc_p.mean()) < 1e-5
+    assert np.abs(acc_h - acc_p).max() < 1e-2
+    assert integ.rays_traced == 3 * rays_p
