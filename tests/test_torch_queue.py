@@ -105,7 +105,7 @@ def test_run_device_primary_matches_jax(kw):
     lanes while the images agree; test_run_samples_host_branch_* holds
     the counts on camera rays."""
     ji, ti = lamp_pair(**kw)
-    n = 60
+    n = 30
     want = ji.run_device(queue(JRayQueue, 2 * n, 3, ji.cfg.trace_depth), n)
     got = ti.run_device(queue(TRayQueue, 2 * n, 3, ti.cfg.trace_depth), n)
     assert want.max() > 0
@@ -118,7 +118,7 @@ def test_host_drain_run_matches_jax(kw):
     normal and path queues, against the JAX package's (the query counts
     as in test_run_device_primary_matches_jax)."""
     ji, ti = lamp_pair(device_drain=False, **kw)
-    n = 60
+    n = 30
     steps = []
     want = ji.run(queue(JRayQueue, 2 * n, 4, ji.cfg.trace_depth), n)
     got = ti.run(queue(TRayQueue, 2 * n, 4, ti.cfg.trace_depth), n,
@@ -169,6 +169,13 @@ def test_spawn_paths_matches_jax():
         np.testing.assert_allclose(got[k][m], want[k][m], err_msg=k, **TOL)
 
 
+def pixels(cfg):
+    """The centres of every other pixel of the image (a checkerboard)."""
+    ys, xs = np.mgrid[0:cfg.image_height, 0:cfg.image_width]
+    pos = np.stack([xs.reshape(-1) + 0.5, ys.reshape(-1) + 0.5], -1)
+    return pos[(xs + ys).reshape(-1) % 2 == 0]
+
+
 def _camera_queue(ti, pos, dt):
     """Primary camera rays from the port's device-precision raygen."""
     p, d = ti._camera_rays_dev(torch.as_tensor(pos, dtype=ti.tdtype))
@@ -196,9 +203,7 @@ def test_host_drain_matches_mixed_drain_f32(path_samples, depth):
 
     host, dev = integ(), integ()
     host.device_drain = False
-    cfg = host.cfg
-    ys, xs = np.mgrid[0:cfg.image_height, 0:cfg.image_width]
-    pos = np.stack([xs.reshape(-1) + 0.5, ys.reshape(-1) + 0.5], -1)
+    pos = pixels(host.cfg)
     n = len(pos)
     acc_host = host.run(_camera_queue(host, pos, dt), n)
     acc_dev = dev.run_device(_camera_queue(dev, pos, dt), n)
@@ -218,7 +223,7 @@ def test_host_and_device_drain_count_the_same_queries(path_samples):
     dt = np.float32
 
     def integ():
-        sc = S.lamp_scene(tho, direct_samples=3, depth=12,
+        sc = S.lamp_scene(tho, direct_samples=2, depth=12,
                           path_samples=path_samples)
         i = TIntegrator(TTracer(tsir.compile_scene(sc), dtype=dt,
                                 device="cpu"), batch=256)
@@ -227,9 +232,7 @@ def test_host_and_device_drain_count_the_same_queries(path_samples):
 
     dev, host = integ(), integ()
     host.device_drain = False
-    cfg = dev.cfg
-    ys, xs = np.mgrid[0:cfg.image_height, 0:cfg.image_width]
-    pos = np.stack([xs.reshape(-1) + 0.5, ys.reshape(-1) + 0.5], -1)
+    pos = pixels(dev.cfg)
     acc_dev = dev.run_samples(pos)
     acc_host = host.run(_camera_queue(host, pos, dt), len(pos))
     assert dev.per_lane_queries == host.per_lane_queries
