@@ -753,30 +753,63 @@ inline int grid_of(int n, int per_block) {
 
 // Sets the kernel's dynamic shared memory above the default 48 KB where
 // it needs more; refuses (cudaErrorInvalidValue) more than a thread block
-// may have.
+// may have.  Each kernel's setting is made once per device and size, so a
+// launch captured into a CUDA graph after its first launch calls nothing
+// but cudaGetDevice here.
 template <class Kernel>
 int shared_ok(Kernel kernel, size_t shared) {
     if (shared > kMaxShared) return (int)cudaErrorInvalidValue;
     if (shared <= 48 * 1024) return 0;
-    return (int)cudaFuncSetAttribute(
+    struct Set { const void* fn; int dev; size_t bytes; };
+    static Set set[16];
+    static int n_set = 0;
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    const void* fn = (const void*)kernel;
+    int at = -1;
+    for (int i = 0; i < n_set; ++i)
+        if (set[i].fn == fn && set[i].dev == dev) at = i;
+    if (at >= 0 && set[at].bytes >= shared) return 0;
+    e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+    if (e != cudaSuccess) return (int)e;
+    if (at < 0 && n_set < 16) at = n_set++;
+    if (at >= 0) set[at] = Set{fn, dev, shared};
+    return 0;
 }
 
 // Caps *grid at the thread blocks the card holds at once, so that a
 // large batch stages its tables once per resident block and each warp
-// strides over the rays.
+// strides over the rays.  The count is queried once per kernel, device,
+// block size and shared size, so a captured launch queries nothing.
 template <class Kernel>
 int resident_grid(Kernel kernel, int threads, size_t shared, int* grid) {
-    int dev = 0, sms = 0, per_sm = 0;
+    struct Seen { const void* fn; int dev, threads; size_t shared;
+                  int resident; };
+    static Seen seen[16];
+    static int n_seen = 0;
+    int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
+    if (e != cudaSuccess) return (int)e;
+    const void* fn = (const void*)kernel;
+    int resident = -1;
+    for (int i = 0; i < n_seen; ++i)
+        if (seen[i].fn == fn && seen[i].dev == dev
+                && seen[i].threads == threads && seen[i].shared == shared)
+            resident = seen[i].resident;
+    if (resident < 0) {
+        int sms = 0, per_sm = 0;
         e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                    dev);
-    if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          threads, shared);
-    if (e != cudaSuccess) return (int)e;
-    const int resident = sms * per_sm;
+        if (e == cudaSuccess)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, kernel, threads, shared);
+        if (e != cudaSuccess) return (int)e;
+        resident = sms * per_sm;
+        if (n_seen < 16)
+            seen[n_seen++] = Seen{fn, dev, threads, shared, resident};
+    }
     if (resident > 0 && *grid > resident) *grid = resident;
     return 0;
 }

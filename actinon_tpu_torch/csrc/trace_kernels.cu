@@ -988,13 +988,31 @@ inline int grid_of(int n, int per_block) {
 
 // 0 when a kernel may take `shared` bytes of dynamic shared memory (the
 // attribute set above 48 KB), else the error; refuses
-// (cudaErrorInvalidValue) more than a thread block may have.
+// (cudaErrorInvalidValue) more than a thread block may have.  Each
+// kernel's setting is made once per device and size, so a launch captured
+// into a CUDA graph after its first launch calls nothing but
+// cudaGetDevice here.
 template <class Kernel>
 int shared_ok(Kernel kernel, size_t shared) {
     if (shared > kMaxShared) return (int)cudaErrorInvalidValue;
     if (shared <= 48 * 1024) return 0;
-    return (int)cudaFuncSetAttribute(
+    struct Set { const void* fn; int dev; size_t bytes; };
+    static Set set[16];
+    static int n_set = 0;
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    const void* fn = (const void*)kernel;
+    int at = -1;
+    for (int i = 0; i < n_set; ++i)
+        if (set[i].fn == fn && set[i].dev == dev) at = i;
+    if (at >= 0 && set[at].bytes >= shared) return 0;
+    e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+    if (e != cudaSuccess) return (int)e;
+    if (at < 0 && n_set < 16) at = n_set++;
+    if (at >= 0) set[at] = Set{fn, dev, shared};
+    return 0;
 }
 
 #endif  // __CUDACC__

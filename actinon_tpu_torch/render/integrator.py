@@ -7,13 +7,15 @@ carrying (p, d, intensity, tint_rgb, depth, sample_id), and one *step*
 processes a batch — trace, classify, accumulate local contributions
 (emitter / background / NEE direct light), emit child rays for the
 specular branches and path samples.  Two drains, as in the JAX package:
-the device drain (`run_device`) is a Python loop over steps whose queue,
-child compaction and accumulator stay on the device (path configs run
-the mixed drain: path-spawn parents live in the same queue and expand in
-place); the host drain (`run`, path configs or `device_drain = False`)
-keeps a normal and a path queue of `RayQueue`s on the host, copies each
-step's results back in one transfer and accumulates in f64.  It is the
-mixed drain's oracle: the same RNG counters and estimator factors.
+the device drain (`run_device`) is a loop over trips whose queue, child
+compaction and accumulator stay on the device, each trip on the card the
+replay of a CUDA graph (render/graphs.py) and the host reading one count
+a trip (path configs run the mixed drain: path-spawn parents live in the
+same queue and expand in place); the host drain (`run`, path configs or
+`device_drain = False`) keeps a normal and a path queue of `RayQueue`s on
+the host, copies each step's results back in one transfer and
+accumulates in f64.  It is the mixed drain's oracle: the same RNG
+counters and estimator factors.
 
 All reference semantics are those of the JAX package: the depth budget
 (specular and refraction cost 1, path costs 10 and is gated on depth >
@@ -91,6 +93,24 @@ def _scatter_add(acc, idx, val):
         acc.index_add_(0, idx, val)
 
 
+def compact_rows(mask, room):
+    """Stream compaction of the rows where `mask` [n] holds, in their
+    order, by a cumsum scatter (the JAX drain body's; no host read): each
+    kept row's slot is its rank among them, and every other row sends its
+    index to a dump slot.  `room` (a 0-d tensor) is how many rows fit.
+    Returns (src [n]: the row that fills each slot, 0 past the kept ones;
+    live [n]: the slot holds a kept row that fits; nv kept rows; nv_fit
+    = min(nv, room) of them that fit)."""
+    n = mask.shape[0]
+    rn = torch.arange(n, device=mask.device)
+    slot = torch.cumsum(mask.to(torch.int64), 0) - 1
+    nv = slot[-1] + 1
+    nv_fit = torch.minimum(nv, room)
+    src = torch.zeros((n + 1,), dtype=torch.int64, device=mask.device)
+    src.scatter_(0, torch.where(mask, slot, n), rn)
+    return src[:n], rn < nv_fit, nv, nv_fit
+
+
 @dataclasses.dataclass
 class RayQueue:
     """Host-side struct-of-arrays ray queue."""
@@ -157,6 +177,11 @@ class Integrator:
         # False: run() and run_samples() take the host drain for every
         # config (path configs always do)
         self.device_drain = True
+        # True (on a CUDA device): each trip of the device drain is the
+        # replay of its CUDA graph (render/graphs.py); False runs the
+        # same trips eagerly
+        self.drain_graphs = self.device.type == "cuda"
+        self._graphs = None
         # differentiable-path hooks (render/diff.py): `ovr` maps
         # mat_params keys to tensors that replace the tables (autograd
         # reaches them); `edge_aware` adds the NEE silhouette terms
@@ -233,6 +258,7 @@ class Integrator:
         self.tmi = float(dt.type(self.cfg.trace_min_intensity))
         self.background = np.asarray(ir.background, dt)
         self.max_path_length = float(dt.type(self.cfg.max_path_length))
+        self._generation = 0
         self._upload()
 
     # ------------------------------------------------------------------
@@ -246,6 +272,7 @@ class Integrator:
                      for n in _MAT_NAMES}
         self._P = self._pack(self._dev)
         self._kernel_cache.clear()
+        self._generation += 1     # drops the drain's graphs
 
     def _pack(self, t):
         """The packed [O, 36] material table from the tables `t`
@@ -390,9 +417,15 @@ class Integrator:
 
     # ------------------------------------------------------------------
 
-    def _step(self, q: Dict, path_ray: bool = False, mixed: bool = False):
+    def _step(self, q: Dict, path_ray: bool = False, mixed: bool = False,
+              nee_gate: bool = True):
         """One wavefront step over a padded batch.  Returns
         (sample_id, contrib [B,3], children dict, path_parent).
+
+        nee_gate: skip the NEE block when no lane of the batch shades
+        diffusely, which reads the device once; a drain trip
+        (`_trip`) runs it always (its gated lanes add nothing), so that
+        it reads nothing back and can be captured as a CUDA graph.
 
         mixed=True: q carries a per-lane `kind` (0 normal ray, 1 path ray,
         2 path-parent descriptor) plus the parent aux fields; the trace is
@@ -530,7 +563,7 @@ class Integrator:
         lum_nee = torch.zeros((B, 3), dtype=dt, device=dev)
         # skip the NEE block when no lane of the batch shades diffusely
         # (pure-specular wavefront generations)
-        if self.n_lights and bool(di_gate.any()):
+        if self.n_lights and (not nee_gate or bool(di_gate.any())):
             lum_nee = self._nee(pos, surf_d, di, di_gate, theta_i, on_a,
                                 on_b, ray_prj, rv)
         path_parent = None
@@ -641,14 +674,14 @@ class Integrator:
                 # half-space cone (obj_plane_s_fov, reference
                 # src/objects.c:520-526): toward -normal; degenerate when
                 # the surface is behind
-                nrm = self._as(self.l_plane_n[li])
+                nrm = self.tr._const(self.l_plane_n[li], self.tdtype)
                 fov_d = (-nrm).expand(pos.shape)
                 cos_rs = torch.where(_dot(lpos - pos, fov_d) > 0, 0.0, 1.0)
                 cos_rs = cos_rs.to(dt)
             else:
                 # sphere / envelope cone toward the light (reference
                 # src/objects.c:619-637, 70-88)
-                cpos = self._as(self.l_cone_pos[li])
+                cpos = self.tr._const(self.l_cone_pos[li], self.tdtype)
                 diff = cpos - pos
                 dist2 = _dot(diff, diff)
                 fov_d = _norm3(diff)
@@ -707,7 +740,7 @@ class Integrator:
         dt, dev = self.tdtype, self.device
         B = pos.shape[0]
         Le = len(idx)
-        li = torch.as_tensor(np.asarray(idx, np.int64), device=dev)
+        li = self.tr._const(idx, torch.int64)
         lp = self._mt("l_pos")[li]                      # [Le,3]
         lrad = self._mt("l_rad")[li]
         lr = self._mt("l_radius")[li]
@@ -1332,35 +1365,22 @@ class Integrator:
         ray fields, from _pos_rows or _queue_rows; the first `count` rows
         live) into an accumulator of Np samples (a power of two at least
         the count; sample ids below it), with trips of at most B lanes.
-        Returns (acc [Np, 3] on the device, dropped rays, live lanes
-        traced as a device tensor, trips)."""
-        dt, dev = self.tdtype, self.device
-        nb = self._n_child_blocks
-        # queue capacity: path configs queue path children transiently,
-        # so they get double the slack
-        cap_fac = 4 if self.path_cap == 0 else 8
-        C = 1 << int(np.ceil(np.log2(max(cap_fac * Np, 4 * B))))
-        size = C + nb * B   # the child write-back is always in bounds
-
-        q = dict(
-            p=torch.zeros((size, 3), dtype=dt, device=dev),
-            d=self._as([0.0, 0.0, 1.0]).repeat(size, 1),
-            intensity=torch.zeros((size,), dtype=dt, device=dev),
-            tint=torch.zeros((size, 3), dtype=dt, device=dev),
-            depth=torch.zeros((size,), dtype=torch.int64, device=dev),
-            sample_id=torch.zeros((size,), dtype=torch.int64, device=dev))
-        m = rows["p"].shape[0]
-        for k, v in rows.items():
-            q[k][:m] = v
-        if self.path_cap:
-            for k in ("kind", "rv", "j0", "ns"):
-                q[k] = torch.zeros((size,), dtype=torch.int64, device=dev)
-            q["aux_prj"] = torch.zeros((size, 3), dtype=dt, device=dev)
-            for k in ("aux_t", "aux_a", "aux_b"):
-                q[k] = torch.zeros((size,), dtype=dt, device=dev)
-        acc = torch.zeros((Np, 3), dtype=dt, device=dev)
-        queries = torch.zeros((), dtype=torch.int64, device=dev)
-        trips, dropped = 0, 0
+        Each trip is `_trip`, run eagerly or, with `drain_graphs`, as the
+        replay of its CUDA graph (render/graphs.py); either way the host
+        reads one count a trip, to choose the next trip's stage.  Returns
+        (acc [Np, 3] on the device, dropped rays, live lanes traced as a
+        device tensor, trips)."""
+        C, size = self._queue_size(Np, B)
+        if self.drain_graphs:
+            if self._graphs is None:
+                from actinon_tpu_torch.render.graphs import DrainGraphs
+                self._graphs = DrainGraphs(self)
+            st = self._graphs.state(C, size)
+            trip = lambda Bk: self._graphs.trip(st, Bk)
+        else:
+            st = self._drain_state(C, size)
+            trip = lambda Bk: self._trip(st, Bk)
+        self._fill_state(st, rows, count)
 
         # cascade of batch sizes [B, B/8, ...]: the wavefront decays
         # geometrically, and stage k runs while the queue holds more than
@@ -1371,15 +1391,60 @@ class Integrator:
                 stages.append(max(stages[-1] // 8, 512))
         elif B > 1024:
             stages.append(max(B // 32, 512))
-        k = 0
+        k, trips = 0, 0
         while count > 0 and trips < DRAIN_TRIP_CAP:
             while k + 1 < len(stages) and count <= stages[k + 1]:
                 k += 1
-            count, n_drop, tq = self._trip(q, acc, count, stages[k], C)
-            queries = queries + tq
-            dropped += n_drop
+            trip(stages[k])
             trips += 1
-        return acc, dropped, queries, trips
+            count = int(st["count"])   # the trip's one host read
+        return (st["acc"][:Np].clone(), int(st["dropped"]),
+                st["queries"].clone(), trips)
+
+    def _queue_size(self, Np, B):
+        """(capacity C, rows) of the drain's queue: path configs queue path
+        children transiently, so they get double the slack; the rows
+        beyond C take a trip's whole child write-back at any start."""
+        cap_fac = 4 if self.path_cap == 0 else 8
+        C = 1 << int(np.ceil(np.log2(max(cap_fac * Np, 4 * B))))
+        return C, C + self._n_child_blocks * B
+
+    def _drain_state(self, C, size):
+        """The device state of a drain: the queue's fields [size, ...], an
+        accumulator [C, 3] (a row for every sample id that a queue of
+        capacity C admits), and 0-d int64 tensors count, dropped and
+        queries; C is the queue's capacity (a python int)."""
+        dt, dev = self.tdtype, self.device
+        q = dict(
+            p=torch.empty((size, 3), dtype=dt, device=dev),
+            d=torch.empty((size, 3), dtype=dt, device=dev),
+            intensity=torch.empty((size,), dtype=dt, device=dev),
+            tint=torch.empty((size, 3), dtype=dt, device=dev),
+            depth=torch.empty((size,), dtype=torch.int64, device=dev),
+            sample_id=torch.empty((size,), dtype=torch.int64, device=dev))
+        if self.path_cap:
+            for k in ("kind", "rv", "j0", "ns"):
+                q[k] = torch.empty((size,), dtype=torch.int64, device=dev)
+            q["aux_prj"] = torch.empty((size, 3), dtype=dt, device=dev)
+            for k in ("aux_t", "aux_a", "aux_b"):
+                q[k] = torch.empty((size,), dtype=dt, device=dev)
+        z = lambda: torch.empty((), dtype=torch.int64, device=dev)
+        return dict(q=q, acc=torch.empty((C, 3), dtype=dt, device=dev),
+                    count=z(), dropped=z(), queries=z(), C=C)
+
+    def _fill_state(self, st, rows, count):
+        """Start a drain in the state `st`, in place: an empty queue (dead
+        rows, d = +z) whose first rows are `rows`, `count` of them live,
+        and zero accumulator, dropped and queries."""
+        for v in st["q"].values():
+            v.zero_()
+        st["q"]["d"][:, 2] = 1.0
+        for k, v in rows.items():
+            st["q"][k][:v.shape[0]] = v
+        st["acc"].zero_()
+        st["count"].fill_(int(count))
+        st["dropped"].zero_()
+        st["queries"].zero_()
 
     @staticmethod
     def _drain_warnings(dropped, trips):
@@ -1391,26 +1456,34 @@ class Integrator:
                   f"wavefront terminated early, image under-rendered",
                   flush=True)
 
-    def _trip(self, q, acc, count, Bk, C):
-        """One drain trip: pop up to Bk lanes from the queue's tail, step
-        them, accumulate, and compact the children back onto the tail.
-        Returns (new count, dropped rays, live lanes traced)."""
+    def _trip(self, st, Bk):
+        """One drain trip on the drain state `st` (_drain_state), in place:
+        pop up to Bk lanes from the queue's tail, step them, accumulate,
+        and compact the children back onto the tail.  Every quantity stays
+        on the device (the JAX drain body's form): the trip reads nothing
+        back to the host, so render/graphs.py can capture it."""
         dev = self.device
         mixed = self.path_cap > 0
-        s = max(count - Bk, 0)
+        q, C, count = st["q"], st["C"], st["count"]
+        ar = torch.arange(Bk, device=dev)
+        s = torch.clamp(count - Bk, min=0)
         take = count - s
-        lanes = {k: v[s:s + Bk] for k, v in q.items()}
-        valid = torch.arange(Bk, device=dev) < take
+        # copies of the popped rows, not views: the write-back below may
+        # overwrite them
+        lanes = {k: v.index_select(0, s + ar) for k, v in q.items()}
+        valid = ar < take
         lanes["intensity"] = torch.where(valid, lanes["intensity"], 0.0)
 
-        sid, contrib, children, _ = self._step(lanes, mixed=mixed)
-        _scatter_add(acc, sid, torch.where(valid[:, None], contrib, 0.0))
+        sid, contrib, children, _ = self._step(lanes, mixed=mixed,
+                                               nee_gate=False)
+        _scatter_add(st["acc"], sid, torch.where(valid[:, None], contrib,
+                                                 0.0))
         # count only LIVE non-parent lanes (the shared accounting
-        # definition, per_lane_queries), before the children's write-back
-        # below overwrites the queue rows that `lanes` views
+        # definition, per_lane_queries)
         alive = valid & (lanes["intensity"] > 0)
         if mixed:
             alive = alive & (lanes["kind"] != 2)
+        st["queries"].add_(alive.sum())
 
         ch = list(children.values())
         if mixed:
@@ -1421,21 +1494,23 @@ class Integrator:
             # queue (the >= 1 floor keeps the drain moving)
             K = PATH_EXPAND
             is_par = valid & (lanes["kind"] == 2)
-            allow_n = max((C - s - 4 * take) // (K + 1), 1)
+            allow_n = torch.clamp((C - s - 4 * take) // (K + 1), min=1)
             rank = torch.cumsum(is_par.to(torch.int64), 0) - 1
             allow = is_par & (rank < allow_n)
             ch = ch + self._expand_parents(lanes, allow)
         cmask = torch.cat([c["mask"] & valid & (c["intensity"] > 0)
                            for c in ch])
-        src = torch.nonzero(cmask).squeeze(1)      # in block order
-        nv = int(src.numel())
-        nv_fit = min(nv, C - s)
-        src = src[:nv_fit]
-        compact = {f: torch.cat([c[f] for c in ch])[src]
-                   for f in self._fields()}
-        for f, v in compact.items():
-            q[f][s:s + nv_fit] = v.to(q[f].dtype)
-        return s + nv_fit, nv - nv_fit, alive.sum()
+        # all n candidate rows are written at s: the live children in
+        # block order, then dead rows (intensity 0), never popped
+        src, live, nv, nv_fit = compact_rows(cmask, C - s)
+        at = s + torch.arange(cmask.shape[0], device=dev)
+        for f in self._fields():
+            v = torch.cat([c[f] for c in ch]).index_select(0, src)
+            if f == "intensity":
+                v = torch.where(live, v, 0.0)
+            q[f].index_copy_(0, at, v.to(q[f].dtype))
+        st["dropped"].add_(nv - nv_fit)
+        count.copy_(s + nv_fit)
 
     # ------------------------------------------------------------------
 

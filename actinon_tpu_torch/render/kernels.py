@@ -31,7 +31,8 @@ the sources.
 
 A wrapper takes the plain version when its tensors lie on the CPU, and
 only then.  On a CUDA tensor it launches its kernel or raises; each
-launch adds one to `LAUNCHES[name]`.  The plain versions call the
+launch adds one to `LAUNCHES[name]` (a launch captured in a drain trip's
+CUDA graph adds one at each replay instead, render/graphs.py).  The plain versions call the
 tracer's and integrator's own plain code: the arithmetic is written once.
 """
 

@@ -72,11 +72,24 @@ def torch_dtype(dtype) -> torch.dtype:
             np.dtype(np.float64): torch.float64}[np.dtype(dtype)]
 
 
+_NP_TYPES = {torch.float32: np.float32, torch.float64: np.float64,
+             torch.int64: np.int64, torch.bool: np.bool_}
+
+
 def numpy_dtype(dtype) -> np.dtype:
     if isinstance(dtype, torch.dtype):
         return {torch.float32: np.dtype(np.float32),
                 torch.float64: np.dtype(np.float64)}[dtype]
     return np.dtype(dtype)
+
+
+def host_reads_ok(device) -> bool:
+    """A query may read a tensor back to decide a loop: on the CPU, and
+    on a CUDA device unless a CUDA graph is being captured; never on a
+    device that holds no data (meta)."""
+    if device.type == "cuda":
+        return not torch.cuda.is_current_stream_capturing()
+    return device.type == "cpu"
 
 
 def _norm3(v):
@@ -138,7 +151,10 @@ def _sphere_first_hit(c, r, p, d, eps):
     CPU (each multiply-add once); f64 keeps the plain formulas."""
     pp = p - c
     if pp.dtype == torch.float32:
-        r = torch.as_tensor(r, dtype=pp.dtype, device=pp.device)
+        if not isinstance(r, torch.Tensor):
+            # a fill, not an upload: a captured trip may not copy from
+            # the host
+            r = torch.full((), r, dtype=pp.dtype, device=pp.device)
         s = _dot_fma32(pp, d)
         q = _fma32(-r, r, _dot_fma32(pp, pp))
     else:
@@ -687,6 +703,7 @@ class Tracer:
         # the leaf table as the queries and kernels read it (numpy);
         # set_geom replaces it
         self.tables_np = (tab.M, tab.m0, tab.c2, tab.c1, tab.rr)
+        self._generation = 0
         self._upload()
 
     # -- tables on the device -------------------------------------------------
@@ -705,6 +722,21 @@ class Tracer:
         self.t_oid = torch.as_tensor(t.oid.astype(np.int64), device=dev)
         self.t_rough = f(self.roughness)
         self._kernel_cache.clear()
+        self._generation += 1     # drops the drains' graphs
+
+    def _const(self, a, dtype=None):
+        """The device tensor of a static numpy value `a` (in `dtype`, the
+        tracer's float type by default), cached by its contents until the
+        tables change (_upload): a query uploads nothing, so that a drain
+        trip can be captured as a CUDA graph, where a copy from pageable
+        host memory is refused."""
+        a = np.asarray(a, _NP_TYPES[dtype or self.tdtype])
+        key = ("const", a.dtype.str, a.shape, a.tobytes())
+        got = self._kernel_cache.get(key)
+        if got is None:
+            got = self._kernel_cache[key] = torch.as_tensor(
+                a, device=self.device)
+        return got
 
     def _idx(self, rows):
         """Device index tensor for a static numpy row set (cached)."""
@@ -930,9 +962,8 @@ class Tracer:
     def _policy(self, kind_rows, t0u, t1u, s, q, ok):
         """First-hit offset per leaf column under its family's root policy
         (eps-backed).  kind_rows is static numpy [c]."""
-        dev = self.device
-        is_pl = torch.as_tensor(kind_rows == sir.PLANE, device=dev)[None]
-        is_sp = torch.as_tensor(kind_rows == sir.SPHERE, device=dev)[None]
+        is_pl = self._const(kind_rows == sir.PLANE, torch.bool)[None]
+        is_sp = self._const(kind_rows == sir.SPHERE, torch.bool)[None]
         eps = self.eps
         # plane: forward crossing (reference src/gmath.h:38-49)
         a_pl = torch.where(t0u > 0, t0u - eps, INF)
@@ -964,7 +995,7 @@ class Tracer:
         return (er <= 0) | exists
 
     def _env_gate_one(self, env_c, env_r, p, d):
-        ec = self._as(np.asarray(env_c, self.dtype))
+        ec = self._const(env_c)
         pp = p - ec
         s = _dot_fma32(pp, d)
         q = _dot_fma32(pp, pp) - float(self.dtype.type(env_r) ** 2)
@@ -994,11 +1025,13 @@ class Tracer:
         forward = dist > 0
         offs1 = torch.zeros_like(dist)
         active = ~dead
-        # on the card each `any` is a host read: test every 8 steps (an
+        # on the card each `any` is a host read: test every 8 steps, and
+        # never in a captured drain trip, which runs all `cycles` steps (an
         # inactive lane's step is a no-op, so the result is the same)
         every = 1 if self.device.type == "cpu" else 8
+        test = host_reads_ok(self.device)
         for i in range(int(cycles)):
-            if i % every == 0 and not bool(active.any()):
+            if test and i % every == 0 and not bool(active.any()):
                 break
             step = torch.where(forward, dist + eps, -(dist - eps))
             offs1 = torch.where(active, offs1 + step, offs1)
@@ -1041,7 +1074,7 @@ class Tracer:
             p, d = p.detach(), d.detach()
         R = p.shape[0]
         if env_c is not None and env_r > 0:
-            ec = self._as(np.asarray(env_c))
+            ec = self._const(env_c)
             outside = _dot(p - ec, p - ec) > env_r * env_r
             t_env = _sphere_first_hit(ec, float(self.dtype.type(env_r)),
                                       p, d, 0.0)
@@ -1050,8 +1083,8 @@ class Tracer:
         else:
             dead = torch.zeros((R,), dtype=torch.bool, device=self.device)
             offs0w = torch.zeros((R,), dtype=self.tdtype, device=self.device)
-        m = self._as(lf.m)
-        pl, dl, dn = self._sdf_local(m, self._as(lf.m0),
+        m = self._const(lf.m)
+        pl, dl, dn = self._sdf_local(m, self._const(lf.m0),
                                      p + d * offs0w[:, None], d)
         offs_l, dist = self._sdf_march(lf.sdf_kind, lf.cycles, lf.sdf_param,
                                        pl, dl, torch.zeros_like(dn), dead)
@@ -1244,11 +1277,9 @@ class Tracer:
         raw, leaf_loc [R, G])."""
         R, G, NC = cross.shape
         Lc = inside0.shape[-1]
-        dev, dt = self.device, self.tdtype
-        lcol = torch.as_tensor(np.asarray(leaf_of_col, np.int64),
-                               device=dev)
-        oh = torch.zeros((NC, Lc), dtype=dt, device=dev)
-        oh[torch.arange(NC, device=dev), lcol] = 1.0
+        dt = self.tdtype
+        lcol = self._const(leaf_of_col, torch.int64)
+        oh = self._const(np.eye(Lc)[np.asarray(leaf_of_col)])
         valid = torch.isfinite(cross)
         # chunk rays so the [Rt, G, NC, NC] order tensors stay bounded
         Rt = int(max(128, min(R, (1 << 24) // max(G * NC * NC, 1))))
@@ -1292,8 +1323,8 @@ class Tracer:
                           for c in members])
         env_r = np.asarray([c.env_r if c.env_c is not None else -1.0
                             for c in members])
-        ec = self._as(np.asarray(env_c, self.dtype))[None]   # [1, G, 3]
-        er = self._as(np.asarray(env_r, self.dtype))[None]
+        ec = self._const(env_c)[None]                  # [1, G, 3]
+        er = self._const(env_r)[None]
         pp = p[:, None, :] - ec
         s = _dot_fma32(pp, d[:, None, :])
         q = _dot_fma32(pp, pp) - er * er
@@ -1442,8 +1473,8 @@ class Tracer:
                 a = self._chunk_candidates(rows, p, d)
                 if lane_matter is not None \
                         and self.tab.is_light[rows].any():
-                    lmask = torch.as_tensor(self.tab.is_light[rows],
-                                            device=dev)
+                    lmask = self._const(self.tab.is_light[rows],
+                                        torch.bool)
                     a = torch.where(lane_matter[:, None] & lmask[None, :],
                                     INF, a)
                 if want2:

@@ -40,7 +40,12 @@ def _fmix32(h):
 
 
 def as_u32(x, device=None):
-    """A tensor (or int) as the int64 representation of uint32 values."""
+    """A tensor (or int) as the int64 representation of uint32 values.
+    An int becomes a fill on `device`, not an upload: a drain trip
+    captured as a CUDA graph may not copy from the host."""
+    if isinstance(x, (int, np.integer)):
+        return torch.full((), int(x) & _MASK, dtype=torch.int64,
+                          device=device)
     t = torch.as_tensor(x, device=device)
     if t.dtype == torch.uint32:
         t = t.view(torch.int32)

@@ -1104,3 +1104,121 @@ def test_run_device_queue_equals_positions_on_card():
     assert abs(acc_h.mean() - acc_p.mean()) < 1e-5
     assert np.abs(acc_h - acc_p).max() < 1e-2
     assert integ.rays_traced == 3 * rays_p
+
+
+# -- the graph drain (render/graphs.py) ---------------------------------------
+#
+# Each trip of the device drain replays a CUDA graph of `Integrator._trip`;
+# the same trips run eagerly with drain_graphs = False.  The two must give
+# the same bits, trips, queries and kernel launches (each replay adds the
+# launches its capture counted).
+
+
+def _graph_integ(name):
+    """A small integrator on the card and its pixel centres: the headline
+    path (glass_table, K1), lamp_row (K3-K7), the sphere scene (K4, K6,
+    K7), counter seeding (K2, K3) and the path 8 config (the mixed
+    drain)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs have no CPU mode")
+    from actinon_tpu_torch.acn.interp import run_file
+    from actinon_tpu_torch.render.integrator import Integrator
+    from actinon_tpu_torch.render.tracer import Tracer
+    from actinon_tpu_torch.scene import ir as sir
+    from actinon_tpu_torch.scene import objects as ho
+    import _torch_scenes as S
+    if name == "fractal":
+        sc = S.many_sphere_scene(ho, n=2000)
+        sc.cfg.camera_position = (0.0, -14.0, 2.0)
+        sc.cfg.camera_view_direction = (0.0, 1.0, 0.0)
+        sc.cfg.camera_top_direction = (0.0, 0.0, 1.0)
+    else:
+        cap = []
+        run_file(S.LAMP_ROW if name == "lamp_row" else SCENE,
+                 render_fn=lambda s, fn: cap.append(s.clone()), args=["-f"])
+        sc = cap[0]
+    cfg = sc.cfg
+    cfg.image_width, cfg.image_height = 32, 24
+    cfg.direct_samples, cfg.trace_depth = 3, 8
+    if name == "path8":
+        cfg.direct_samples, cfg.path_samples, cfg.trace_depth = 4, 8, 22
+    integ = Integrator(Tracer(sir.compile_scene(sc), dtype=np.float32,
+                              device="cuda"), batch=1 << 12)
+    integ.seed_mode = "counter" if name == "counter" else "position"
+    ys, xs = np.mgrid[0:cfg.image_height, 0:cfg.image_width]
+    pos = np.stack([xs.reshape(-1) + 0.5, ys.reshape(-1) + 0.5], -1)
+    return integ, pos
+
+
+def _drain_once(integ, pos, graphs):
+    from actinon_tpu_torch.render import kernels
+    integ.drain_graphs = graphs
+    integ.rays_traced = 0
+    kernels.reset_launches()
+    acc = integ.run_device(None, len(pos), pos_xy=pos)
+    return acc, integ.last_trips, integ.rays_traced, dict(kernels.LAUNCHES)
+
+
+@pytest.mark.parametrize("name", ["headline", "lamp_row", "fractal",
+                                  "counter", "path8"])
+def test_graph_drain_equals_eager(name):
+    """The eager drain, then the graph drain twice (capture, then replays
+    only): bit-equal images, equal trips, queries and launches."""
+    integ, pos = _graph_integ(name)
+    assert integ.drain_graphs
+    want = _drain_once(integ, pos, False)
+    assert want[0].max() > 0
+    for _ in range(2):
+        got = _drain_once(integ, pos, True)
+        assert np.array_equal(got[0], want[0])
+        assert got[1:] == want[1:]
+    assert integ._graphs.captures > 0
+
+
+def test_graph_replay_reads_nothing_back():
+    """A captured trip's replay under sync_debug_mode "error": no
+    operation in it waits for the card."""
+    integ, pos = _graph_integ("headline")
+    integ.run_device(None, len(pos), pos_xy=pos)
+    graph = next(iter(integ._graphs._graphs.values()))[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_graph_drain_after_set_geom():
+    """set_geom drops the captured trips: the graph drain of moved
+    geometry equals a fresh eager drain of it, not the old image."""
+    integ, pos = _graph_integ("headline")
+    before = _drain_once(integ, pos, True)[0]
+    geom = integ.tr.geom_params()
+    geom["sph_c"] = geom["sph_c"] + np.float32(0.25)
+    integ.tr.set_geom(geom)
+    got = _drain_once(integ, pos, True)[0]
+    fresh, _ = _graph_integ("headline")
+    fresh.tr.set_geom(geom)
+    want = _drain_once(fresh, pos, False)[0]
+    assert np.array_equal(got, want)
+    assert not np.array_equal(got, before)
+
+
+def test_failed_capture_raises(monkeypatch):
+    """A trip that reads the card back while it is captured makes the
+    capture fail, and the drain raises: it does not fall back to eager
+    trips.  (Last in the file: the failed capture leaves its pool.)"""
+    integ, pos = _graph_integ("headline")
+    trip = integ._trip
+
+    def reads_back(st, Bk):
+        trip(st, Bk)
+        if torch.cuda.is_current_stream_capturing():
+            int(st["count"])
+
+    monkeypatch.setattr(integ, "_trip", reads_back)
+    with pytest.raises(RuntimeError):
+        integ.run_device(None, len(pos), pos_xy=pos)
+    torch.cuda.synchronize()

@@ -39,4 +39,5 @@ def test_port_imports_no_jax():
     assert "actinon_tpu_torch.render.diff" in out["modules"]
     assert "actinon_tpu_torch.parallel.mesh" in out["modules"]
     assert "actinon_tpu_torch.render.reference_oracle" in out["modules"]
+    assert "actinon_tpu_torch.render.graphs" in out["modules"]
     assert out["bad"] == []
