@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase, on the first card
     python3 chip_smoke.py --profile  # where the renders' time goes
+    python3 chip_smoke.py --ab-bigscene PATH   # K6/K7 against PATH's build
 
 (`--mesh-worker` runs one rank of phase 16's two-rank world, which also
 serves phase 17 (e); the script starts those itself.)
@@ -151,15 +152,39 @@ Phases, each printing one line of numbers:
                from their plain versions on the batches of phases 8 and
                11, the plain versions with the parent's twice-rounded
                arithmetic -> the once-rounded one (ROADMAP C4);
- 18. wine_glass — the corpus scene at the headline shape, when the
+ 18. graph   — the graph drain (render/graphs.py: each trip the replay
+               of a CUDA graph) against the same trips run eagerly, on
+               one integrator per cell (GRAPH_CELLS: the headline,
+               lamp_row, sphere_fractal, counter mode at 64x48, the path
+               8 config): one eager pass, then a graph pass that captures
+               and one that only replays, each bit-equal to the eager one
+               with equal trips, queries and launches, with each pass's
+               seconds, the captures, their seconds and the memory the
+               allocator reserved for their pools; the two ranks of phase
+               16 (b) run each shape both ways too ("graph world2"
+               lines);
+ 19. wine_glass — the corpus scene at the headline shape, when the
                directory named by $ACTINON_CORPUS holds wine_glass.acn.
+
+Every render runs the graph drain (`Integrator.drain_graphs`, True on a
+card) unless a line says otherwise; the spies that must see every call
+of a wrapper (the counter render's K2 calls, the shipped render's K1
+calls) run the trips eagerly.
 
 The glass_table phases hold slice 1 still: the headline hash repeats
 GLASS_HASH, and no scene or big-scene kernel launches there.  lamp_row
 (528 beads) crosses the big-scene gate, so its phases launch K4-K7.
 --profile adds, per render, each kernel's launches and device time
-(K2 and K7 by design), K1's device time over the shipped render's
-calls, and the device time of one diff value_and_grad by op.
+(K2 and K7 by design), the device's busy share, the host's
+cudaLaunchKernel and cudaGraphLaunch calls a trip (the headline and
+lamp_row also with eager trips); the same for each phase-18 cell's
+drain on a warm integrator, with graphs and eagerly; K1's device time
+over the shipped render's calls, and the device time of one diff
+value_and_grad by op.
+--ab-bigscene PATH builds PATH (another revision's
+csrc/bigscene_kernels.cu) beside this checkout's kernels and holds K6
+and K7 of the two to each other on the fractal's and lamp_row's render
+batches, bit for bit and timed in turns.
 
 Any failure exits non-zero.  The line before the last is one JSON object
 with every kernel's numbers; the last line is
@@ -977,8 +1002,9 @@ def render(tag, sc, batch, reps=1):
     return runs
 
 
-def counter_render(sc, batch, use_kernels, device="cuda"):
-    """One pass over pixel centres, seed_mode="counter"."""
+def counter_render(sc, batch, use_kernels, device="cuda", graphs=True):
+    """One pass over pixel centres, seed_mode="counter" (graphs=False:
+    the drain's trips run eagerly)."""
     import torch
     from actinon_tpu_torch.render import kernels
     from actinon_tpu_torch.render.integrator import Integrator
@@ -988,6 +1014,7 @@ def counter_render(sc, batch, use_kernels, device="cuda"):
     tr.use_kernels = use_kernels
     integ = Integrator(tr, batch=batch)
     integ.seed_mode = "counter"
+    integ.drain_graphs = integ.drain_graphs and graphs
     pos = pixel_centres(sc.cfg)
     kernels.reset_launches()
     t0 = time.time()
@@ -1000,7 +1027,8 @@ def counter_render(sc, batch, use_kernels, device="cuda"):
 def spied_counter(sc, batch):
     """counter_render with the kernels, its K2 calls spied on: the launch
     counts, and the inputs of the first call of each batch size (cloned),
-    with the sizes of all the calls in order."""
+    with the sizes of all the calls in order.  Its drain runs eagerly: a
+    captured trip calls the wrappers only at its capture."""
     from actinon_tpu_torch.render import kernels
     orig = kernels.shadow_any_hit
     cap, sizes = {}, []
@@ -1014,7 +1042,7 @@ def spied_counter(sc, batch):
 
     kernels.shadow_any_hit = spy
     try:
-        run = counter_render(sc, batch, True)
+        run = counter_render(sc, batch, True, graphs=False)
     finally:
         kernels.shadow_any_hit = orig
     return run, cap, sizes
@@ -1057,12 +1085,34 @@ def phase_counter(w, h):
     return launches, k2_cap, k2_sizes
 
 
+@contextlib.contextmanager
+def eager_drains():
+    """render_scene's drains run their trips eagerly (drain_graphs =
+    False), for spies that must see every wrapper call: a captured trip
+    calls the wrappers only at its capture."""
+    from actinon_tpu_torch.render import driver
+    from actinon_tpu_torch.render.integrator import Integrator
+
+    class Eager(Integrator):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.drain_graphs = False
+
+    driver.Integrator = Eager
+    try:
+        yield
+    finally:
+        driver.Integrator = Integrator
+
+
 def spied_render(spies, tag, sc, reps, batch=1 << 15):
     """render() with the wrappers spied on: spies is a list of (module,
     names); the inputs of each wrapper's largest call are kept (cloned
     once) for the kernel phases, the shapes and rays the main path gives
     them.  A wrapper's first argument is the tracer or integrator, then
-    its tensors."""
+    its tensors.  The renders run the graph drain: the largest call of a
+    wrapper comes in the first trip of the first stage, which runs
+    eagerly before its capture."""
     cap = {}
     orig = {(m, n): getattr(m, n) for m, names in spies for n in names}
 
@@ -1801,9 +1851,10 @@ def grad_worst(got, want):
                              initial=0.0)), k) for k in want)
 
 
-def sharded_drain(shape, batch, mesh, device):
+def sharded_drain(shape, batch, mesh, device, graphs=True):
     """One ShardedIntegrator pass over the pixel centres of glass_table at
-    `shape`: (acc, rays_traced, last_balance, wall seconds)."""
+    `shape` (graphs=False: each rank's trips run eagerly): (acc,
+    rays_traced, last_balance, wall seconds)."""
     import torch
     from actinon_tpu_torch.parallel.mesh import ShardedIntegrator
     from actinon_tpu_torch.render.tracer import Tracer
@@ -1811,6 +1862,7 @@ def sharded_drain(shape, batch, mesh, device):
     sc = load_scene(SCENE, *shape)
     sh = ShardedIntegrator(Tracer(sir.compile_scene(sc), dtype=np.float32,
                                   device=device), mesh, batch=batch)
+    sh.drain_graphs = graphs
     pos = pixel_centres(sc.cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1853,8 +1905,9 @@ def sharded_diff(mesh):
 def mesh_worker(rank, n, store, out):
     """One rank of the two-rank world (`chip_smoke.py --mesh-worker`):
     gloo over a FileStore, the kernels on cuda:0 beside the other rank;
-    every SHARD_SHAPES pass, the sharded fwd_bwd, then the arbitrary-queue
-    branch at QUEUE_DRAFT (phase 17 (e)), saved to `out`."""
+    every SHARD_SHAPES pass with the graph drain and again eagerly
+    (phase 18), the sharded fwd_bwd, then the arbitrary-queue branch at
+    QUEUE_DRAFT (phase 17 (e)), saved to `out`."""
     import torch
     import torch.distributed as dist
     from actinon_tpu_torch.parallel.mesh import make_mesh
@@ -1867,6 +1920,10 @@ def mesh_worker(rank, n, store, out):
         acc, rays, bal, secs = sharded_drain(shape, batch, mesh, "cuda:0")
         res.update({f"{name}/acc": acc, f"{name}/rays": rays,
                     f"{name}/balance": bal, f"{name}/seconds": secs})
+        acc, rays, _, secs = sharded_drain(shape, batch, mesh, "cuda:0",
+                                           graphs=False)
+        res.update({f"{name}/eager_acc": acc, f"{name}/eager_rays": rays,
+                    f"{name}/eager_seconds": secs})
     got, secs = sharded_diff(mesh)
     res.update({f"diff/{k}": v for k, v in got.items()})
     res["diff/seconds"] = secs
@@ -1979,6 +2036,18 @@ def phase_sharded(card):
                 and rays == [rays_1] * SHARD_RANKS):
             fail(f"sharded world2 {name}: max err {err} (bound 2e-5), "
                  f"ranks agree {agree}, rays {rays} against {rays_1}")
+        # phase 18's two-rank cell: each rank's graph drain against the
+        # same rank's eager drain
+        same = [bool(np.array_equal(r[f"{name}/acc"], r[f"{name}/eager_acc"]))
+                and int(r[f"{name}/rays"]) == int(r[f"{name}/eager_rays"])
+                for r in ranks]
+        say(f"graph world2 {name}", ranks=SHARD_RANKS, bit_equal=same,
+            eager_s=f"{max(float(r[f'{name}/eager_seconds']) for r in ranks):.3f}",
+            graph_s=f"{max(float(r[f'{name}/seconds']) for r in ranks):.3f}",
+            card=repr(card))
+        if not all(same):
+            fail(f"graph world2 {name}: the graph drain against the eager "
+                 f"drain, bit-equal with equal queries per rank: {same}")
     for r in ranks[1:]:
         if r["diff/loss"] != ranks[0]["diff/loss"]:
             fail("sharded diff: the ranks' losses differ")
@@ -2198,14 +2267,174 @@ def check_sharded_diff(tag, got, want, secs, single_s, card):
              f"{worst[0]} of its bound")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the graph drain (render/graphs.py): each trip the replay of a
+# CUDA graph, against the same trips run eagerly
+
+# cells: name -> (scene, shape, batch, seed mode)
+GRAPH_CELLS = {
+    "headline": (SCENE, HEADLINE, 1 << 15, "position"),
+    "lamp_row": (LAMP, LAMP_SHAPE, 1 << 15, "position"),
+    "sphere_fractal": (FRACTAL, FRACTAL_SHAPE, 1 << 15, "position"),
+    "counter": (SCENE, (64, 48) + HEADLINE[2:], 1 << 15, "counter"),
+    "path8": (SCENE, QUEUE_PATHS["path8"], QUEUE_PATH_BATCH, "position"),
+}
+
+
+def graph_integ(path, shape, batch, mode, fractal):
+    """A cell's integrator and pixel centres (queue_integ; the fractal
+    from its loaded scene)."""
+    if path != FRACTAL:
+        return queue_integ(path, shape, batch, seed_mode=mode)
+    from actinon_tpu_torch.render.integrator import Integrator
+    from actinon_tpu_torch.render.tracer import Tracer
+    from actinon_tpu_torch.scene import ir as sir
+    sc = sized(fractal, *shape)
+    integ = Integrator(Tracer(sir.compile_scene(sc), dtype=np.float32,
+                              device="cuda:0"), batch=batch)
+    integ.seed_mode = mode
+    return integ, pixel_centres(sc.cfg)
+
+
+def graph_cell(integ, pos):
+    """One pass over pos eagerly, then twice as graph replays (the first
+    captures, the second only replays), on one integrator: each drain's
+    acc, queries, trips, launches and seconds, and the captures."""
+    out = []
+    for graphs in (False, True, True):
+        integ.drain_graphs = graphs
+        acc, rays, launches, secs = drain(
+            integ, lambda: integ.run_device(None, len(pos), pos_xy=pos))
+        out.append(dict(acc=acc, rays=rays, launches=launches, secs=secs,
+                        trips=integ.last_trips))
+    g = integ._graphs
+    return out, dict(captures=g.captures, capture_s=g.capture_s,
+                     pool_bytes=g.pool_bytes)
+
+
+def phase_graph(fractal, card):
+    """The graph drain against the eager drain on one integrator per
+    cell (module docstring, phase 18)."""
+    for name, (path, shape, batch, mode) in GRAPH_CELLS.items():
+        integ, pos = graph_integ(path, shape, batch, mode, fractal)
+        (e, g1, g2), cap = graph_cell(integ, pos)
+        same = [bool(np.array_equal(g["acc"], e["acc"])) for g in (g1, g2)]
+        say(f"graph {name}", size="x".join(map(str, shape[:2])),
+            direct=shape[2], path=shape[3], depth=shape[4], batch=batch,
+            seed=mode, eager_s=f"{e['secs']:.4f}",
+            graph_capture_s=f"{g1['secs']:.4f}",
+            graph_s=f"{g2['secs']:.4f}", bit_equal=same, trips=e["trips"],
+            rays_traced=e["rays"], captures=cap["captures"],
+            captures_s=f"{cap['capture_s']:.3f}",
+            pool_bytes=cap["pool_bytes"],
+            launches=json.dumps(e["launches"], separators=(",", ":")),
+            card=repr(card))
+        for g in (g1, g2):
+            if not (np.array_equal(g["acc"], e["acc"])
+                    and g["trips"] == e["trips"] and g["rays"] == e["rays"]
+                    and g["launches"] == e["launches"]):
+                fail(f"graph {name}: against the eager drain: bit-equal "
+                     f"{same}, trips {g['trips']} / {e['trips']}, queries "
+                     f"{g['rays']} / {e['rays']}, launches {g['launches']} "
+                     f"/ {e['launches']}")
+        if not cap["captures"]:
+            fail(f"graph {name}: no trip was captured")
+        del integ
+
+
+def phase_ab_bigscene(other):
+    """K6 and K7 of this checkout against the same kernels built from
+    another revision's bigscene_kernels.cu (`--ab-bigscene PATH`), on the
+    inputs of the fractal render's largest K6 and K7 calls and of
+    lamp_row's largest K7 call: outputs compared bit for bit, and device
+    times in turns (graph_ms, AB_ROUNDS rounds; median and spread)."""
+    import ctypes
+    import hashlib
+    import torch
+    from actinon_tpu_torch.render import bigscene as bs
+    from actinon_tpu_torch.render import kernels
+    src = os.path.abspath(other)
+    h = hashlib.sha256(open(src, "rb").read()).hexdigest()[:16]
+    lib_path = os.path.join(kernels.BUILD_DIR, f"ab_bigscene_{h}.so")
+    if not os.path.exists(lib_path):
+        res = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o",
+                              lib_path, src], capture_output=True, text=True)
+        if res.returncode:
+            fail(f"ab: nvcc failed on {src}:\n{res.stderr[-2000:]}")
+    libs = {"head": kernels._lib(), "other": ctypes.CDLL(lib_path)}
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    libs["other"].actinon_big_top2.argtypes = [P, P, I, P, P, P, P, I, F, P]
+    libs["other"].actinon_big_anyhit.argtypes = [P, P, I, P, P, P, P, I, F,
+                                                 I, P]
+    _, frac = spied_render([(bs, ("big_top2", "big_anyhit"))], "ab_fractal",
+                           load_scene(FRACTAL, *FRACTAL_SHAPE), reps=1)
+    _, lamp = spied_render([(bs, ("big_anyhit",))], "ab_lamp_row",
+                           load_scene(LAMP, *LAMP_SHAPE), reps=1)
+
+    def top2(lib, tr, p, d, out):
+        big = tr._bigscene()
+        rc = lib.actinon_big_top2(
+            big.table.data_ptr(), big.bounds.data_ptr(), big.blocks.G,
+            p.data_ptr(), d.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), p.shape[0], float(big.blocks.eps),
+            kernels._stream())
+        if rc:
+            fail(f"ab: big_top2 launch failed ({rc})")
+
+    def anyhit(lib, tr, p, d, lim, out):
+        big = tr._bigscene()
+        warp = bs.anyhit_design(big.blocks.G) == "warp"
+        rc = lib.actinon_big_anyhit(
+            big.table.data_ptr(), big.bounds.data_ptr(), big.blocks.G,
+            p.data_ptr(), d.data_ptr(), lim.data_ptr(), out[0].data_ptr(),
+            p.shape[0], float(big.blocks.eps), int(warp), kernels._stream())
+        if rc:
+            fail(f"ab: big_anyhit launch failed ({rc})")
+
+    cases = [("big_top2 sphere_fractal", top2, frac["big_top2"]),
+             ("big_anyhit sphere_fractal", anyhit, frac["big_anyhit"]),
+             ("big_anyhit lamp_row", anyhit, lamp["big_anyhit"])]
+    for tag, call, (tr, *args) in cases:
+        n = args[0].shape[0]
+        outs = {}
+        for k in libs:
+            if call is top2:
+                outs[k] = (torch.empty((n, 2), dtype=torch.float32,
+                                       device="cuda"),
+                           torch.empty((n, 2), dtype=torch.int32,
+                                       device="cuda"))
+            else:
+                outs[k] = (torch.empty((n,), dtype=torch.bool,
+                                       device="cuda"),)
+            call(libs[k], tr, *args, outs[k])
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(outs["head"],
+                                                     outs["other"]))
+        ms = graph_ms([lambda k=k: call(libs[k], tr, *args, outs[k])
+                       for k in libs], rounds=AB_ROUNDS)
+        med = {k: float(np.median(m)) for k, m in zip(libs, ms)}
+        spread = {k: f"{min(m):.4f}-{max(m):.4f}" for k, m in zip(libs, ms)}
+        say(f"ab {tag}", n=n, other=os.path.relpath(src, HERE),
+            bit_equal=same, head_ms=f"{med['head']:.4f}",
+            other_ms=f"{med['other']:.4f}", head_spread=spread["head"],
+            other_spread=spread["other"])
+        if not same:
+            fail(f"ab {tag}: the two builds' outputs differ")
+
+
+AB_ROUNDS = 7   # turns of (head, other) in phase_ab_bigscene
+
+
 def phase_profile():
     """Under torch.profiler: phase 3 again, with each kernel's device time
     per launch beside its CUDA-graph time; then the headline,
     many_samples, lamp_row, sphere_fractal and counter-mode glass_table
     renders' device time by kernel and the device's busy share of the
     wall time (the profiler itself adds host time, so the share is a
-    lower bound); then K1's device time in the shipped render
-    (shipped_nee)."""
+    lower bound) and the host's launch calls a trip (the headline and
+    lamp_row again with eager trips); then each graph-phase cell's drain
+    on its own (profile_graph_drains), K1's device time in the shipped
+    render (shipped_nee) and one diff value_and_grad (profile_diff)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -2224,29 +2453,47 @@ def phase_profile():
         say(f"profile kernel {name}", launches=launches,
             device_ms_per_launch=f"{per_launch:.4f}",
             graph_ms_under_profiler=f"{ks[name]['ms']:.4f}")
-    runs = [(tag, lambda tag, sc=sc, b=b: render(tag, sc, b))
-            for tag, sc, b in (
-                ("headline", load_scene(SCENE, *HEADLINE), 1 << 15),
-                ("many_samples", load_scene(SCENE, *MANY_DIRECT), 1 << 12),
-                ("lamp_row", load_scene(LAMP, *LAMP_SHAPE), 1 << 15),
+    def eager(tag, sc, b):
+        with eager_drains():
+            return render(tag, sc, b)
+
+    # each run returns its drains' trips
+    runs = [(tag, lambda tag, sc=sc, b=b, fn=fn: fn(tag, sc, b)[-1]["trips"])
+            for tag, sc, b, fn in (
+                ("headline", load_scene(SCENE, *HEADLINE), 1 << 15, render),
+                ("headline_eager", load_scene(SCENE, *HEADLINE), 1 << 15,
+                 eager),
+                ("many_samples", load_scene(SCENE, *MANY_DIRECT), 1 << 12,
+                 render),
+                ("lamp_row", load_scene(LAMP, *LAMP_SHAPE), 1 << 15, render),
+                ("lamp_row_eager", load_scene(LAMP, *LAMP_SHAPE), 1 << 15,
+                 eager),
                 ("sphere_fractal", load_scene(FRACTAL, *FRACTAL_SHAPE),
-                 1 << 15))]
+                 1 << 15, render))]
     # the counter-mode glass_table render of phase 6: K2 and K3's renders
     counter = load_scene(SCENE, 64, 48, *HEADLINE[2:])
-    runs.append(("counter", lambda tag: counter_render(counter, 1 << 15,
-                                                       True)))
+    runs.append(("counter", lambda tag: counter_render(
+        counter, 1 << 15, True)[3].last_trips))
     for tag, run in runs:
         run(f"profile_warmup_{tag}")
         with profile(activities=acts) as prof:
             t0 = time.time()
-            run(f"profile_{tag}")
+            trips = run(f"profile_{tag}")
             wall = time.time() - t0
         kern = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
         busy = sum(dev(e) for e in kern) / 1e6
+        # the host's launch calls a trip: kernels one by one against
+        # graph replays (the hand-written kernels launch through nvcc's
+        # static runtime, which the profiler may not see)
+        api = {e.key: e.count for e in prof.key_averages()
+               if e.key in ("cudaLaunchKernel", "cudaGraphLaunch")}
         say(f"profile {tag}", wall_s=f"{wall:.3f}",
             device_busy_s=f"{busy:.4f}", busy_share=f"{busy / wall:.4f}",
-            kernel_names=len(kern), launches=sum(e.count for e in kern))
+            kernel_names=len(kern), launches=sum(e.count for e in kern),
+            trips=trips,
+            launch_kernel_per_trip=f"{api.get('cudaLaunchKernel', 0) / trips:.1f}",
+            graph_launch_per_trip=f"{api.get('cudaGraphLaunch', 0) / trips:.2f}")
         for e in sorted(kern, key=dev, reverse=True)[:12]:
             print(f"  device_ms={dev(e) / 1e3:.3f} calls={e.count} "
                   f"name={e.key[:90]!r}", flush=True)
@@ -2255,8 +2502,40 @@ def phase_profile():
             if ev:
                 say(f"profile {tag} {sym}", launches=sum(e.count for e in ev),
                     device_ms=f"{sum(map(dev, ev)) / 1e3:.3f}")
+    profile_graph_drains(acts)
     shipped_nee()
     profile_diff()
+
+
+def profile_graph_drains(acts):
+    """Each GRAPH_CELLS drain under torch.profiler on an integrator whose
+    trips are captured already (one graph pass before): wall and busy
+    seconds, busy share, and the host's cudaLaunchKernel and
+    cudaGraphLaunch calls a trip; then the same pass with eager trips."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+    fractal = load_scene(FRACTAL, *FRACTAL_SHAPE)
+    for name, (path, shape, batch, mode) in GRAPH_CELLS.items():
+        integ, pos = graph_integ(path, shape, batch, mode, fractal)
+        for graphs in (True, False):
+            integ.drain_graphs = graphs
+            drain(integ, lambda: integ.run_device(None, len(pos),
+                                                  pos_xy=pos))
+            with profile(activities=acts) as prof:
+                _, _, _, wall = drain(integ, lambda: integ.run_device(
+                    None, len(pos), pos_xy=pos))
+            ev = prof.key_averages()
+            busy = sum(e.self_device_time_total for e in ev
+                       if e.device_type == DeviceType.CUDA) / 1e6
+            api = {e.key: e.count for e in ev if e.key in (
+                "cudaLaunchKernel", "cudaGraphLaunch")}
+            trips = integ.last_trips
+            say(f"profile graph {name}", graphs=graphs, wall_s=f"{wall:.4f}",
+                device_busy_s=f"{busy:.4f}", busy_share=f"{busy / wall:.4f}",
+                trips=trips,
+                launch_kernel_per_trip=f"{api.get('cudaLaunchKernel', 0) / trips:.2f}",
+                graph_launch_per_trip=f"{api.get('cudaGraphLaunch', 0) / trips:.2f}")
+        del integ
 
 
 def profile_diff():
@@ -2303,7 +2582,8 @@ def shipped_nee():
 
     kernels.nee = spy
     try:
-        render("profile_shipped", load_scene(SCENE, *SHIPPED), 1 << 14)
+        with eager_drains():
+            render("profile_shipped", load_scene(SCENE, *SHIPPED), 1 << 14)
     finally:
         kernels.nee = orig
     ms = graph_ms([lambda: [kernels.nee(i, *a) for i, a in calls]],
@@ -2337,6 +2617,9 @@ def main(argv):
     phase_build()
     if "--profile" in argv:
         phase_profile()
+        return 0
+    if argv[:1] == ["--ab-bigscene"]:
+        phase_ab_bigscene(argv[1])
         return 0
     ks = phase_kernels(1 << 15)
 
@@ -2378,6 +2661,7 @@ def main(argv):
     k7_launches(ks["big_anyhit"], frac_runs, "sphere_fractal")
     k7_sweep("sphere_fractal", cap["big_anyhit"])
     phase_fractal_counter(fractal)
+    phase_graph(fractal, card)
     ks.update(phase_ops())
     phase_diff()
     phase_oracle(card)
