@@ -149,15 +149,16 @@ def _pair(mode, **kw):
 
 
 @pytest.mark.parametrize("mode,kw", [
-    ("position", dict()), ("counter", dict()),
-    ("counter", dict(path_samples=3, depth=12))],
+    ("position", dict(direct_samples=2, depth=6)),
+    ("counter", dict(direct_samples=2, depth=6)),
+    ("counter", dict(direct_samples=2, path_samples=2, depth=11))],
     ids=["position", "counter", "mixed"])
 def test_drain_matches_jax_run_device(mode, kw):
     """The port's drain against the JAX package's device-resident drain
     (one jitted while loop) in f64: the image and the queries, over
     trips of 64 lanes."""
     ji, ti = _pair(mode, **kw)
-    pos = sample_pos(ji.cfg, 96)
+    pos = sample_pos(ji.cfg, 64)
     want = ji.run_device(None, len(pos), pos_xy=pos)
     got = ti.run_device(None, len(pos), pos_xy=pos)
     assert want.max() > 0
