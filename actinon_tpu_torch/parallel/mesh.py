@@ -212,30 +212,27 @@ class ShardedDiffRenderer:
         q = dr._lanes(q0)
         N = next(iter(q.values())).shape[0]
         q_l = {key: torch.tensor_split(v, n)[k] for key, v in q.items()}
-        params = {g: {key: v.detach().requires_grad_(True)
-                      for key, v in grp.items()}
-                  for g, grp in dr.params().items()}
-        leaves = [v for grp in params.values() for v in grp.values()]
         rows = next(iter(q_l.values())).shape[0]
         if rows:
-            rad = dr.radiance(params, q_l)
+            w = None
             if weight is not None:
-                w = torch.as_tensor(weight, dtype=rad.dtype,
-                                    device=rad.device)
-                rad = rad * torch.tensor_split(w, n)[k]
+                w = torch.tensor_split(torch.as_tensor(
+                    weight, dtype=dr.integ.tdtype, device=dr.integ.device),
+                    n)[k]
             # this share's part of torch.mean over the whole [N, 3] batch
-            loss = torch.sum(rad) / (3 * N)
-            got = torch.autograd.grad(loss, leaves, allow_unused=True)
+            # (with diff_graphs the replay of a CUDA graph; the
+            # all-reduce stays outside it)
+            loss, grads = dr.share_value_and_grad(q_l, w, total=N)
         else:
             loss = torch.zeros((), dtype=dr.integ.tdtype,
                                device=dr.integ.device)
-            got = [None] * len(leaves)
-        flat = torch.cat([loss.detach().reshape(1)] + [
-            (torch.zeros_like(v) if g is None else g).reshape(-1)
-            for v, g in zip(leaves, got)])
+            grads = {g: {key: torch.zeros_like(v) for key, v in grp.items()}
+                     for g, grp in dr.params().items()}
+        flat = torch.cat([loss.reshape(1)] + [
+            v.reshape(-1) for grp in grads.values() for v in grp.values()])
         flat = _all_reduce_sum(self.mesh, flat)
         out, at = {}, 1
-        for g, grp in params.items():
+        for g, grp in grads.items():
             out[g] = {}
             for key, v in grp.items():
                 out[g][key] = flat[at:at + v.numel()].reshape(v.shape)

@@ -32,6 +32,13 @@ How it is built:
     (seed_mode="counter"), so the randomness does not move with the
     parameters and central differences of the same estimator match its
     gradient.
+  * Device residency, as the JAX package's `jit(value_and_grad(...))`:
+    where the host may not read the device (`tracer.host_reads_ok`: a
+    CUDA-graph capture) the replay runs every bounce and every NEE with
+    no read, and it uploads nothing (device constants from
+    `Tracer._const`), so on a card `value_and_grad` is the replay of one
+    CUDA graph of the forward replay and its backward (`diff_graphs`,
+    render/graphs.py `DiffGraphs`), bit-equal to the eager call.
   * Discrete events (the nearest object, a CSG boundary's identity) are
     locally constant: gradients are the interior derivatives.  With
     `edge_aware=True` the NEE visibility discontinuity adds its
@@ -52,7 +59,7 @@ import torch
 
 from actinon_tpu_torch import rng as argn
 from actinon_tpu_torch.render.integrator import Integrator
-from actinon_tpu_torch.render.tracer import _dot
+from actinon_tpu_torch.render.tracer import _dot, host_reads_ok
 from actinon_tpu_torch.scene import ir as sir
 
 _SEL_SALT = 0xB5297A4D
@@ -123,6 +130,11 @@ class DiffRenderer:
             raise ValueError(f"sel_mode {sel_mode!r}")
         self.sel_mode = sel_mode
         self.steps_run = 0
+        # True (on a CUDA device): value_and_grad replays a CUDA graph of
+        # the whole replay and its backward (render/graphs.py); False
+        # runs the same code eagerly
+        self.diff_graphs = self.integ.device.type == "cuda"
+        self._graphs = None
 
     # ------------------------------------------------------------------
 
@@ -206,12 +218,17 @@ class DiffRenderer:
         is_path = q["is_path"]
         lane = {k: q[k] for k in _LANE_FIELDS}
 
-        sid, contrib, children, pp = integ._step(lane, path_ray=False)
+        # the NEE gate reads the device: off where reads are not allowed
+        # (its gated lanes add nothing either way)
+        gate = host_reads_ok(dev)
+        sid, contrib, children, pp = integ._step(lane, path_ray=False,
+                                                 nee_gate=gate)
         if integ.path_cap > 0:
             # path rays trace matter only and end at max_path_length
             # (reference src/scene.c:596-617): both classifications, one
             # chosen per lane
-            _, contrib_p, children_p, pp_p = integ._step(lane, path_ray=True)
+            _, contrib_p, children_p, pp_p = integ._step(
+                lane, path_ray=True, nee_gate=gate)
 
             def per_lane(a, b):
                 m = is_path.reshape((B,) + (1,) * (a.dim() - 1))
@@ -289,9 +306,14 @@ class DiffRenderer:
         """Per-sample radiance [B,3], differentiable with respect to the
         tensors of `params` (keys as params()).  The tracer's and the
         integrator's overrides, flags and seed mode are restored on
-        return.  The replay stops early once every lane is dead (its
-        remaining bounces would add exactly zero); `steps_run` keeps the
-        number of bounces it ran."""
+        return.  Where the host may read the device (the CPU, a card
+        outside a CUDA-graph capture: `tracer.host_reads_ok`) the replay
+        stops early once every lane is dead (its remaining bounces would
+        add exactly zero); elsewhere it runs all `n_steps` bounces, as the
+        JAX package's scan does.  `steps_run` keeps the number of bounces
+        it ran.  A direct call runs eagerly and its caller owns the
+        autograd graph (central differences, custom losses, fits);
+        `value_and_grad` replays a captured graph on a card."""
         integ, tr = self.integ, self.tr
         n = self.n_steps if n_steps is None else int(n_steps)
         saved = (integ.ovr, tr.ovr, tr.diff, integ.seed_mode,
@@ -306,8 +328,9 @@ class DiffRenderer:
             acc = torch.zeros((q["p"].shape[0], 3), dtype=integ.tdtype,
                               device=integ.device)
             self.steps_run = 0
+            stop = host_reads_ok(integ.device)
             for i in range(n):
-                if not bool((q["intensity"] > 0).any()):
+                if stop and not bool((q["intensity"] > 0).any()):
                     break
                 contrib, q = self._diff_step(q, i)
                 acc = acc + contrib
@@ -330,16 +353,46 @@ class DiffRenderer:
     def value_and_grad(self, q0: Dict, weight=None):
         """(loss, grads) at the scene's own parameters; grads has the
         keys of params() (zeros where the loss does not depend on a
-        parameter)."""
-        params = {g: {k: v.detach().requires_grad_(True)
+        parameter).  With `diff_graphs` (a card) the call is the replay
+        of a CUDA graph of the whole replay and its backward
+        (render/graphs.py `DiffGraphs`), bit-equal to the eager call."""
+        return self.share_value_and_grad(self._lanes(q0), weight)
+
+    def share_value_and_grad(self, q: Dict, weight=None,
+                             total: Optional[int] = None):
+        """(loss, grads) of the lanes `q` (on the device, as `_lanes`
+        gives them) at the scene's own parameters.  total=None: the loss
+        is render_loss, the mean over q; else q is a share of a batch of
+        `total` rows and the loss its part of that batch's mean,
+        sum / (3 total) (ShardedDiffRenderer sums the shares).  A CUDA
+        graph replay with `diff_graphs`, else the eager call."""
+        if self.diff_graphs:
+            if self._graphs is None:
+                from actinon_tpu_torch.render.graphs import DiffGraphs
+                self._graphs = DiffGraphs(self)
+            return self._graphs.value_and_grad(q, weight, total)
+        leaves = {g: {k: v.detach().requires_grad_(True)
                       for k, v in grp.items()}
                   for g, grp in self.params().items()}
-        loss = self.render_loss(params, q0, weight)
-        leaves = [(g, k, v) for g, grp in params.items()
-                  for k, v in grp.items()]
-        got = torch.autograd.grad(loss, [v for *_, v in leaves],
+        return self._share(leaves, q, weight, total)
+
+    def _share(self, leaves: Dict, q: Dict, weight=None,
+               total: Optional[int] = None):
+        """The loss of the lanes `q` at the leaf tensors `leaves` (keys as
+        params()) and its gradients by torch.autograd.grad (zeros for the
+        leaves it does not reach): what DiffGraphs captures."""
+        if total is None:
+            loss = self.render_loss(leaves, q, weight)
+        else:
+            rad = self.radiance(leaves, q)
+            if weight is not None:
+                rad = rad * weight
+            loss = torch.sum(rad) / (3 * total)
+        flat = [(g, k, v) for g, grp in leaves.items()
+                for k, v in grp.items()]
+        got = torch.autograd.grad(loss, [v for *_, v in flat],
                                   allow_unused=True)
-        grads = {g: {} for g in params}
-        for (g, k, v), gv in zip(leaves, got):
+        grads = {g: {} for g in leaves}
+        for (g, k, v), gv in zip(flat, got):
             grads[g][k] = torch.zeros_like(v) if gv is None else gv
         return loss.detach(), grads

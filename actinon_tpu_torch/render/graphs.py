@@ -1,4 +1,5 @@
-"""The device drain's trips as replays of CUDA graphs.
+"""The device drain's trips, and the differentiable renderer's
+value_and_grad, as replays of CUDA graphs.
 
 The JAX package runs its whole device drain as one jitted
 `lax.while_loop` (its `run_device`), so a pass costs the host nothing per
@@ -28,34 +29,92 @@ trips, their sizes and their order are those of the eager drain.
 * Launch accounting.  `kernels.LAUNCHES` counts in the wrappers, which
   run only at capture; each graph keeps the launches its capture counted,
   and every replay adds them, so `LAUNCHES` counts what the card ran.
+
+`DiffGraphs` does the same for `DiffRenderer.value_and_grad`: one graph
+holds the whole replay, the loss and its backward (its class docstring).
 """
 
 from __future__ import annotations
 
+import gc
 import time
+import weakref
+from types import SimpleNamespace
 
 import torch
 
 from actinon_tpu_torch.render import kernels
+from actinon_tpu_torch.render.diff import _LANE_FIELDS
 
 
-class DrainGraphs:
-    """The captured trips of one integrator's device drain."""
+class _Captures:
+    """torch's capture recipe, and what the captures cost: how many,
+    their seconds, and the device memory the caching allocator reserved
+    during them (their pools).  The owner (an integrator or a
+    DiffRenderer) is held by a weak reference: no reference cycle keeps
+    its graphs alive past it, for the cyclic collector to destroy later,
+    perhaps in the middle of another capture, which that would
+    invalidate."""
 
-    def __init__(self, integ):
-        self.integ = integ
+    def __init__(self, owner):
+        self._owner = weakref.ref(owner)
         self._token = None
         self._drop()
+
+    def _reset_costs(self):
+        self.captures = 0
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+
+    def _capture_fn(self, pool, fn):
+        """fn() once eagerly on a side stream (the warm-up: it loads every
+        kernel and fills every cache fn reads), then captured into a new
+        CUDA graph in `pool` (which runs nothing).  Returns (graph, fn's
+        captured outputs, the launches the capture counted: they move to
+        the replays).  A capture that fails raises."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        # a graph destroyed during the capture (the cyclic collector
+        # freeing the caller's garbage) would invalidate it
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool):
+                # (read here: entering the capture empties the
+                # allocator's cache)
+                reserved = torch.cuda.memory_reserved()
+                out = fn()
+        finally:
+            if collecting:
+                gc.enable()
+        torch.cuda.synchronize()
+        self.capture_s += time.perf_counter() - t0
+        self.pool_bytes += torch.cuda.memory_reserved() - reserved
+        self.captures += 1
+        launches = {k: n - before[k] for k, n in kernels.LAUNCHES.items()
+                    if n != before[k]}
+        kernels.LAUNCHES.update(before)
+        return graph, out, launches
+
+
+class DrainGraphs(_Captures):
+    """The captured trips of one integrator's device drain."""
+
+    @property
+    def integ(self):
+        return self._owner()
 
     def _drop(self):
         self._states = {}     # (C, rows) -> drain state
         self._pools = {}      # (C, rows) -> graph memory pool
         self._graphs = {}     # (C, rows, Bk) -> (graph, launches)
-        # what the captures cost: how many, their seconds, and the device
-        # memory the caching allocator reserved during them
-        self.captures = 0
-        self.capture_s = 0.0
-        self.pool_bytes = 0
+        self._reset_costs()
 
     def _routing(self):
         """What the captured trips depend on besides the drain state."""
@@ -95,29 +154,105 @@ class DrainGraphs:
             kernels.LAUNCHES[k] += n
 
     def _capture(self, st, Bk):
-        ig = self.integ
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            ig._trip(st, Bk)          # the warm-up: this trip, for real
-        torch.cuda.current_stream().wait_stream(side)
-        before = dict(kernels.LAUNCHES)
         pool = self._pools.get(st["key"])
         if pool is None:
             pool = self._pools[st["key"]] = torch.cuda.graph_pool_handle()
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool):
-            # (read here: entering the capture empties the allocator's
-            # cache)
-            reserved = torch.cuda.memory_reserved()
-            ig._trip(st, Bk)
-        torch.cuda.synchronize()
-        self.capture_s += time.perf_counter() - t0
-        self.pool_bytes += torch.cuda.memory_reserved() - reserved
-        self.captures += 1
-        # the capture ran nothing: its counts move to the replays
-        launches = {k: n - before[k] for k, n in kernels.LAUNCHES.items()
-                    if n != before[k]}
-        kernels.LAUNCHES.update(before)
+        # the warm-up is this trip, for real
+        graph, _, launches = self._capture_fn(
+            pool, lambda: self.integ._trip(st, Bk))
         return graph, launches
+
+
+class DiffGraphs(_Captures):
+    """One DiffRenderer's value_and_grad as the replay of a CUDA graph.
+
+    The JAX package compiles `jit(value_and_grad(render_loss))` into one
+    program.  Here the replay (`DiffRenderer.radiance`: all `n_steps`
+    bounces, since under capture the host reads nothing), the loss and
+    `torch.autograd.grad`'s backward are captured together into one
+    `torch.cuda.CUDAGraph`; a call copies the lanes and the parameter
+    values into the graph's fixed buffers, replays it, and clones the
+    loss and the gradients out of its static outputs (a later replay
+    overwrites them).
+
+    * Keys.  A graph is keyed by the lanes B, n_steps, sel_mode,
+      edge_aware, the weight's shape (or no weight), the float type and
+      the share's total rows (ShardedDiffRenderer); all share one memory
+      pool, which holds every tensor the backward saves.
+    * Capture.  A key's first call runs the eager call once on a side
+      stream (torch's warm-up recipe: it fills `Tracer._const`, the
+      member stacks and autograd's lazy state), then captures, then
+      replays.  A capture that fails raises: there is no eager fallback.
+    * Lifetime.  Graphs are dropped when the tracer's or the
+      integrator's tables change (`set_geom`, `set_mat`: their
+      `_generation`; the `_const` tensors a graph reads go with them).
+    * Launch accounting as in DrainGraphs: the edge-aware terms' detached
+      light hits may launch K3 inside the graph, and each replay adds the
+      launches its capture counted.
+    """
+
+    @property
+    def dr(self):
+        return self._owner()
+
+    def _drop(self):
+        self._pool = None
+        self._graphs = {}     # key -> SimpleNamespace of one graph
+        self._reset_costs()
+
+    def _routing(self):
+        tr, ig = self.dr.tr, self.dr.integ
+        return (tr._generation, ig._generation)
+
+    def value_and_grad(self, q, weight=None, total=None):
+        """(loss, grads) of DiffRenderer.share_value_and_grad for the
+        lanes `q` (the device tensors of `_lanes`)."""
+        dr = self.dr
+        tok = self._routing()
+        if tok != self._token:
+            self._drop()
+            self._token = tok
+        if weight is not None:
+            weight = torch.as_tensor(weight, dtype=dr.integ.tdtype,
+                                     device=dr.integ.device)
+        key = (q["p"].shape[0], dr.n_steps, dr.sel_mode, dr.edge_aware,
+               None if weight is None else tuple(weight.shape),
+               dr.integ.tdtype, total)
+        params = dr.params()
+        got = self._graphs.get(key)
+        if got is None:
+            got = self._graphs[key] = self._capture(q, params, weight,
+                                                    total)
+        with torch.no_grad():
+            for k, buf in got.lanes.items():
+                buf.copy_(q[k])
+            for g, grp in got.leaves.items():
+                for k, buf in grp.items():
+                    buf.copy_(params[g][k])
+            if weight is not None:
+                got.weight.copy_(weight)
+        got.graph.replay()
+        for k, n in got.launches.items():
+            kernels.LAUNCHES[k] += n
+        dr.steps_run = dr.n_steps
+        return got.loss.clone(), {g: {k: v.clone() for k, v in grp.items()}
+                                  for g, grp in got.grads.items()}
+
+    def _capture(self, q, params, weight, total):
+        """A graph of `_share` on fixed buffers holding q, params and
+        weight: its lanes, leaves (requires_grad) and weight are the
+        inputs a call copies into, its loss and grads the static
+        outputs."""
+        dr = self.dr
+        got = SimpleNamespace(
+            lanes={k: q[k].clone() for k in _LANE_FIELDS + ("is_path",)},
+            leaves={g: {k: v.detach().clone().requires_grad_(True)
+                        for k, v in grp.items()}
+                    for g, grp in params.items()},
+            weight=None if weight is None else weight.clone())
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        got.graph, (got.loss, got.grads), got.launches = \
+            self._capture_fn(self._pool, lambda: dr._share(
+                got.leaves, got.lanes, got.weight, total))
+        return got

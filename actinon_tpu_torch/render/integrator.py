@@ -276,10 +276,10 @@ class Integrator:
 
     def _pack(self, t):
         """The packed [O, 36] material table from the tables `t`
-        (torch.cat: autograd reaches the override tensors)."""
+        (torch.cat: autograd reaches the override tensors; the static
+        columns are the tracer's cached device constants)."""
         O = len(self.ir.objects)
-        f = lambda a: torch.as_tensor(np.asarray(a, self.dtype),
-                                      device=self.device)
+        f = lambda a: self.tr._const(a, self.tdtype)
         return torch.cat([
             t["m_color"],                              # 0:3
             t["m_radiance"][:, None],                  # 3
@@ -423,9 +423,11 @@ class Integrator:
         (sample_id, contrib [B,3], children dict, path_parent).
 
         nee_gate: skip the NEE block when no lane of the batch shades
-        diffusely, which reads the device once; a drain trip
-        (`_trip`) runs it always (its gated lanes add nothing), so that
-        it reads nothing back and can be captured as a CUDA graph.
+        diffusely, which reads the device once; a drain trip (`_trip`)
+        runs it always, and the diff replay (`DiffRenderer._diff_step`)
+        wherever host reads are not allowed (`tracer.host_reads_ok`; its
+        gated lanes add nothing either way), so that each reads nothing
+        back and can be captured as a CUDA graph.
 
         mixed=True: q carries a per-lane `kind` (0 normal ray, 1 path ray,
         2 path-parent descriptor) plus the parent aux fields; the trace is
@@ -892,8 +894,8 @@ class Integrator:
             return out
 
         phis = (np.arange(K) + 0.5) * (2.0 * np.pi / K)
-        cphi = self._as(np.cos(phis))
-        sphi = self._as(np.sin(phis))
+        cphi = tr._const(np.cos(phis))
+        sphi = tr._const(np.sin(phis))
         s_sd, s_ti, s_pos = surf_d.detach(), theta_i.detach(), pos.detach()
         fp = s_pos[:, None, :].expand(B, K, 3).reshape(B * K, 3)
         tilt = 1e-3    # predicate probe angle off the curve
@@ -915,11 +917,11 @@ class Integrator:
             lcol = self._mt("l_color")[li]
             s_lpos, s_lr = lpos.detach(), lr.detach()
             if self.l_fov[li] == "plane":
-                fov_d = (-self._as(self.l_plane_n[li])).expand(s_pos.shape)
+                fov_d = (-tr._const(self.l_plane_n[li])).expand(s_pos.shape)
                 cos_rs = torch.where(_dot(s_lpos - s_pos, fov_d) > 0,
                                      0.0, 1.0).to(dt)
             else:
-                cpos = s_lpos if exact else self._as(self.l_cone_pos[li])
+                cpos = s_lpos if exact else tr._const(self.l_cone_pos[li])
                 ldiff = cpos - s_pos
                 ldist2 = _dot(ldiff, ldiff)
                 fov_d = _norm3(ldiff)
@@ -1055,7 +1057,9 @@ class Integrator:
         B = pos.shape[0]
         K = cphi.shape[0]
         M, m0, c2, rr = qd["M"], qd["m0"], qd["c2"], qd["rr"]
-        Minv = torch.linalg.inv(M)
+        # inv_ex: linalg.inv without its singularity check, which reads
+        # the card (the same kernels and backward otherwise)
+        Minv = torch.linalg.inv_ex(M).inverse
         yp = pos @ M.T + m0[None, :]                   # [B,3] local
         side = torch.sum(c2[None, :] * yp * yp, -1) + rr
         if qd["sig"] == "ellipsoid":
@@ -1077,8 +1081,9 @@ class Integrator:
             return _norm3(xphi - pos[:, None, :]), ok0
         free = qd["free"]
         ij = [k for k in range(3) if k != free]
-        s2 = safe_sqrt(c2[ij] / torch.clamp(-rr, min=1e-30))    # [2]
-        q2 = yp[:, ij] * s2[None, :]                   # [B,2]
+        ij_t = self.tr._const(ij, torch.int64)    # a device index: no upload
+        s2 = safe_sqrt(c2[ij_t] / torch.clamp(-rr, min=1e-30))  # [2]
+        q2 = yp[:, ij_t] * s2[None, :]                 # [B,2]
         ql = safe_sqrt(_dot(q2, q2))
         ok0 = (ql > 1.0) & (side > 0) & gate
         ql_s = torch.where(ql > 0, ql, 1.0)

@@ -853,18 +853,23 @@ class Tracer:
 
     def _t(self, name, value):
         """Table read with an optional override from `ovr` (a tensor keeps
-        its autograd graph)."""
+        its autograd graph); without one, the cached device constant of
+        the numpy `value`."""
         o = self.ovr.get(name)
-        return as_table(value if o is None else o, self.tdtype, self.device)
+        if o is None:
+            return self._const(value)
+        return as_table(o, self.tdtype, self.device)
 
     def _assemble(self):
         """The (M, m0, c2, c1, rr) leaf tables built from the `ovr`
         tensors, in the order of writes of set_geom (the JAX tracer's
         `_assemble`): the family arrays first, then the per-leaf composite
-        keys.  Out-of-place writes, so autograd reaches every override."""
+        keys.  Out-of-place writes, so autograd reaches every override;
+        the base tables are the cached device constants (`_const`), so
+        that a captured replay uploads nothing."""
         t = self.tab
-        M, m0, c2, c1, rr = (self._as(a) for a in (t.M, t.m0, t.c2, t.c1,
-                                                    t.rr))
+        M, m0, c2, c1, rr = (self._const(a) for a in (t.M, t.m0, t.c2,
+                                                       t.c1, t.rr))
 
         def put(tab, rows, val):
             idx = self._idx(np.atleast_1d(np.asarray(rows, np.int64)))

@@ -96,20 +96,29 @@ Phases, each printing one line of numbers:
  14. diff    — the differentiable renderer (render/diff.py) at bench.py's
                fwd_bwd leg: DiffRenderer.value_and_grad on the smoke scene
                at the headline shape, 8,192 camera samples of
-               default_rng(3), balanced selection, 25 bounces, f32: one
-               warm-up, then the median of 3 ("diff value_and_grad": wall
-               seconds, fwd+bwd lane-bounces/s = 8,192 x 25 over the
-               median, warm-up, peak memory), with no kernel launched (the
-               replay runs the plain torch path, as the JAX package turns
-               its Pallas kernels off under overrides and AD), a finite
-               loss and finite gradients ("diff grad norms"); the same
-               first 256 lanes in f64 on the card and on the CPU (loss
+               default_rng(3), balanced selection, 25 bounces, f32: the
+               eager call (diff_graphs = False), one warm-up, then the
+               median of 3 ("diff value_and_grad": wall seconds, fwd+bwd
+               lane-bounces/s = 8,192 x 25 over the median, warm-up, peak
+               memory), with no kernel launched (the replay runs the
+               plain torch path, as the JAX package turns its Pallas
+               kernels off under overrides and AD), a finite loss and
+               finite gradients ("diff grad norms"); then the same call
+               as the replay of one CUDA graph (render/graphs.py
+               DiffGraphs; "diff graph": the warm-up that captures, the
+               median of 3 replays and their spread, lane-bounces/s, the
+               capture's seconds and pool, the peak memory), its loss and
+               gradients bit for bit the eager call's and no kernel
+               launched; the same first 256 lanes in f64 on the card (a
+               graph call, bit for bit the eager call: "diff graph f64")
+               and on the CPU (loss
                within rel 1e-6, each gradient within 1e-5 of its table's
                largest magnitude plus rel 1e-5); central differences in
                f64 on the card, uniform selection, for the sphere lamp's
                radiance and the goblet's outer bowl radius, at
                tests/test_diff.py's tolerances; one edge-aware call on 1,024
-               lanes with finite gradients, and any EdgeCoverageWarning;
+               lanes with finite gradients, bit for bit the eager call,
+               and any EdgeCoverageWarning;
                the f32 forward lane by lane ("diff c3"): a finite loss and
                no lane at or above 1e3 (ROADMAP C3: far-floor lanes 898
                and 2084 took the NEE's 1e30 cap while the discriminants
@@ -124,7 +133,8 @@ Phases, each printing one line of numbers:
                bit for bit run_device's image, with K1 launched; (c)
                ShardedDiffRenderer at world size 1 against value_and_grad
                at the fwd_bwd width (loss within 1e-5, gradients rtol
-               2e-4 and atol 2e-5, tests/test_mesh.py); (b) two ranks
+               2e-4 and atol 2e-5, tests/test_mesh.py), both through
+               DiffGraphs (the seconds include each capture); (b) two ranks
                sharing the card (this script run twice as
                `--mesh-worker`, gloo over a FileStore, collectives through
                the host, the kernels on cuda:0 in both, killed at
@@ -179,8 +189,10 @@ GLASS_HASH, and no scene or big-scene kernel launches there.  lamp_row
 cudaLaunchKernel and cudaGraphLaunch calls a trip (the headline and
 lamp_row also with eager trips); the same for each phase-18 cell's
 drain on a warm integrator, with graphs and eagerly; K1's device time
-over the shipped render's calls, and the device time of one diff
-value_and_grad by op.
+over the shipped render's calls, and one diff value_and_grad as a graph
+replay ("profile diff") and eagerly ("profile diff eager"): busy share,
+the host's cudaLaunchKernel and cudaGraphLaunch calls, device time by
+op.
 --ab-bigscene PATH builds PATH (another revision's
 csrc/bigscene_kernels.cu) beside this checkout's kernels and holds K6
 and K7 of the two to each other on the fractal's and lamp_row's render
@@ -1661,19 +1673,9 @@ def phase_diff():
     dr = diff_renderer(sc, np.float32, "cuda")
     q0 = dr.primary(pos)
     before = dict(kernels.LAUNCHES)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    loss, grads = dr.value_and_grad(q0)
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    secs = []
-    for _ in range(DIFF_REPS):
-        t0 = time.perf_counter()
-        loss, grads = dr.value_and_grad(q0)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-    peak = torch.cuda.max_memory_allocated()
+    # the eager call first: PR 8-11's figure, and the graph's reference
+    dr.diff_graphs = False
+    loss, grads, warm, secs, peak = timed_value_and_grad(dr, q0)
     launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
                 if v != before[k]}
     if launched:
@@ -1699,16 +1701,29 @@ def phase_diff():
     say("diff grad norms", norms=json.dumps(
         {k: float(f"{np.linalg.norm(v):.4g}") for k, v in g.items()},
         separators=(",", ":")))
+    out["graph"] = diff_graph_line(dr, q0, (loss, grads))
+    dr.diff_graphs = False
     phase_c3(sc, pos, dr, q0, float(loss))
     del grads, dr, q0
 
     # the card against the CPU in f64 on the first DIFF_CHECK lanes
+    # (the card's call a graph replay, held bit for bit to the eager call)
     got = {}
     for dev in ("cuda", "cpu"):
         d64 = diff_renderer(sc, np.float64, dev)
+        q64 = d64.primary(pos[:DIFF_CHECK])
         t0 = time.perf_counter()
-        loss, grads = d64.value_and_grad(d64.primary(pos[:DIFF_CHECK]))
+        loss, grads = d64.value_and_grad(q64)
         got[dev] = (float(loss), grads_np(grads), time.perf_counter() - t0)
+        if dev == "cuda":
+            d64.diff_graphs = False
+            same, worst = vg_bit_equal(d64.value_and_grad(q64),
+                                       (loss, grads))
+            say("diff graph f64", lanes=DIFF_CHECK, bit_equal=same,
+                differs=worst, captures=d64._graphs.captures)
+            if not same:
+                fail(f"diff graph f64: the graph call against the eager "
+                     f"call differs in {worst}")
     (lc, gc, sc_), (lh, gh, sh) = got["cuda"], got["cpu"]
     rel = abs(lc - lh) / abs(lh)
     worst = max((np.max(np.abs(gc[k] - gh[k])
@@ -1738,20 +1753,92 @@ def phase_diff():
     gaps = [str(w.message) for w in ws
             if issubclass(w.category, EdgeCoverageWarning)]
     before = dict(kernels.LAUNCHES)
+    qe = de.primary(pos[:DIFF_EDGE])
     t0 = time.perf_counter()
-    loss, grads = de.value_and_grad(de.primary(pos[:DIFF_EDGE]))
+    loss, grads = de.value_and_grad(qe)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                if v != before[k]}
     g = grads_np(grads)
     bad = sorted(k for k, v in g.items() if not np.isfinite(v).all())
     if not np.isfinite(float(loss)) or bad:
         fail(f"diff edge: loss {float(loss)}, non-finite gradients {bad}")
+    # the graph call (its capture's K3 launches counted at the replay)
+    # against the eager call
+    de.diff_graphs = False
+    same, worst = vg_bit_equal(de.value_and_grad(qe), (loss, grads))
     say("diff edge_aware", lanes=DIFF_EDGE, seconds=f"{secs:.3f}",
         loss=f"{float(loss):.6f}", coverage_warnings=json.dumps(gaps),
-        launches=json.dumps({k: v - before[k] for k, v in
-                             kernels.LAUNCHES.items() if v != before[k]}),
+        launches=json.dumps(launched), graph_bit_equal=same,
+        differs=worst,
         norm_qua_m0=f"{np.linalg.norm(g['geom.qua_m0']):.4g}",
         norm_c0_l0_c=f"{np.linalg.norm(g['geom.c0_l0_c']):.4g}")
+    if not same:
+        fail(f"diff edge: the graph call against the eager call differs "
+             f"in {worst}")
+    return out
+
+
+def timed_value_and_grad(dr, q0):
+    """dr.value_and_grad(q0) once as the warm-up (with graphs: the
+    capture), then DIFF_REPS times: (loss, grads of the last call, the
+    warm-up's seconds, each call's seconds, the peak of
+    max_memory_allocated over all of them)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dr.value_and_grad(q0)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    secs = []
+    for _ in range(DIFF_REPS):
+        t0 = time.perf_counter()
+        loss, grads = dr.value_and_grad(q0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return loss, grads, warm, secs, torch.cuda.max_memory_allocated()
+
+
+def vg_bit_equal(a, b):
+    """Two (loss, grads) bit for bit: (all equal, the keys that differ)."""
+    import torch
+    bad = [] if torch.equal(a[0], b[0]) else ["loss"]
+    bad += [f"{g}.{k}" for g, grp in b[1].items() for k, v in grp.items()
+            if not torch.equal(a[1][g][k], v)]
+    return not bad, bad
+
+
+def diff_graph_line(dr, q0, eager):
+    """The fwd_bwd cell through DiffGraphs ("diff graph"): the warm-up
+    that captures, DIFF_REPS replays (median and spread), lane-bounces/s,
+    the capture's seconds and pool, the peak memory, each replay bit for
+    bit the eager call `eager`, and no kernel launched."""
+    from actinon_tpu_torch.render import kernels
+    dr.diff_graphs = True
+    before = dict(kernels.LAUNCHES)
+    loss, grads, warm, secs, peak = timed_value_and_grad(dr, q0)
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                if v != before[k]}
+    same, worst = vg_bit_equal((loss, grads), eager)
+    g = dr._graphs
+    med = float(np.median(secs))
+    out = dict(seconds=med, warmup_s=warm, capture_s=g.capture_s,
+               pool_bytes=g.pool_bytes, peak_bytes=peak,
+               lane_bounces_per_s=DIFF_LANES * dr.n_steps / med)
+    say("diff graph", lanes=DIFF_LANES, steps=dr.n_steps,
+        steps_run=dr.steps_run, bit_equal=same, differs=worst,
+        warmup_s=f"{warm:.3f}", seconds=f"{med:.4f}",
+        spread=f"{min(secs):.4f}-{max(secs):.4f}",
+        lane_bounces_per_s=f"{out['lane_bounces_per_s']:.6g}",
+        captures=g.captures, capture_s=f"{g.capture_s:.3f}",
+        pool_mib=f"{g.pool_bytes / 2**20:.1f}",
+        peak_mib=f"{peak / 2**20:.1f}", loss=f"{float(loss):.6f}",
+        launches=json.dumps(launched))
+    if not same or launched or g.captures != 1:
+        fail(f"diff graph: bit-equal to the eager call {same} (differs "
+             f"{worst}), launches {launched}, captures {g.captures}")
     return out
 
 
@@ -2540,32 +2627,41 @@ def profile_graph_drains(acts):
 
 def profile_diff():
     """One value_and_grad of phase 14 under torch.profiler (after one
-    untraced call): wall and device busy seconds, and the device time of
-    its largest op kinds."""
+    untraced call, which captures the graph), as a graph replay ("profile
+    diff") and eagerly ("profile diff eager"): wall and device busy
+    seconds, the host's cudaLaunchKernel and cudaGraphLaunch calls, and
+    the device time of its largest op kinds."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     sc = load_scene(SCENE, *HEADLINE)
     dr = diff_renderer(sc, np.float32, "cuda")
     q0 = dr.primary(diff_positions(sc.cfg, DIFF_LANES))
-    dr.value_and_grad(q0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
+    for tag, graphs in (("profile diff", True),
+                        ("profile diff eager", False)):
+        dr.diff_graphs = graphs
         dr.value_and_grad(q0)
         torch.cuda.synchronize()
-        wall = time.time() - t0
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    dev = lambda e: e.self_device_time_total
-    busy = sum(dev(e) for e in kern) / 1e6
-    say("profile diff", wall_s=f"{wall:.3f}", device_busy_s=f"{busy:.4f}",
-        busy_share=f"{busy / wall:.4f}", kernel_names=len(kern),
-        launches=sum(e.count for e in kern))
-    for e in sorted(kern, key=dev, reverse=True)[:12]:
-        print(f"  device_ms={dev(e) / 1e3:.3f} calls={e.count} "
-              f"name={e.key[:90]!r}", flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            dr.value_and_grad(q0)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        ev = prof.key_averages()
+        kern = [e for e in ev if e.device_type == DeviceType.CUDA]
+        dev = lambda e: e.self_device_time_total
+        busy = sum(dev(e) for e in kern) / 1e6
+        api = {e.key: e.count for e in ev
+               if e.key in ("cudaLaunchKernel", "cudaGraphLaunch")}
+        say(tag, graphs=graphs, wall_s=f"{wall:.3f}",
+            device_busy_s=f"{busy:.4f}", busy_share=f"{busy / wall:.4f}",
+            kernel_names=len(kern), launches=sum(e.count for e in kern),
+            launch_kernel_per_call=api.get("cudaLaunchKernel", 0),
+            graph_launch_per_call=api.get("cudaGraphLaunch", 0))
+        for e in sorted(kern, key=dev, reverse=True)[:12]:
+            print(f"  device_ms={dev(e) / 1e3:.3f} calls={e.count} "
+                  f"name={e.key[:90]!r}", flush=True)
 
 
 def shipped_nee():

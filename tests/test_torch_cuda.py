@@ -1206,6 +1206,136 @@ def test_graph_drain_after_set_geom():
     assert not np.array_equal(got, before)
 
 
+# -- the diff replay as a CUDA graph (render/graphs.py DiffGraphs) ---------
+#
+# On a card DiffRenderer.value_and_grad replays one CUDA graph of the whole
+# replay, the loss and its backward; diff_graphs = False runs the same code
+# eagerly.  The two must give the same bits.
+
+
+def _vg_equal(a, b):
+    bad = [] if torch.equal(a[0], b[0]) else ["loss"]
+    return bad + [f"{g}.{k}" for g, grp in b[1].items()
+                  for k, v in grp.items() if not torch.equal(a[1][g][k], v)]
+
+
+DIFF_GRAPH = [(np.float32, 512, "balanced", False),
+              (np.float32, 512, "uniform", False),
+              (np.float32, 512, "uniform", True),
+              (np.float64, 128, "balanced", False),
+              (np.float64, 128, "uniform", False),
+              (np.float64, 128, "uniform", True)]
+
+
+@pytest.mark.parametrize(
+    "dtype,n,sel_mode,edge_aware", DIFF_GRAPH,
+    ids=[f"{np.dtype(c[0]).name}-{c[2]}{'-edge' if c[3] else ''}"
+         for c in DIFF_GRAPH])
+def test_diff_graph_equals_eager(dtype, n, sel_mode, edge_aware):
+    """The eager call, then the graph call twice (capture and replay,
+    then a replay alone): loss and gradients bit for bit, every bounce
+    replayed, one capture, and no kernel launched but the edge terms' K3
+    in f32 (in every bounce of the replay, where the eager call stops
+    once every lane is dead)."""
+    _need_card()
+    from actinon_tpu_torch.render import kernels
+    dr, q0 = _diff_glass_table(dtype, "cuda", n, sel_mode=sel_mode,
+                               edge_aware=edge_aware)
+    assert dr.diff_graphs
+    dr.diff_graphs = False
+    kernels.reset_launches()
+    want = dr.value_and_grad(q0)
+    torch.cuda.synchronize()
+    eager_k3 = kernels.LAUNCHES["object_hit"]
+    assert float(want[0]) > 0
+    dr.diff_graphs = True
+    dr.value_and_grad(q0)
+    for _ in range(2):
+        kernels.reset_launches()
+        got = dr.value_and_grad(q0)
+        torch.cuda.synchronize()
+        assert _vg_equal(got, want) == []
+        moved = {k for k, v in kernels.LAUNCHES.items() if v}
+        assert moved <= ({"object_hit"} if edge_aware else set()), moved
+        assert kernels.LAUNCHES["object_hit"] >= eager_k3
+    assert dr.steps_run == dr.n_steps and dr._graphs.captures == 1
+
+
+def test_diff_graph_replay_reads_nothing_back():
+    """The captured value_and_grad's replay under sync_debug_mode
+    "error": no operation in it waits for the card."""
+    _need_card()
+    dr, q0 = _diff_glass_table(np.float32, "cuda", 512)
+    dr.value_and_grad(q0)
+    graph = next(iter(dr._graphs._graphs.values())).graph
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_diff_graph_after_set_geom():
+    """set_geom drops the captured value_and_grad: the next graph call
+    equals the eager call at the moved geometry, not the old result."""
+    _need_card()
+    dr, q0 = _diff_glass_table(np.float32, "cuda", 512)
+    before = dr.value_and_grad(q0)
+    geom = dr.tr.geom_params()
+    geom["sph_c"] = geom["sph_c"] + np.float32(0.25)
+    dr.tr.set_geom(geom)
+    got = dr.value_and_grad(q0)
+    assert dr._graphs.captures == 1
+    dr.diff_graphs = False
+    assert _vg_equal(got, dr.value_and_grad(q0)) == []
+    assert not torch.equal(got[1]["geom"]["sph_c"],
+                           before[1]["geom"]["sph_c"])
+
+
+def test_sharded_diff_graph_world_of_one():
+    """ShardedDiffRenderer at world size one through graphs: bit for bit
+    its eager share, and value_and_grad within test_mesh's bounds."""
+    _need_card()
+    from actinon_tpu_torch.parallel.mesh import ShardedDiffRenderer, make_mesh
+    dr, q0 = _diff_glass_table(np.float32, "cuda", 512)
+    sh = ShardedDiffRenderer(dr, make_mesh(1, device="cuda"))
+    got = sh.value_and_grad(q0)
+    assert dr._graphs.captures == 1
+    loss, grads = dr.value_and_grad(q0)
+    assert dr._graphs.captures == 2          # the whole batch: another key
+    dr.diff_graphs = False
+    assert _vg_equal(got, sh.value_and_grad(q0)) == []
+    assert abs(float(got[0]) - float(loss)) < 1e-5
+    for g, grp in grads.items():
+        for k, want in grp.items():
+            np.testing.assert_allclose(got[1][g][k].cpu().numpy(),
+                                       want.cpu().numpy(), rtol=2e-4,
+                                       atol=2e-5, err_msg=f"{g}.{k}")
+
+
+def test_diff_failed_capture_raises(monkeypatch):
+    """A replay that reads the card back while it is captured makes the
+    capture fail, and value_and_grad raises: it does not fall back to
+    the eager call.  (Near the end of the file, beside the drain's: the
+    failed capture leaves its pool.)"""
+    _need_card()
+    dr, q0 = _diff_glass_table(np.float32, "cuda", 512)
+    share = dr._share
+
+    def reads_back(leaves, q, weight=None, total=None):
+        out = share(leaves, q, weight, total)
+        if torch.cuda.is_current_stream_capturing():
+            float(out[0])
+        return out
+
+    monkeypatch.setattr(dr, "_share", reads_back)
+    with pytest.raises(RuntimeError):
+        dr.value_and_grad(q0)
+    torch.cuda.synchronize()
+
+
 def test_failed_capture_raises(monkeypatch):
     """A trip that reads the card back while it is captured makes the
     capture fail, and the drain raises: it does not fall back to eager

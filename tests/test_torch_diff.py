@@ -5,7 +5,9 @@ refraction, geometry and path cases.
   * Agreement with the JAX package: the loss within rtol 1e-8 and every
     gradient entry within rtol 1e-5 plus 1e-8 of its table's largest
     magnitude, against jax.value_and_grad through actinon_tpu.render.diff
-    (each scene's JAX values computed once per module).
+    (each scene's JAX values computed once per module), by the replay as
+    it runs on the CPU and with host reads off, as a CUDA-graph capture
+    runs it (tests/test_torch_diff_graph.py holds the two bit-equal).
   * Finite differences on the port alone, at tests/test_diff.py's
     tolerances.
   * The replay against the port's counter-mode wavefront drain, the
@@ -43,6 +45,21 @@ def jax_vals():
 def test_grads_match_jax(jax_vals, name, sel_mode):
     dr, q0 = port_setup(name, sel_mode)
     assert_matches_jax(dr.value_and_grad(q0), jax_vals(name, sel_mode))
+
+
+@pytest.mark.parametrize("name,sel_mode", AGREE,
+                         ids=[f"{n}-{s}" for n, s in AGREE])
+def test_no_read_replay_matches_jax(monkeypatch, jax_vals, name, sel_mode):
+    """The replay as a CUDA-graph capture runs it (host reads off: every
+    bounce and every NEE, as the JAX scan runs them) against the jitted
+    JAX value_and_grad, at the same tolerance."""
+    from actinon_tpu_torch.render import diff, tracer
+    monkeypatch.setattr(diff, "host_reads_ok", lambda device: False)
+    monkeypatch.setattr(tracer, "host_reads_ok", lambda device: False)
+    dr, q0 = port_setup(name, sel_mode)
+    got = dr.value_and_grad(q0)
+    assert dr.steps_run == dr.n_steps
+    assert_matches_jax(got, jax_vals(name, sel_mode))
 
 
 # (scene, group, key, flat index, delta, rtol, sign of the gradient):

@@ -15,9 +15,6 @@ import os
 import numpy as np
 import pytest
 import torch
-from torch.overrides import TorchFunctionMode
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 
 from actinon_tpu.render.integrator import Integrator as JIntegrator
 from actinon_tpu.render.tracer import Tracer as JTracer
@@ -30,6 +27,7 @@ from actinon_tpu_torch.render.tracer import Tracer as TTracer
 from actinon_tpu_torch.scene import ir as tsir
 from actinon_tpu_torch.scene import objects as tho
 
+from _torch_capture import _Reads, _Scalars, _Uploads
 from test_torch_integrator import make_scene, sample_pos
 
 GLASS = os.path.join(os.path.dirname(os.path.dirname(
@@ -53,40 +51,6 @@ def test_compact_rows_equals_nonzero_order(n, p, room):
     assert torch.equal(src[:k], want[:k])
     assert torch.equal(live, torch.arange(n) < k)
     assert int(src.min()) >= 0 and int(src.max()) < n
-
-
-class _Uploads(TorchDispatchMode):
-    """Records every op that reads a host tensor (a copy from the host
-    into the meta tensors)."""
-
-    def __init__(self):
-        super().__init__()
-        self.seen = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        flat, _ = tree_flatten((args, kwargs or {}))
-        if any(isinstance(a, torch.Tensor) and a.device.type == "cpu"
-               for a in flat):
-            self.seen.append(str(func))
-        return func(*args, **(kwargs or {}))
-
-
-class _Scalars(TorchFunctionMode):
-    """Records every tensor made from host data and every element write
-    of a host value: on the card each is a copy from the host, which a
-    CUDA graph capture refuses (the meta device makes them in place)."""
-
-    def __init__(self):
-        super().__init__()
-        self.seen = []
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        if (func in (torch.as_tensor, torch.tensor, torch.asarray)
-                and not isinstance(args[0], torch.Tensor)) \
-                or (func is torch.Tensor.__setitem__
-                    and not isinstance(args[2], torch.Tensor)):
-            self.seen.append(getattr(func, "__name__", str(func)))
-        return func(*args, **(kwargs or {}))
 
 
 _GLASS = []
@@ -123,10 +87,10 @@ def test_trip_reads_nothing_back(scene, mode):
     st = integ._drain_state(C, size)
     integ._fill_state(st, integ._pos_rows(pos, 48), 48)
     integ._trip(st, 64)          # fills the tracer's device constants
-    seen, scalars = _Uploads(), _Scalars()
-    with seen, scalars:
+    seen, scalars, reads = _Uploads(), _Scalars(), _Reads()
+    with seen, scalars, reads:
         integ._trip(st, 64)
-    assert seen.seen == [] and scalars.seen == []
+    assert seen.seen == [] and scalars.seen == [] and reads.seen == []
     with pytest.raises(RuntimeError, match="meta"):
         int(st["count"])
     # the detectors see an upload, a host scalar made a tensor, and a
