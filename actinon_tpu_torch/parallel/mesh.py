@@ -207,7 +207,9 @@ class ShardedDiffRenderer:
         self.dr = diff_renderer
         self.mesh = mesh
 
-    def value_and_grad(self, q0, weight=None):
+    def value_and_grad(self, q0, weight=None, params=None):
+        """DiffRenderer.value_and_grad over the mesh (`params` as
+        there)."""
         dr, n, k = self.dr, self.mesh.size, self.mesh.rank
         q = dr._lanes(q0)
         N = next(iter(q.values())).shape[0]
@@ -222,12 +224,13 @@ class ShardedDiffRenderer:
             # this share's part of torch.mean over the whole [N, 3] batch
             # (with diff_graphs the replay of a CUDA graph; the
             # all-reduce stays outside it)
-            loss, grads = dr.share_value_and_grad(q_l, w, total=N)
+            loss, grads = dr.share_value_and_grad(q_l, w, total=N,
+                                                  params=params)
         else:
             loss = torch.zeros((), dtype=dr.integ.tdtype,
                                device=dr.integ.device)
             grads = {g: {key: torch.zeros_like(v) for key, v in grp.items()}
-                     for g, grp in dr.params().items()}
+                     for g, grp in dr._at(params).items()}
         flat = torch.cat([loss.reshape(1)] + [
             v.reshape(-1) for grp in grads.values() for v in grp.values()])
         flat = _all_reduce_sum(self.mesh, flat)

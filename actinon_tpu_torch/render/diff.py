@@ -59,7 +59,7 @@ import torch
 
 from actinon_tpu_torch import rng as argn
 from actinon_tpu_torch.render.integrator import Integrator
-from actinon_tpu_torch.render.tracer import _dot, host_reads_ok
+from actinon_tpu_torch.render.tracer import _dot, as_table, host_reads_ok
 from actinon_tpu_torch.scene import ir as sir
 
 _SEL_SALT = 0xB5297A4D
@@ -135,6 +135,7 @@ class DiffRenderer:
         # runs the same code eagerly
         self.diff_graphs = self.integ.device.type == "cuda"
         self._graphs = None
+        self._own = (None, None)     # (tables' generations, params())
 
     # ------------------------------------------------------------------
 
@@ -146,6 +147,26 @@ class DiffRenderer:
                                       device=integ.device)
         return {"geom": {k: t(v) for k, v in self.tr.geom_params().items()},
                 "mat": {k: t(v) for k, v in integ.mat_params().items()}}
+
+    def _at(self, params: Optional[Dict]) -> Dict:
+        """The parameter values of a call on the device, keys as
+        params(): the scene's own (uploaded once per set_geom/set_mat),
+        with the entries of `params` (arrays or tensors, any subset of
+        the keys) in their place."""
+        integ = self.integ
+        gen = (self.tr._generation, integ._generation)
+        if self._own[0] != gen:
+            self._own = (gen, self.params())
+        own = self._own[1]
+        if not params:
+            return own
+        out = {g: dict(grp) for g, grp in own.items()}
+        for g, grp in params.items():
+            for k, v in grp.items():
+                if k not in out[g]:
+                    raise KeyError(f"{g}.{k}")
+                out[g][k] = as_table(v, integ.tdtype, integ.device)
+        return out
 
     def primary(self, pos2d) -> Dict:
         """Primary ray batch for subpixel positions [N,2] (x, y)."""
@@ -350,30 +371,38 @@ class DiffRenderer:
                                         device=rad.device)
         return torch.mean(rad)
 
-    def value_and_grad(self, q0: Dict, weight=None):
-        """(loss, grads) at the scene's own parameters; grads has the
-        keys of params() (zeros where the loss does not depend on a
-        parameter).  With `diff_graphs` (a card) the call is the replay
-        of a CUDA graph of the whole replay and its backward
-        (render/graphs.py `DiffGraphs`), bit-equal to the eager call."""
-        return self.share_value_and_grad(self._lanes(q0), weight)
+    def value_and_grad(self, q0: Dict, weight=None,
+                       params: Optional[Dict] = None):
+        """(loss, grads) at the scene's own parameters, or at `params`
+        (values for any of the keys of params(); the rest are the
+        scene's own), as the JAX package's jitted value_and_grad takes
+        them; grads has the keys of params() (zeros where the loss does
+        not depend on a parameter).  With `diff_graphs` (a card) the
+        call is the replay of a CUDA graph of the whole replay and its
+        backward (render/graphs.py `DiffGraphs`), bit-equal to the eager
+        call; new values, passed here or set by set_geom/set_mat, replay
+        the same graph."""
+        return self.share_value_and_grad(self._lanes(q0), weight,
+                                         params=params)
 
     def share_value_and_grad(self, q: Dict, weight=None,
-                             total: Optional[int] = None):
+                             total: Optional[int] = None,
+                             params: Optional[Dict] = None):
         """(loss, grads) of the lanes `q` (on the device, as `_lanes`
-        gives them) at the scene's own parameters.  total=None: the loss
-        is render_loss, the mean over q; else q is a share of a batch of
-        `total` rows and the loss its part of that batch's mean,
+        gives them) at the parameters of value_and_grad.  total=None:
+        the loss is render_loss, the mean over q; else q is a share of a
+        batch of `total` rows and the loss its part of that batch's mean,
         sum / (3 total) (ShardedDiffRenderer sums the shares).  A CUDA
         graph replay with `diff_graphs`, else the eager call."""
+        at = self._at(params)
         if self.diff_graphs:
             if self._graphs is None:
                 from actinon_tpu_torch.render.graphs import DiffGraphs
                 self._graphs = DiffGraphs(self)
-            return self._graphs.value_and_grad(q, weight, total)
+            return self._graphs.value_and_grad(q, at, weight, total)
         leaves = {g: {k: v.detach().requires_grad_(True)
                       for k, v in grp.items()}
-                  for g, grp in self.params().items()}
+                  for g, grp in at.items()}
         return self._share(leaves, q, weight, total)
 
     def _share(self, leaves: Dict, q: Dict, weight=None,

@@ -37,14 +37,17 @@ holds the whole replay, the loss and its backward (its class docstring).
 from __future__ import annotations
 
 import gc
+import hashlib
 import time
 import weakref
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 from actinon_tpu_torch.render import kernels
 from actinon_tpu_torch.render.diff import _LANE_FIELDS
+from actinon_tpu_torch.render.tracer import no_host_reads
 
 
 class _Captures:
@@ -67,14 +70,15 @@ class _Captures:
         self.pool_bytes = 0
 
     def _capture_fn(self, pool, fn):
-        """fn() once eagerly on a side stream (the warm-up: it loads every
-        kernel and fills every cache fn reads), then captured into a new
-        CUDA graph in `pool` (which runs nothing).  Returns (graph, fn's
-        captured outputs, the launches the capture counted: they move to
-        the replays).  A capture that fails raises."""
+        """fn() once eagerly on a side stream with host reads off (the
+        warm-up: it runs the ops that the capture records, so it loads
+        every kernel and fills every cache they read), then captured into
+        a new CUDA graph in `pool` (which runs nothing).  Returns (graph,
+        fn's captured outputs, the launches the capture counted: they
+        move to the replays).  A capture that fails raises."""
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), no_host_reads():
             fn()
         torch.cuda.current_stream().wait_stream(side)
         before = dict(kernels.LAUNCHES)
@@ -167,29 +171,40 @@ class DiffGraphs(_Captures):
     """One DiffRenderer's value_and_grad as the replay of a CUDA graph.
 
     The JAX package compiles `jit(value_and_grad(render_loss))` into one
-    program.  Here the replay (`DiffRenderer.radiance`: all `n_steps`
-    bounces, since under capture the host reads nothing), the loss and
-    `torch.autograd.grad`'s backward are captured together into one
-    `torch.cuda.CUDAGraph`; a call copies the lanes and the parameter
-    values into the graph's fixed buffers, replays it, and clones the
-    loss and the gradients out of its static outputs (a later replay
-    overwrites them).
+    program that takes the parameters as its arguments.  Here the replay
+    (`DiffRenderer.radiance`: all `n_steps` bounces, since under capture
+    the host reads nothing), the loss and `torch.autograd.grad`'s
+    backward are captured together into one `torch.cuda.CUDAGraph`; a
+    call copies the lanes and the parameter values into the graph's
+    fixed buffers (its leaves), replays it, and clones the loss and the
+    gradients out of its static outputs (a later replay overwrites
+    them).
 
     * Keys.  A graph is keyed by the lanes B, n_steps, sel_mode,
       edge_aware, the weight's shape (or no weight), the float type and
       the share's total rows (ShardedDiffRenderer); all share one memory
       pool, which holds every tensor the backward saves.
     * Capture.  A key's first call runs the eager call once on a side
-      stream (torch's warm-up recipe: it fills `Tracer._const`, the
-      member stacks and autograd's lazy state), then captures, then
-      replays.  A capture that fails raises: there is no eager fallback.
-    * Lifetime.  Graphs are dropped when the tracer's or the
-      integrator's tables change (`set_geom`, `set_mat`: their
-      `_generation`; the `_const` tensors a graph reads go with them).
+      stream with host reads off (torch's warm-up recipe: it fills
+      `Tracer._const`, the member stacks and autograd's lazy state),
+      then captures, then replays.  A capture that fails raises: there
+      is no eager fallback.
+    * Lifetime.  Under `diff` the parameters reach the replay only
+      through the leaves, so a graph serves every parameter value: those
+      passed to value_and_grad and those set by set_geom/set_mat.  It
+      keeps the device tables and constants its capture read (`_held`),
+      which set_geom/set_mat would otherwise free.  Every graph is
+      dropped when what the replay reads besides the leaves changes
+      (`_statics`) or when `use_kernels` does (the route of the edge
+      terms' detached queries).
     * Launch accounting as in DrainGraphs: the edge-aware terms' detached
       light hits may launch K3 inside the graph, and each replay adds the
       launches its capture counted.
     """
+
+    def __init__(self, owner):
+        self._gen = self._digest = None
+        super().__init__(owner)
 
     @property
     def dr(self):
@@ -201,12 +216,16 @@ class DiffGraphs(_Captures):
         self._reset_costs()
 
     def _routing(self):
-        tr, ig = self.dr.tr, self.dr.integ
-        return (tr._generation, ig._generation)
+        dr = self.dr
+        gen = (dr.tr._generation, dr.integ._generation, dr.edge_aware)
+        if gen != self._gen:
+            self._gen, self._digest = gen, _statics(dr)
+        return dr.tr.use_kernels, self._digest
 
-    def value_and_grad(self, q, weight=None, total=None):
+    def value_and_grad(self, q, params, weight=None, total=None):
         """(loss, grads) of DiffRenderer.share_value_and_grad for the
-        lanes `q` (the device tensors of `_lanes`)."""
+        lanes `q` (the device tensors of `_lanes`) at the parameter
+        values `params` (device tensors, every key of params())."""
         dr = self.dr
         tok = self._routing()
         if tok != self._token:
@@ -218,7 +237,6 @@ class DiffGraphs(_Captures):
         key = (q["p"].shape[0], dr.n_steps, dr.sel_mode, dr.edge_aware,
                None if weight is None else tuple(weight.shape),
                dr.integ.tdtype, total)
-        params = dr.params()
         got = self._graphs.get(key)
         if got is None:
             got = self._graphs[key] = self._capture(q, params, weight,
@@ -255,4 +273,34 @@ class DiffGraphs(_Captures):
         got.graph, (got.loss, got.grads), got.launches = \
             self._capture_fn(self._pool, lambda: dr._share(
                 got.leaves, got.lanes, got.weight, total))
+        got.held = _held(dr)
         return got
+
+
+def _statics(dr):
+    """A digest of what the replay reads besides its leaves and the
+    scene's structure, which set_geom may change: the standalone SDF
+    objects' frames and parameters (`Tracer.sdf_singles`: the march runs
+    on them, and reattaches its hits through the leaves), and with
+    edge_aware the tracer's own leaf table (the silhouette terms' light
+    and composite queries run detached, without the overrides).  No
+    material table is read but through the leaves."""
+    tr = dr.tr
+    h = hashlib.blake2b(digest_size=16)
+    for lf, *_ in tr.sdf_singles:
+        for a in (lf.m, lf.m0, lf.sdf_param):
+            h.update(np.asarray(a, np.float64).tobytes())
+    if dr.edge_aware:
+        for a in tr.tables_np:
+            h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _held(dr):
+    """The device tensors a captured replay may read outside its own
+    buffers and pool (the tables, the cached constants and indices):
+    a graph keeps them, since set_geom and set_mat replace them."""
+    tr, ig = dr.tr, dr.integ
+    return (dict(tr._kernel_cache), dict(tr._idx_cache), tr.tabs,
+            tr.t_env_c, tr.t_env_r, tr.t_neg, tr.t_oid, tr.t_rough,
+            dict(ig._dev), ig._P, dict(ig._kernel_cache))

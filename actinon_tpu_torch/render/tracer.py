@@ -43,6 +43,7 @@ hits.  All functions take and return tensors shaped [R] /
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, List, Optional
@@ -83,10 +84,26 @@ def numpy_dtype(dtype) -> np.dtype:
     return np.dtype(dtype)
 
 
+_NO_READS = [0]
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """Within it, host_reads_ok is False on every device: a CUDA graph's
+    warm-up runs the very ops that its capture records."""
+    _NO_READS[0] += 1
+    try:
+        yield
+    finally:
+        _NO_READS[0] -= 1
+
+
 def host_reads_ok(device) -> bool:
     """A query may read a tensor back to decide a loop: on the CPU, and
     on a CUDA device unless a CUDA graph is being captured; never on a
-    device that holds no data (meta)."""
+    device that holds no data (meta), nor within `no_host_reads`."""
+    if _NO_READS[0]:
+        return False
     if device.type == "cuda":
         return not torch.cuda.is_current_stream_capturing()
     return device.type == "cpu"

@@ -109,7 +109,11 @@ Phases, each printing one line of numbers:
                median of 3 replays and their spread, lane-bounces/s, the
                capture's seconds and pool, the peak memory), its loss and
                gradients bit for bit the eager call's and no kernel
-               launched; the same first 256 lanes in f64 on the card (a
+               launched; a fit's traffic on that graph ("diff fit": 3
+               calls at new parameter values each, passed as `params`
+               and set by set_geom/set_mat, each a replay with no new
+               capture, the last of each bit for bit the eager call at
+               its values); the same first 256 lanes in f64 on the card (a
                graph call, bit for bit the eager call: "diff graph f64")
                and on the CPU (loss
                within rel 1e-6, each gradient within 1e-5 of its table's
@@ -1704,6 +1708,7 @@ def phase_diff():
     out["graph"] = diff_graph_line(dr, q0, (loss, grads))
     dr.diff_graphs = False
     phase_c3(sc, pos, dr, q0, float(loss))
+    out["fit"] = diff_fit_line(dr, q0)
     del grads, dr, q0
 
     # the card against the CPU in f64 on the first DIFF_CHECK lanes
@@ -1840,6 +1845,69 @@ def diff_graph_line(dr, q0, eager):
         fail(f"diff graph: bit-equal to the eager call {same} (differs "
              f"{worst}), launches {launched}, captures {g.captures}")
     return out
+
+
+FIT_STEPS = 3
+
+
+def diff_fit_line(dr, q0):
+    """A fit's traffic at the fwd_bwd cell ("diff fit"): FIT_STEPS calls,
+    each at new parameter values (the spheres moved and the lamps
+    brighter, as a step of a fit moves them), passed to value_and_grad
+    ("params") or set by set_geom and set_mat ("set"): each call the
+    replay of the graph that diff_graph_line captured, with no capture
+    and no kernel launched; the last call of each route bit for bit the
+    eager call at its values.  The scene's own values are set back at
+    the end."""
+    import torch
+    from actinon_tpu_torch.render import kernels
+    dr.diff_graphs = True
+    tr, ig, g = dr.tr, dr.integ, dr._graphs
+    captures, capture_s = g.captures, g.capture_s
+    geom0, mat0 = tr.geom_params(), ig.mat_params()
+    before = dict(kernels.LAUNCHES)
+    got, secs = {}, {}
+    for route in ("params", "set"):
+        secs[route] = []
+        for step in range(1, FIT_STEPS + 1):
+            moved = {"geom": {"sph_c": geom0["sph_c"]
+                              + np.float32(0.05 * step)},
+                     "mat": {"l_rad": mat0["l_rad"]
+                             * np.float32(1 + 0.1 * step)}}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if route == "params":
+                got[route] = dr.value_and_grad(q0, params=moved)
+            else:
+                tr.set_geom(geom0 | moved["geom"])
+                ig.set_mat(mat0 | moved["mat"])
+                got[route] = dr.value_and_grad(q0)
+            torch.cuda.synchronize()
+            secs[route].append(time.perf_counter() - t0)
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                if v != before[k]}
+    recaptured = g.captures != captures or g.capture_s != capture_s
+    # the scene is at the last values of both routes
+    dr.diff_graphs = False
+    eager = dr.value_and_grad(q0)
+    tr.set_geom(geom0)
+    ig.set_mat(mat0)
+    same = {r: vg_bit_equal(got[r], eager) for r in got}
+    med = {r: float(np.median(v)) for r, v in secs.items()}
+    say("diff fit", lanes=DIFF_LANES, steps=FIT_STEPS,
+        params_s=f"{med['params']:.4f}",
+        params_spread=f"{min(secs['params']):.4f}-"
+                      f"{max(secs['params']):.4f}",
+        set_s=f"{med['set']:.4f}",
+        set_spread=f"{min(secs['set']):.4f}-{max(secs['set']):.4f}",
+        captures=g.captures, recaptured=recaptured,
+        bit_equal=json.dumps({r: v[0] for r, v in same.items()}),
+        differs=json.dumps({r: v[1] for r, v in same.items()}),
+        launches=json.dumps(launched))
+    if recaptured or launched or not all(v[0] for v in same.values()):
+        fail(f"diff fit: recaptured {recaptured}, launches {launched}, "
+             f"bit-equal to the eager call {same}")
+    return dict(params_s=med["params"], set_s=med["set"])
 
 
 def phase_c3(sc, pos, dr, q0, loss):

@@ -1277,21 +1277,127 @@ def test_diff_graph_replay_reads_nothing_back():
     torch.cuda.synchronize()
 
 
+def _only_graph(dr):
+    (got,) = dr._graphs._graphs.values()
+    return got.graph
+
+
+def _moved_params(dr, step):
+    """New parameter values, as a fit's step makes them: the spheres
+    moved and the lamps brighter by `step`."""
+    geom, mat = dr.tr.geom_params(), dr.integ.mat_params()
+    return {"geom": {"sph_c": geom["sph_c"] + np.float32(0.05 * step)},
+            "mat": {"l_rad": mat["l_rad"] * np.float32(1 + 0.1 * step)}}
+
+
 def test_diff_graph_after_set_geom():
-    """set_geom drops the captured value_and_grad: the next graph call
-    equals the eager call at the moved geometry, not the old result."""
+    """set_geom and set_mat keep the captured value_and_grad (the
+    parameters reach it through its leaves): the next graph call replays
+    the same graph, with no capture, and equals the eager call at the new
+    parameters, not the old result."""
     _need_card()
     dr, q0 = _diff_glass_table(np.float32, "cuda", 512)
     before = dr.value_and_grad(q0)
+    graph = _only_graph(dr)
+    moved = _moved_params(dr, 1)
     geom = dr.tr.geom_params()
-    geom["sph_c"] = geom["sph_c"] + np.float32(0.25)
+    geom.update(moved["geom"])
+    mat = dr.integ.mat_params()
+    mat.update(moved["mat"])
+    got = []
+    for setter, values in ((dr.tr.set_geom, geom),
+                           (dr.integ.set_mat, mat)):
+        setter(values)
+        dr.diff_graphs = True
+        got.append(dr.value_and_grad(q0))
+        assert dr._graphs.captures == 1 and _only_graph(dr) is graph
+        dr.diff_graphs = False
+        assert _vg_equal(got[-1], dr.value_and_grad(q0)) == []
+    assert not torch.equal(got[0][1]["geom"]["sph_c"],
+                           before[1]["geom"]["sph_c"])
+    assert not torch.equal(got[1][0], got[0][0])
+
+
+def test_diff_graph_params_argument():
+    """value_and_grad at given parameter values, as a fit passes them:
+    each call replays the one graph, bit for bit the eager call at the
+    same values and the graph call after set_geom/set_mat to them."""
+    _need_card()
+    dr, q0 = _diff_glass_table(np.float32, "cuda", 512)
+    dr.value_and_grad(q0)
+    graph = _only_graph(dr)
+    for step in (1, 2):
+        moved = _moved_params(dr, step)
+        got = dr.value_and_grad(q0, params=moved)
+        assert dr._graphs.captures == 1 and _only_graph(dr) is graph
+    dr.diff_graphs = False
+    assert _vg_equal(got, dr.value_and_grad(q0, params=moved)) == []
+    dr.diff_graphs = True
+    geom = dr.tr.geom_params()
+    geom.update(moved["geom"])
+    mat = dr.integ.mat_params()
+    mat.update(moved["mat"])
+    dr.tr.set_geom(geom)
+    dr.integ.set_mat(mat)
+    assert _vg_equal(got, dr.value_and_grad(q0)) == []
+    assert _only_graph(dr) is graph
+
+
+def test_diff_graph_edge_recaptures_after_set_geom():
+    """With edge_aware the silhouette terms' detached queries read the
+    tracer's own leaf table (glass_table's ellipsoid lamp), so set_geom
+    drops the graph: the next call captures anew and equals the eager
+    call at the moved geometry."""
+    _need_card()
+    dr, q0 = _diff_glass_table(np.float32, "cuda", 256, sel_mode="uniform",
+                               edge_aware=True)
+    dr.value_and_grad(q0)
+    geom = dr.tr.geom_params()
+    geom.update(_moved_params(dr, 1)["geom"])
     dr.tr.set_geom(geom)
     got = dr.value_and_grad(q0)
-    assert dr._graphs.captures == 1
+    assert dr._graphs.captures == 1 and dr._graphs.capture_s > 0
     dr.diff_graphs = False
     assert _vg_equal(got, dr.value_and_grad(q0)) == []
-    assert not torch.equal(got[1]["geom"]["sph_c"],
-                           before[1]["geom"]["sph_c"])
+
+
+def test_diff_graph_no_diffuse_lane(monkeypatch):
+    """Lanes that shade no surface diffusely (rays from the camera up and
+    away from the scene: background only): the eager call never runs the
+    NEE, and the graph's warm-up, which runs with host reads off as the
+    capture does, still fills every constant the NEE reads, so the
+    capture uploads nothing and the graph call equals the eager call."""
+    _need_card()
+    from actinon_tpu_torch.render.integrator import Integrator
+    n = 256
+    rng = np.random.default_rng(5)
+    d = np.stack([rng.uniform(-0.3, 0.3, n), -np.ones(n),
+                  rng.uniform(0.1, 0.5, n)], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+
+    def lanes(dr):
+        q = dict(dr.primary(np.zeros((n, 2))))
+        q["p"] = torch.as_tensor(np.broadcast_to(
+            dr.tr.ir.cam_pos, (n, 3)).astype(np.float32), device="cuda")
+        q["d"] = torch.as_tensor(d.astype(np.float32), device="cuda")
+        return q
+
+    nee = Integrator._nee
+    calls = []
+
+    def counted(self, *a, **k):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        return nee(self, *a, **k)
+
+    monkeypatch.setattr(Integrator, "_nee", counted)
+    dr, _ = _diff_glass_table(np.float32, "cuda", n)
+    dr.diff_graphs = False
+    want = dr.value_and_grad(lanes(dr))
+    assert calls == [] and float(want[0]) > 0
+    dr, _ = _diff_glass_table(np.float32, "cuda", n)
+    got = dr.value_and_grad(lanes(dr))
+    assert True in calls and dr._graphs.captures == 1
+    assert _vg_equal(got, want) == []
 
 
 def test_sharded_diff_graph_world_of_one():
