@@ -34,11 +34,13 @@ How it is built:
     gradient.
   * Device residency, as the JAX package's `jit(value_and_grad(...))`:
     where the host may not read the device (`tracer.host_reads_ok`: a
-    CUDA-graph capture) the replay runs every bounce and every NEE with
-    no read, and it uploads nothing (device constants from
-    `Tracer._const`), so on a card `value_and_grad` is the replay of one
-    CUDA graph of the forward replay and its backward (`diff_graphs`,
-    render/graphs.py `DiffGraphs`), bit-equal to the eager call.
+    CUDA-graph capture) the replay runs every bounce with no read, each
+    bounce's NEE and its backward gated on the device as the JAX step's
+    `lax.cond` (`Integrator._nee_gated`), and it uploads nothing (device
+    constants from `Tracer._const`), so on a card `value_and_grad` is the
+    replay of one CUDA graph of the forward replay and its backward
+    (`diff_graphs`, render/graphs.py `DiffGraphs`), bit-equal to the
+    eager call.
   * Discrete events (the nearest object, a CSG boundary's identity) are
     locally constant: gradients are the interior derivatives.  With
     `edge_aware=True` the NEE visibility discontinuity adds its
@@ -239,17 +241,13 @@ class DiffRenderer:
         is_path = q["is_path"]
         lane = {k: q[k] for k in _LANE_FIELDS}
 
-        # the NEE gate reads the device: off where reads are not allowed
-        # (its gated lanes add nothing either way)
-        gate = host_reads_ok(dev)
-        sid, contrib, children, pp = integ._step(lane, path_ray=False,
-                                                 nee_gate=gate)
+        sid, contrib, children, pp = integ._step(lane, path_ray=False)
         if integ.path_cap > 0:
             # path rays trace matter only and end at max_path_length
             # (reference src/scene.c:596-617): both classifications, one
             # chosen per lane
-            _, contrib_p, children_p, pp_p = integ._step(
-                lane, path_ray=True, nee_gate=gate)
+            _, contrib_p, children_p, pp_p = integ._step(lane,
+                                                         path_ray=True)
 
             def per_lane(a, b):
                 m = is_path.reshape((B,) + (1,) * (a.dim() - 1))

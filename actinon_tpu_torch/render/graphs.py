@@ -1,34 +1,45 @@
-"""The device drain's trips, and the differentiable renderer's
+"""The device drain's stages, and the differentiable renderer's
 value_and_grad, as replays of CUDA graphs.
 
-The JAX package runs its whole device drain as one jitted
-`lax.while_loop` (its `run_device`), so a pass costs the host nothing per
-trip.  Here a trip is `Integrator._trip`, a few hundred torch ops and
-hand-written kernel launches that read nothing back to the host.
-`DrainGraphs` captures one trip per stage into a `torch.cuda.CUDAGraph`
-and replays it: the host issues one graph launch a trip and reads one
-count (`Integrator._drain`, which picks the next stage from it), and the
-trips, their sizes and their order are those of the eager drain.
+The JAX package runs its whole device drain as one jitted cascade of
+`lax.while_loop`s (its `run_device`), so a pass costs the host nothing
+per trip.  Here a trip is `Integrator._trip`, a few hundred torch ops and
+hand-written kernel launches that read nothing back to the host, and a
+stage is `Integrator._stage_loop`, trips while the count exceeds the
+next stage's batch.  `DrainGraphs` captures each stage into a
+`torch.cuda.CUDAGraph` whose WHILE node (render/cond.py) runs its trips
+on the device, and replays it: the host issues one graph launch a stage
+and reads the count once a stage (`Integrator._drain`, which picks the
+next stage from it), and the trips, their sizes and their order are
+those of the eager drain.  Inside a trip the NEE runs under an IF node
+(`Integrator._nee_gated`) and an SDF march under a WHILE node
+(`Tracer._sdf_march`), as the JAX step's cond and while loop decide.
 
 * Keys and buffers.  A drain's state (`Integrator._drain_state`: the
-  queue, the accumulator, the count, dropped and queries) is made once
-  per queue shape (capacity C, rows) and kept, so that a graph's
-  addresses hold; its accumulator has a row for every sample id the
-  capacity admits, so passes with other sample counts share it.  A graph
-  is keyed by that shape and the stage Bk; the graphs of one shape share
-  one memory pool.
-* Capture.  A key's first trip runs eagerly on a side stream (torch's
-  warm-up recipe; it is a real trip of the drain, and it loads every
-  kernel and fills every cache the trip reads), then the trip is captured
-  (which runs nothing).  A capture that fails raises: there is no eager
-  fallback.
+  queue, the accumulator, the count, trips, dropped, queries and the
+  gated bodies' counters) is made once per queue shape (capacity C,
+  rows) and kept, so that a graph's addresses hold; its accumulator has
+  a row for every sample id the capacity admits, so passes with other
+  sample counts share it.  A graph is keyed by that shape, the stage's
+  batch Bk and its threshold; the graphs of one shape share one memory
+  pool.
+* Capture.  A key's first replay is preceded by a warm-up trip, run
+  eagerly on a side stream (torch's warm-up recipe; it is a real trip of
+  the drain, which the host knows runs, and it loads every kernel and
+  fills every cache the trip reads), and the capture of the stage's loop
+  (which runs nothing).  A capture that fails raises, and so does one
+  where conditional nodes are unavailable (`cond.require`): there is no
+  eager fallback.
 * Lifetime.  Graphs are reused across drains and passes, and dropped with
   their state when the tracer's or the integrator's tables change
   (`Tracer.set_geom`, `Integrator.set_mat`: their `_generation`) or when
   a setting that routes the trip does (seed mode, kernels on or off).
 * Launch accounting.  `kernels.LAUNCHES` counts in the wrappers, which
-  run only at capture; each graph keeps the launches its capture counted,
-  and every replay adds them, so `LAUNCHES` counts what the card ran.
+  run only at capture.  Each graph keeps the launches its capture counted
+  outside conditional bodies, and every replay adds them; a body's
+  launches are added by the runs its device counter counted
+  (`cond.Gates`), read with the stage's count; so `LAUNCHES` counts what
+  the card ran.
 
 `DiffGraphs` does the same for `DiffRenderer.value_and_grad`: one graph
 holds the whole replay, the loss and its backward (its class docstring).
@@ -45,7 +56,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from actinon_tpu_torch.render import kernels
+from actinon_tpu_torch.render import cond, kernels
 from actinon_tpu_torch.render.diff import _LANE_FIELDS
 from actinon_tpu_torch.render.tracer import no_host_reads
 
@@ -68,18 +79,23 @@ class _Captures:
         self.captures = 0
         self.capture_s = 0.0
         self.pool_bytes = 0
+        self.replays = 0
 
-    def _capture_fn(self, pool, fn):
-        """fn() once eagerly on a side stream with host reads off (the
-        warm-up: it runs the ops that the capture records, so it loads
-        every kernel and fills every cache they read), then captured into
-        a new CUDA graph in `pool` (which runs nothing).  Returns (graph,
-        fn's captured outputs, the launches the capture counted: they
-        move to the replays).  A capture that fails raises."""
+    def _capture_fn(self, pool, fn, warm=None):
+        """warm() (default fn) once eagerly on a side stream with host
+        reads off (the warm-up: it runs the ops that the capture records,
+        so it loads every kernel and fills every cache they read), then
+        fn captured into a new CUDA graph in `pool` (which runs nothing),
+        its conditional nodes with it (render/cond.py).  Returns (graph,
+        fn's captured outputs, the launches the capture counted outside
+        conditional bodies: they move to the replays).  A capture that
+        fails raises, and so does one where conditional nodes are
+        unavailable."""
+        cond.require()
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side), no_host_reads():
-            fn()
+            (warm or fn)()
         torch.cuda.current_stream().wait_stream(side)
         before = dict(kernels.LAUNCHES)
         t0 = time.perf_counter()
@@ -89,7 +105,7 @@ class _Captures:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=pool):
+            with cond.capture(graph, pool):
                 # (read here: entering the capture empties the
                 # allocator's cache)
                 reserved = torch.cuda.memory_reserved()
@@ -108,7 +124,7 @@ class _Captures:
 
 
 class DrainGraphs(_Captures):
-    """The captured trips of one integrator's device drain."""
+    """The captured stages of one integrator's device drain."""
 
     @property
     def integ(self):
@@ -117,7 +133,7 @@ class DrainGraphs(_Captures):
     def _drop(self):
         self._states = {}     # (C, rows) -> drain state
         self._pools = {}      # (C, rows) -> graph memory pool
-        self._graphs = {}     # (C, rows, Bk) -> (graph, launches)
+        self._graphs = {}     # (C, rows, Bk, thresh) -> (graph, launches)
         self._reset_costs()
 
     def _routing(self):
@@ -144,26 +160,34 @@ class DrainGraphs(_Captures):
             st["key"] = key
         return st
 
-    def trip(self, st, Bk):
-        """One trip of stage Bk on the state `st`: the replay of its graph,
-        or at the key's first trip the warm-up trip and the capture."""
-        key = st["key"] + (Bk,)
+    def run(self, st, Bk, thresh):
+        """Stage Bk's trips on the state `st` while its count exceeds
+        `thresh`: the replay of the stage's graph, preceded at the key's
+        first call by a warm-up trip (the host has just read that the
+        stage runs) and the capture."""
+        key = st["key"] + (Bk, thresh)
         got = self._graphs.get(key)
         if got is None:
-            self._graphs[key] = self._capture(st, Bk)
-            return
+            got = self._graphs[key] = self._capture(st, Bk, thresh)
         graph, launches = got
         graph.replay()
+        self.replays += 1
         for k, n in launches.items():
             kernels.LAUNCHES[k] += n
 
-    def _capture(self, st, Bk):
+    def _capture(self, st, Bk, thresh):
         pool = self._pools.get(st["key"])
         if pool is None:
             pool = self._pools[st["key"]] = torch.cuda.graph_pool_handle()
-        # the warm-up is this trip, for real
-        graph, _, launches = self._capture_fn(
-            pool, lambda: self.integ._trip(st, Bk))
+        ig = self.integ
+
+        def warm():
+            ig._trip(st, Bk)
+            st["it"].add_(1)
+
+        with st["gates"].collect():
+            graph, _, launches = self._capture_fn(
+                pool, lambda: ig._stage_loop(st, Bk, thresh), warm)
         return graph, launches
 
 
@@ -197,9 +221,12 @@ class DiffGraphs(_Captures):
       dropped when what the replay reads besides the leaves changes
       (`_statics`) or when `use_kernels` does (the route of the edge
       terms' detached queries).
+    * Gates.  Each bounce's NEE and its backward run under IF nodes on
+      the bounce's `any(di_gate)` (`cond.cond_grad`), as `lax.cond` and
+      its VJP run in the JAX package's program.
     * Launch accounting as in DrainGraphs: the edge-aware terms' detached
-      light hits may launch K3 inside the graph, and each replay adds the
-      launches its capture counted.
+      light hits may launch K3 inside the gated NEE, whose runs a call
+      reads back with one read.
     """
 
     def __init__(self, owner):
@@ -250,8 +277,12 @@ class DiffGraphs(_Captures):
             if weight is not None:
                 got.weight.copy_(weight)
         got.graph.replay()
+        self.replays += 1
         for k, n in got.launches.items():
             kernels.LAUNCHES[k] += n
+        if got.gates.launches:
+            # launches in gated NEE bodies (the edge terms' K3): one read
+            got.gates.settle(got.gates.runs.cpu().numpy())
         dr.steps_run = dr.n_steps
         return got.loss.clone(), {g: {k: v.clone() for k, v in grp.items()}
                                   for g, grp in got.grads.items()}
@@ -270,9 +301,11 @@ class DiffGraphs(_Captures):
             weight=None if weight is None else weight.clone())
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        got.graph, (got.loss, got.grads), got.launches = \
-            self._capture_fn(self._pool, lambda: dr._share(
-                got.leaves, got.lanes, got.weight, total))
+        got.gates = cond.Gates(dr.integ.device)
+        with got.gates.collect():
+            got.graph, (got.loss, got.grads), got.launches = \
+                self._capture_fn(self._pool, lambda: dr._share(
+                    got.leaves, got.lanes, got.weight, total))
         got.held = _held(dr)
         return got
 

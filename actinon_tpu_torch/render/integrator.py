@@ -7,10 +7,11 @@ carrying (p, d, intensity, tint_rgb, depth, sample_id), and one *step*
 processes a batch — trace, classify, accumulate local contributions
 (emitter / background / NEE direct light), emit child rays for the
 specular branches and path samples.  Two drains, as in the JAX package:
-the device drain (`run_device`) is a loop over trips whose queue, child
-compaction and accumulator stay on the device, each trip on the card the
-replay of a CUDA graph (render/graphs.py) and the host reading one count
-a trip (path configs run the mixed drain: path-spawn parents live in the
+the device drain (`run_device`) is a cascade of loops over trips whose
+queue, child compaction and accumulator stay on the device, each stage's
+loop on the card the replay of a CUDA graph whose WHILE node runs the
+trips (render/graphs.py, render/cond.py) and the host reading one count a
+stage (path configs run the mixed drain: path-spawn parents live in the
 same queue and expand in place); the host drain (`run`, path configs or
 `device_drain = False`) keeps a normal and a path queue of `RayQueue`s on
 the host, copies each step's results back in one transfer and
@@ -43,10 +44,11 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from actinon_tpu_torch import math3d as m3
 from actinon_tpu_torch import rng as argn
-from actinon_tpu_torch.render import kernels
+from actinon_tpu_torch.render import cond, kernels
 from actinon_tpu_torch.render.tracer import (CHUNK, INF, Tracer, _dot,
                                              _dot_fma32, _norm3, _rows,
                                              _sphere_first_hit,
@@ -177,9 +179,9 @@ class Integrator:
         # False: run() and run_samples() take the host drain for every
         # config (path configs always do)
         self.device_drain = True
-        # True (on a CUDA device): each trip of the device drain is the
-        # replay of its CUDA graph (render/graphs.py); False runs the
-        # same trips eagerly
+        # True (on a CUDA device): each stage of the device drain is the
+        # replay of its CUDA graph, a WHILE node over its trips
+        # (render/graphs.py); False runs the same trips eagerly
         self.drain_graphs = self.device.type == "cuda"
         self._graphs = None
         # differentiable-path hooks (render/diff.py): `ovr` maps
@@ -417,17 +419,12 @@ class Integrator:
 
     # ------------------------------------------------------------------
 
-    def _step(self, q: Dict, path_ray: bool = False, mixed: bool = False,
-              nee_gate: bool = True):
+    def _step(self, q: Dict, path_ray: bool = False, mixed: bool = False):
         """One wavefront step over a padded batch.  Returns
-        (sample_id, contrib [B,3], children dict, path_parent).
-
-        nee_gate: skip the NEE block when no lane of the batch shades
-        diffusely, which reads the device once; a drain trip (`_trip`)
-        runs it always, and the diff replay (`DiffRenderer._diff_step`)
-        wherever host reads are not allowed (`tracer.host_reads_ok`; its
-        gated lanes add nothing either way), so that each reads nothing
-        back and can be captured as a CUDA graph.
+        (sample_id, contrib [B,3], children dict, path_parent).  The NEE
+        block runs only where a lane of the batch shades diffusely
+        (`_nee_gated`, the JAX step's lax.cond): decided on the device
+        under a CUDA-graph capture, on the host elsewhere.
 
         mixed=True: q carries a per-lane `kind` (0 normal ray, 1 path ray,
         2 path-parent descriptor) plus the parent aux fields; the trace is
@@ -562,12 +559,11 @@ class Integrator:
             rv = argn.fold(argn.seed_from_v3(pos, 3294479285),
                            argn.seed_from_v3(surf_d, 3247146734))
 
-        lum_nee = torch.zeros((B, 3), dtype=dt, device=dev)
-        # skip the NEE block when no lane of the batch shades diffusely
-        # (pure-specular wavefront generations)
-        if self.n_lights and (not nee_gate or bool(di_gate.any())):
-            lum_nee = self._nee(pos, surf_d, di, di_gate, theta_i, on_a,
-                                on_b, ray_prj, rv)
+        if self.n_lights:
+            lum_nee = self._nee_gated(pos, surf_d, di, di_gate, theta_i,
+                                      on_a, on_b, ray_prj, rv)
+        else:
+            lum_nee = torch.zeros((B, 3), dtype=dt, device=dev)
         path_parent = None
         if self.path_cap > 0:
             ns_p = torch.clamp(torch.floor(self.path_cap * di).to(
@@ -626,6 +622,43 @@ class Integrator:
         return (self.tr._kernels_ok() and not self.ovr
                 and self.seed_mode == "position"
                 and kernels.nee_supported(self))
+
+    def _nee_gated(self, pos, surf_d, di, gate, theta_i, on_a, on_b,
+                   ray_prj, rv):
+        """`_nee` where a lane of the batch shades diffusely (`gate`), zeros
+        elsewhere: the JAX step's `lax.cond(any(di_gate), _nee, zeros)`
+        (pure-specular wavefront generations skip it).  Under autograd
+        (the diff replay) the backward is gated as well
+        (`cond.cond_grad`): the NEE reads the parameters through `ovr`,
+        `tr.ovr` and the tables built from them, so those go in as inputs
+        and the NEE runs on their detached copies."""
+        args = (pos, surf_d, di, gate, theta_i, on_a, on_b, ray_prj, rv)
+        pred = gate.any()
+        tr = self.tr
+        state = (self.ovr, tr.ovr, self._mats() if self.ovr else None,
+                 tr._tables() if tr.ovr else None)
+        flat, spec = tree_flatten((args, state))
+        if not (torch.is_grad_enabled() and any(
+                isinstance(x, torch.Tensor) and x.requires_grad
+                for x in flat)):
+            lum = torch.zeros_like(pos)
+            with cond.if_node(pred) as run:
+                if run:
+                    lum.copy_(self._nee(*args))
+            return lum
+
+        def nee(*inner):
+            a, (m, g, mats, tabs) = tree_unflatten(list(inner), spec)
+            saved = (self.ovr, tr.ovr, self._ovr_mats, tr._ovr_tabs)
+            self.ovr, tr.ovr = m, g
+            self._ovr_mats = (dict(m), mats) if m else None
+            tr._ovr_tabs = (dict(g), tabs) if g else None
+            try:
+                return self._nee(*a)
+            finally:
+                (self.ovr, tr.ovr, self._ovr_mats, tr._ovr_tabs) = saved
+
+        return cond.cond_grad(pred, nee, pos, *flat)
 
     def _nee(self, pos, surf_d, di, gate, theta_i, on_a, on_b, ray_prj, rv):
         """Per-light cone-restricted direct light sampling with the
@@ -1318,11 +1351,11 @@ class Integrator:
                    pos_xy: Optional[np.ndarray] = None) -> np.ndarray:
         """Device-resident wavefront drain of n_samples samples: the
         queue, child compaction and accumulation stay on the device; the
-        host loop reads one count per trip.  With pos_xy [n_samples, 2]
-        the primary camera rays are built on the device; otherwise the
-        RayQueue `primary` (any rays: sample ids below n_samples, its
-        first n_samples rows live) is uploaded.  Path configs
-        (path_samples > 0) run the mixed-kind drain."""
+        host reads the count once a stage (`_drain`).  With pos_xy
+        [n_samples, 2] the primary camera rays are built on the device;
+        otherwise the RayQueue `primary` (any rays: sample ids below
+        n_samples, its first n_samples rows live) is uploaded.  Path
+        configs (path_samples > 0) run the mixed-kind drain."""
         N = n_samples
         # bucket the sample count to a power of two (pad lanes are dead:
         # never popped)
@@ -1370,41 +1403,66 @@ class Integrator:
         ray fields, from _pos_rows or _queue_rows; the first `count` rows
         live) into an accumulator of Np samples (a power of two at least
         the count; sample ids below it), with trips of at most B lanes.
-        Each trip is `_trip`, run eagerly or, with `drain_graphs`, as the
-        replay of its CUDA graph (render/graphs.py); either way the host
-        reads one count a trip, to choose the next trip's stage.  Returns
-        (acc [Np, 3] on the device, dropped rays, live lanes traced as a
-        device tensor, trips)."""
+
+        The JAX package's cascade of while loops: stage k runs trips of
+        its batch while the count exceeds the next stage's batch
+        (`_stage_loop`), as the replay of its CUDA graph with
+        `drain_graphs` (render/graphs.py: a WHILE node, the loop on the
+        device) or eagerly (the loop on the host, a read a trip).  The
+        host reads the count, the trips and dropped once a stage, to
+        choose the next stage (`last_host_reads`).  Returns (acc [Np, 3]
+        on the device, dropped rays, live lanes traced as a device
+        tensor, trips)."""
         C, size = self._queue_size(Np, B)
         if self.drain_graphs:
             if self._graphs is None:
                 from actinon_tpu_torch.render.graphs import DrainGraphs
                 self._graphs = DrainGraphs(self)
             st = self._graphs.state(C, size)
-            trip = lambda Bk: self._graphs.trip(st, Bk)
+            run = lambda Bk, thresh: self._graphs.run(st, Bk, thresh)
         else:
             st = self._drain_state(C, size)
-            trip = lambda Bk: self._trip(st, Bk)
+            run = lambda Bk, thresh: self._stage_loop(st, Bk, thresh)
         self._fill_state(st, rows, count)
+        stages = self._stages(B)
+        k, trips, dropped, reads = 0, 0, 0, 0
+        while count > 0 and trips < DRAIN_TRIP_CAP:
+            while k + 1 < len(stages) and count <= stages[k + 1]:
+                k += 1
+            run(stages[k], stages[k + 1] if k + 1 < len(stages) else 0)
+            # the stage's one host read, with the gated bodies' runs
+            got = torch.cat([torch.stack([st["count"], st["it"],
+                                          st["dropped"]]),
+                             st["gates"].runs]).cpu().numpy()
+            count, trips, dropped = (int(v) for v in got[:3])
+            st["gates"].settle(got[3:])
+            reads += 1
+        self.last_host_reads = reads
+        return st["acc"][:Np].clone(), dropped, st["queries"].clone(), trips
 
-        # cascade of batch sizes [B, B/8, ...]: the wavefront decays
-        # geometrically, and stage k runs while the queue holds more than
-        # stage k+1 takes, so its occupancy stays above 1/8
+    def _stages(self, B):
+        """The drain's cascade of batch sizes [B, B/8, ...]: the wavefront
+        decays geometrically, and stage k runs while the queue holds more
+        than stage k+1 takes, so its occupancy stays above 1/8."""
         stages = [B]
         if len(self.tr.composites) <= 32:
             while stages[-1] > 1024:
                 stages.append(max(stages[-1] // 8, 512))
         elif B > 1024:
             stages.append(max(B // 32, 512))
-        k, trips = 0, 0
-        while count > 0 and trips < DRAIN_TRIP_CAP:
-            while k + 1 < len(stages) and count <= stages[k + 1]:
-                k += 1
-            trip(stages[k])
-            trips += 1
-            count = int(st["count"])   # the trip's one host read
-        return (st["acc"][:Np].clone(), int(st["dropped"]),
-                st["queries"].clone(), trips)
+        return stages
+
+    def _stage_loop(self, st, Bk, thresh):
+        """Trips of Bk lanes on the drain state `st` while its count
+        exceeds `thresh` (and the trips stay under DRAIN_TRIP_CAP): the
+        JAX drain's while loop of one stage, `cond.while_loop` over
+        `_trip` (on the device under a capture)."""
+        def body():
+            self._trip(st, Bk)
+            st["it"].add_(1)
+        cond.while_loop(
+            lambda: (st["count"] > thresh) & (st["it"] < DRAIN_TRIP_CAP),
+            body)
 
     def _queue_size(self, Np, B):
         """(capacity C, rows) of the drain's queue: path configs queue path
@@ -1417,8 +1475,9 @@ class Integrator:
     def _drain_state(self, C, size):
         """The device state of a drain: the queue's fields [size, ...], an
         accumulator [C, 3] (a row for every sample id that a queue of
-        capacity C admits), and 0-d int64 tensors count, dropped and
-        queries; C is the queue's capacity (a python int)."""
+        capacity C admits), 0-d int64 tensors count, it (trips), dropped
+        and queries, and the counters of the gated bodies' runs (`gates`,
+        render/cond.py); C is the queue's capacity (a python int)."""
         dt, dev = self.tdtype, self.device
         q = dict(
             p=torch.empty((size, 3), dtype=dt, device=dev),
@@ -1435,12 +1494,13 @@ class Integrator:
                 q[k] = torch.empty((size,), dtype=dt, device=dev)
         z = lambda: torch.empty((), dtype=torch.int64, device=dev)
         return dict(q=q, acc=torch.empty((C, 3), dtype=dt, device=dev),
-                    count=z(), dropped=z(), queries=z(), C=C)
+                    count=z(), it=z(), dropped=z(), queries=z(), C=C,
+                    gates=cond.Gates(dev))
 
     def _fill_state(self, st, rows, count):
         """Start a drain in the state `st`, in place: an empty queue (dead
         rows, d = +z) whose first rows are `rows`, `count` of them live,
-        and zero accumulator, dropped and queries."""
+        and zero accumulator, trips, dropped and queries."""
         for v in st["q"].values():
             v.zero_()
         st["q"]["d"][:, 2] = 1.0
@@ -1448,6 +1508,7 @@ class Integrator:
             st["q"][k][:v.shape[0]] = v
         st["acc"].zero_()
         st["count"].fill_(int(count))
+        st["it"].zero_()
         st["dropped"].zero_()
         st["queries"].zero_()
 
@@ -1479,8 +1540,7 @@ class Integrator:
         valid = ar < take
         lanes["intensity"] = torch.where(valid, lanes["intensity"], 0.0)
 
-        sid, contrib, children, _ = self._step(lanes, mixed=mixed,
-                                               nee_gate=False)
+        sid, contrib, children, _ = self._step(lanes, mixed=mixed)
         _scatter_add(st["acc"], sid, torch.where(valid[:, None], contrib,
                                                  0.0))
         # count only LIVE non-parent lanes (the shared accounting

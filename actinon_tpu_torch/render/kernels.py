@@ -24,15 +24,17 @@ tables into shared memory once per thread block (`nee_launch`); K2 copies
 the scene table there too.
 Composites with SDF leaves lie outside this coverage, as in the JAX
 package.  The library of all the port's kernels
-(this module's, `scene_kernels`' K4/K5, `bigscene`'s K6/K7 and
-`diag_ops`' K8/K9) builds at first use with one `nvcc` call, from the
+(this module's, `scene_kernels`' K4/K5, `bigscene`'s K6/K7, `diag_ops`'
+K8/K9 and `cond`'s conditional-node helpers) builds at first use with one
+`nvcc` call, from the
 sources in this package only, into `_build/`; it is keyed by a hash of
 the sources.
 
 A wrapper takes the plain version when its tensors lie on the CPU, and
 only then.  On a CUDA tensor it launches its kernel or raises; each
-launch adds one to `LAUNCHES[name]` (a launch captured in a drain trip's
-CUDA graph adds one at each replay instead, render/graphs.py).  The plain versions call the
+launch adds one to `LAUNCHES[name]` (a launch captured in a CUDA graph
+adds one at each replay that runs it instead: render/graphs.py,
+render/cond.py).  The plain versions call the
 tracer's and integrator's own plain code: the arithmetic is written once.
 """
 
@@ -65,7 +67,7 @@ LAUNCHES: Dict[str, int] = {"nee": 0, "shadow": 0, "shadow_warp": 0,
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = [os.path.join(_PKG, "csrc", f)
            for f in ("trace_kernels.cu", "scene_kernels.cu",
-                     "bigscene_kernels.cu", "diag_ops.cu")]
+                     "bigscene_kernels.cu", "diag_ops.cu", "graph_cond.cu")]
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]

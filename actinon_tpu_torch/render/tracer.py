@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from actinon_tpu_torch.config import resolve_device
+from actinon_tpu_torch.render import cond
 from actinon_tpu_torch.scene import ir as sir
 
 INF = math.inf
@@ -1040,28 +1041,61 @@ class Tracer:
     def _sdf_march(self, kind, cycles, prm, pl, dl, offs0, dead):
         """Bounded bidirectional sphere march from local offset offs0
         (reference src/objects.c:903-959): at most `cycles` steps, ending
-        early once no lane is active.  Returns (offs_local, dist)."""
+        early once no lane is active, as the JAX tracer's while loop.
+        Returns (offs_local, dist)."""
         eps = self.eps
         p0 = pl + dl * offs0[..., None]
         dist = _sdf_eval(kind, prm, p0)
         forward = dist > 0
         offs1 = torch.zeros_like(dist)
         active = ~dead
-        # on the card each `any` is a host read: test every 8 steps, and
-        # never in a captured drain trip, which runs all `cycles` steps (an
-        # inactive lane's step is a no-op, so the result is the same)
+
+        def steps(n, offs1, dist, active):
+            for _ in range(n):
+                step = torch.where(forward, dist + eps, -(dist - eps))
+                offs1 = torch.where(active, offs1 + step, offs1)
+                dnew = _sdf_eval(kind, prm, p0 + dl * offs1[..., None])
+                dist = torch.where(active, dnew, dist)
+                crossed = torch.where(forward, (dist < 0) | (dist > 1e30),
+                                      (dist > 0) | (dist < -1e30))
+                active = active & ~crossed
+            return offs1, dist, active
+
+        # an inactive lane's step moves nothing, so any number of steps
+        # past the last active lane gives the same result.  On the card
+        # each `any` is a read or a node: test it every 8 steps
         every = 1 if self.device.type == "cpu" else 8
-        test = host_reads_ok(self.device)
-        for i in range(int(cycles)):
-            if test and i % every == 0 and not bool(active.any()):
-                break
-            step = torch.where(forward, dist + eps, -(dist - eps))
-            offs1 = torch.where(active, offs1 + step, offs1)
-            dnew = _sdf_eval(kind, prm, p0 + dl * offs1[..., None])
-            dist = torch.where(active, dnew, dist)
-            crossed = torch.where(forward, (dist < 0) | (dist > 1e30),
-                                  (dist > 0) | (dist < -1e30))
-            active = active & ~crossed
+        if self.diff:
+            # the JAX tracer's fixed scan under diff; eagerly it stops at
+            # the first test that finds no active lane
+            test = host_reads_ok(self.device)
+            for i in range(0, int(cycles), every):
+                if test and not bool(active.any()):
+                    break
+                offs1, dist, active = steps(min(every, int(cycles) - i),
+                                            offs1, dist, active)
+            return offs0 + offs1, dist
+
+        # blocks of `every` steps while a lane is active (a WHILE node
+        # under a capture), then the remainder; the state moves in place
+        n_blocks, rest = divmod(int(cycles), every)
+        blocks = torch.zeros((), dtype=torch.int64, device=self.device)
+
+        def block(n):
+            got = steps(n, offs1, dist, active)
+            for buf, v in zip((offs1, dist, active), got):
+                buf.copy_(v)
+
+        def full():
+            block(every)
+            blocks.add_(1)
+
+        cond.while_loop(lambda: (blocks < n_blocks) & active.any(), full,
+                        bound=n_blocks)
+        if rest:
+            with cond.if_node(active.any()) as run:
+                if run:
+                    block(rest)
         return offs0 + offs1, dist
 
     def _sdf_normal(self, kind, prm, m, neg, q_local):

@@ -13,7 +13,11 @@ Phases, each printing one line of numbers:
   1. card    — torch's device name and nvidia-smi's name and power limit;
   2. build   — nvcc builds csrc/*.cu from this checkout, in one call, and
                one line per kernel of what ptxas reports (registers,
-               stack, spills, static shared memory);
+               stack, spills, static shared memory); the "cond" line:
+               the check of CUDA-graph conditional nodes
+               (render/cond.py `require`: a graph with an IF and a WHILE
+               node replayed both ways), with the CUDA driver's and
+               runtime's versions;
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                same CUDA tensors (seeded rays over the smoke scene, the
                main path's shapes), with each kernel's device time per
@@ -166,15 +170,19 @@ Phases, each printing one line of numbers:
                from their plain versions on the batches of phases 8 and
                11, the plain versions with the parent's twice-rounded
                arithmetic -> the once-rounded one (ROADMAP C4);
- 18. graph   — the graph drain (render/graphs.py: each trip the replay
-               of a CUDA graph) against the same trips run eagerly, on
-               one integrator per cell (GRAPH_CELLS: the headline,
-               lamp_row, sphere_fractal, counter mode at 64x48, the path
-               8 config): one eager pass, then a graph pass that captures
-               and one that only replays, each bit-equal to the eager one
-               with equal trips, queries and launches, with each pass's
-               seconds, the captures, their seconds and the memory the
-               allocator reserved for their pools; the two ranks of phase
+ 18. graph   — the graph drain (render/graphs.py: each stage the replay
+               of a CUDA graph whose WHILE node runs its trips, the NEE
+               under an IF node, render/cond.py) against the same trips
+               run eagerly, on one integrator per cell (GRAPH_CELLS: the
+               headline, lamp_row, sphere_fractal, counter mode at 64x48,
+               the path 8 config): one eager pass, then a graph pass that
+               captures and one that only replays, each bit-equal to the
+               eager one with equal trips, queries and launches and at
+               most one host read and one graph launch a stage
+               (host_reads, graph_launches; slots="while": a stage's
+               trips are one WHILE node), with each pass's seconds, the
+               captures, their seconds and the memory the allocator
+               reserved for their pools; the two ranks of phase
                16 (b) run each shape both ways too ("graph world2"
                lines);
  19. wine_glass — the corpus scene at the headline shape, when the
@@ -586,6 +594,14 @@ def phase_build():
         lib=os.path.basename(path))
     for name, u in ptxas_usage(log.getvalue()).items():
         say(f"ptxas {name}", **u)
+    # the captured paths' conditional nodes: raises where they fail
+    import torch
+    from actinon_tpu_torch.render import cond
+    t0 = time.time()
+    cond.require()
+    driver, runtime = cond.versions()
+    say("cond", check_s=f"{time.time() - t0:.3f}", driver=driver,
+        runtime=runtime, torch=torch.__version__)
 
 
 def phase_kernels(n_lanes):
@@ -2423,8 +2439,9 @@ def check_sharded_diff(tag, got, want, secs, single_s, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 18: the graph drain (render/graphs.py): each trip the replay of a
-# CUDA graph, against the same trips run eagerly
+# phase 18: the graph drain (render/graphs.py): each stage the replay of a
+# CUDA graph whose WHILE node runs its trips, against the same trips run
+# eagerly
 
 # cells: name -> (scene, shape, batch, seed mode)
 GRAPH_CELLS = {
@@ -2454,14 +2471,19 @@ def graph_integ(path, shape, batch, mode, fractal):
 def graph_cell(integ, pos):
     """One pass over pos eagerly, then twice as graph replays (the first
     captures, the second only replays), on one integrator: each drain's
-    acc, queries, trips, launches and seconds, and the captures."""
+    acc, queries, trips, launches, seconds, host reads of the stage loop
+    and graph launches, and the captures."""
     out = []
     for graphs in (False, True, True):
         integ.drain_graphs = graphs
+        replays = integ._graphs.replays if integ._graphs else 0
         acc, rays, launches, secs = drain(
             integ, lambda: integ.run_device(None, len(pos), pos_xy=pos))
         out.append(dict(acc=acc, rays=rays, launches=launches, secs=secs,
-                        trips=integ.last_trips))
+                        trips=integ.last_trips,
+                        host_reads=integ.last_host_reads,
+                        graph_launches=(integ._graphs.replays - replays
+                                        if graphs else 0)))
     g = integ._graphs
     return out, dict(captures=g.captures, capture_s=g.capture_s,
                      pool_bytes=g.pool_bytes)
@@ -2474,6 +2496,7 @@ def phase_graph(fractal, card):
         integ, pos = graph_integ(path, shape, batch, mode, fractal)
         (e, g1, g2), cap = graph_cell(integ, pos)
         same = [bool(np.array_equal(g["acc"], e["acc"])) for g in (g1, g2)]
+        stages = len(integ._stages(batch))
         say(f"graph {name}", size="x".join(map(str, shape[:2])),
             direct=shape[2], path=shape[3], depth=shape[4], batch=batch,
             seed=mode, eager_s=f"{e['secs']:.4f}",
@@ -2481,7 +2504,10 @@ def phase_graph(fractal, card):
             graph_s=f"{g2['secs']:.4f}", bit_equal=same, trips=e["trips"],
             rays_traced=e["rays"], captures=cap["captures"],
             captures_s=f"{cap['capture_s']:.3f}",
-            pool_bytes=cap["pool_bytes"],
+            pool_bytes=cap["pool_bytes"], stages=stages, slots="while",
+            host_reads=[g["host_reads"] for g in (g1, g2)],
+            eager_host_reads=e["host_reads"],
+            graph_launches=[g["graph_launches"] for g in (g1, g2)],
             launches=json.dumps(e["launches"], separators=(",", ":")),
             card=repr(card))
         for g in (g1, g2):
@@ -2492,6 +2518,11 @@ def phase_graph(fractal, card):
                      f"{same}, trips {g['trips']} / {e['trips']}, queries "
                      f"{g['rays']} / {e['rays']}, launches {g['launches']} "
                      f"/ {e['launches']}")
+            if g["host_reads"] > stages \
+                    or g["graph_launches"] != g["host_reads"]:
+                fail(f"graph {name}: {g['host_reads']} host reads and "
+                     f"{g['graph_launches']} graph launches a pass, want "
+                     f"one each a stage (at most {stages})")
         if not cap["captures"]:
             fail(f"graph {name}: no trip was captured")
         del integ
@@ -2662,11 +2693,45 @@ def phase_profile():
     profile_diff()
 
 
+@contextlib.contextmanager
+def replay_spans():
+    """Every CUDAGraph.replay within, bracketed by CUDA events: yields the
+    list of (start, end) event pairs.  The profiler misses kernels that
+    run inside conditional nodes (the counts and device time it reported
+    for the same graph drain varied from run to run), so a graph's device
+    time is its replays' spans."""
+    import torch
+    spans, orig = [], torch.cuda.CUDAGraph.replay
+
+    def replay(graph):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        orig(graph)
+        b.record()
+        spans.append((a, b))
+
+    torch.cuda.CUDAGraph.replay = replay
+    try:
+        yield spans
+    finally:
+        torch.cuda.CUDAGraph.replay = orig
+
+
+def span_s(spans):
+    """The summed device seconds of replay_spans' pairs (synchronises)."""
+    import torch
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in spans) / 1e3
+
+
 def profile_graph_drains(acts):
     """Each GRAPH_CELLS drain under torch.profiler on an integrator whose
-    trips are captured already (one graph pass before): wall and busy
-    seconds, busy share, and the host's cudaLaunchKernel and
-    cudaGraphLaunch calls a trip; then the same pass with eager trips."""
+    stages are captured already (one graph pass before): wall and busy
+    seconds, busy share, the stage loop's host reads, and the host's
+    cudaLaunchKernel and cudaGraphLaunch calls a trip; before it the same
+    pass without the profiler, its wall and its graph replays' device
+    span (replay_spans); then both with eager trips."""
     from torch.autograd import DeviceType
     from torch.profiler import profile
     fractal = load_scene(FRACTAL, *FRACTAL_SHAPE)
@@ -2676,6 +2741,10 @@ def profile_graph_drains(acts):
             integ.drain_graphs = graphs
             drain(integ, lambda: integ.run_device(None, len(pos),
                                                   pos_xy=pos))
+            with replay_spans() as spans:
+                _, _, _, wall_np = drain(integ, lambda: integ.run_device(
+                    None, len(pos), pos_xy=pos))
+            graph_dev = span_s(spans)
             with profile(activities=acts) as prof:
                 _, _, _, wall = drain(integ, lambda: integ.run_device(
                     None, len(pos), pos_xy=pos))
@@ -2687,7 +2756,9 @@ def profile_graph_drains(acts):
             trips = integ.last_trips
             say(f"profile graph {name}", graphs=graphs, wall_s=f"{wall:.4f}",
                 device_busy_s=f"{busy:.4f}", busy_share=f"{busy / wall:.4f}",
-                trips=trips,
+                unprofiled_wall_s=f"{wall_np:.4f}",
+                graph_device_s=f"{graph_dev:.4f}",
+                trips=trips, host_reads=integ.last_host_reads,
                 launch_kernel_per_trip=f"{api.get('cudaLaunchKernel', 0) / trips:.2f}",
                 graph_launch_per_trip=f"{api.get('cudaGraphLaunch', 0) / trips:.2f}")
         del integ
@@ -2698,7 +2769,8 @@ def profile_diff():
     untraced call, which captures the graph), as a graph replay ("profile
     diff") and eagerly ("profile diff eager"): wall and device busy
     seconds, the host's cudaLaunchKernel and cudaGraphLaunch calls, and
-    the device time of its largest op kinds."""
+    the device time of its largest op kinds; before it one call without
+    the profiler, its wall and its graph replay's device span."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2709,7 +2781,12 @@ def profile_diff():
                         ("profile diff eager", False)):
         dr.diff_graphs = graphs
         dr.value_and_grad(q0)
-        torch.cuda.synchronize()
+        with replay_spans() as spans:
+            t0 = time.time()
+            dr.value_and_grad(q0)
+            torch.cuda.synchronize()
+            wall_np = time.time() - t0
+        graph_dev = span_s(spans)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.time()
@@ -2724,6 +2801,8 @@ def profile_diff():
                if e.key in ("cudaLaunchKernel", "cudaGraphLaunch")}
         say(tag, graphs=graphs, wall_s=f"{wall:.3f}",
             device_busy_s=f"{busy:.4f}", busy_share=f"{busy / wall:.4f}",
+            unprofiled_wall_s=f"{wall_np:.4f}",
+            graph_device_s=f"{graph_dev:.4f}",
             kernel_names=len(kern), launches=sum(e.count for e in kern),
             launch_kernel_per_call=api.get("cudaLaunchKernel", 0),
             graph_launch_per_call=api.get("cudaGraphLaunch", 0))

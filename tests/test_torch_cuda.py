@@ -1108,10 +1108,12 @@ def test_run_device_queue_equals_positions_on_card():
 
 # -- the graph drain (render/graphs.py) ---------------------------------------
 #
-# Each trip of the device drain replays a CUDA graph of `Integrator._trip`;
-# the same trips run eagerly with drain_graphs = False.  The two must give
-# the same bits, trips, queries and kernel launches (each replay adds the
-# launches its capture counted).
+# Each stage of the device drain replays a CUDA graph whose WHILE node runs
+# `Integrator._trip` while the stage lasts (render/cond.py), the NEE inside
+# under an IF node; the same trips run eagerly with drain_graphs = False.
+# The two must give the same bits, trips, queries and kernel launches (the
+# gated bodies' launches counted on the card), the graph drain reading the
+# host once a stage.
 
 
 def _graph_integ(name):
@@ -1169,10 +1171,34 @@ def test_graph_drain_equals_eager(name):
     want = _drain_once(integ, pos, False)
     assert want[0].max() > 0
     for _ in range(2):
+        replays = integ._graphs.replays if integ._graphs else 0
         got = _drain_once(integ, pos, True)
         assert np.array_equal(got[0], want[0])
         assert got[1:] == want[1:]
+        stages = len(integ._stages(integ.batch))
+        assert integ.last_host_reads <= stages
+        assert integ._graphs.replays - replays == integ.last_host_reads
     assert integ._graphs.captures > 0
+
+
+def test_missing_conditional_nodes_raise(monkeypatch):
+    """Where conditional nodes are unavailable the captured paths raise at
+    their first capture: no graph drain or diff graph runs flattened or
+    eagerly in their place."""
+    from actinon_tpu_torch.render import cond
+    integ, pos = _graph_integ("headline")
+    monkeypatch.setattr(cond, "_probe", lambda: "none on this card")
+    monkeypatch.setattr(cond._S, "ok", None)
+    try:
+        with pytest.raises(RuntimeError, match="none on this card"):
+            integ.run_device(None, len(pos), pos_xy=pos)
+        assert not integ._graphs._graphs
+        dr, q0 = _diff_glass_table(np.float32, "cuda", 128)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            dr.value_and_grad(q0)
+        assert not dr._graphs._graphs
+    finally:
+        cond._S.ok = None      # the real check runs again at next use
 
 
 def test_graph_replay_reads_nothing_back():
@@ -1235,8 +1261,9 @@ def test_diff_graph_equals_eager(dtype, n, sel_mode, edge_aware):
     """The eager call, then the graph call twice (capture and replay,
     then a replay alone): loss and gradients bit for bit, every bounce
     replayed, one capture, and no kernel launched but the edge terms' K3
-    in f32 (in every bounce of the replay, where the eager call stops
-    once every lane is dead)."""
+    in f32, as often as in the eager call (the NEE runs under an IF node
+    in every bounce of the replay, where the eager call stops once every
+    lane is dead)."""
     _need_card()
     from actinon_tpu_torch.render import kernels
     dr, q0 = _diff_glass_table(dtype, "cuda", n, sel_mode=sel_mode,
@@ -1257,7 +1284,7 @@ def test_diff_graph_equals_eager(dtype, n, sel_mode, edge_aware):
         assert _vg_equal(got, want) == []
         moved = {k for k, v in kernels.LAUNCHES.items() if v}
         assert moved <= ({"object_hit"} if edge_aware else set()), moved
-        assert kernels.LAUNCHES["object_hit"] >= eager_k3
+        assert kernels.LAUNCHES["object_hit"] == eager_k3
     assert dr.steps_run == dr.n_steps and dr._graphs.captures == 1
 
 
@@ -1424,7 +1451,8 @@ def test_sharded_diff_graph_world_of_one():
 def test_diff_failed_capture_raises(monkeypatch):
     """A replay that reads the card back while it is captured makes the
     capture fail, and value_and_grad raises: it does not fall back to
-    the eager call.  (Near the end of the file, beside the drain's: the
+    the eager call, and no allocation is routed to the failed graph's
+    pool after it.  (Near the end of the file, beside the drain's: the
     failed capture leaves its pool.)"""
     _need_card()
     dr, q0 = _diff_glass_table(np.float32, "cuda", 512)
@@ -1440,12 +1468,24 @@ def test_diff_failed_capture_raises(monkeypatch):
     with pytest.raises(RuntimeError):
         dr.value_and_grad(q0)
     torch.cuda.synchronize()
+    _routing_ended(dr._graphs._pool)
+
+
+def _routing_ended(pool):
+    """No allocation routing to `pool` is left after its failed capture:
+    a new allocation lands in a segment of another pool."""
+    x = torch.empty((3 << 20) + 4096, dtype=torch.uint8, device="cuda")
+    ptr = x.data_ptr()
+    seg = next(s for s in torch.cuda.memory_snapshot()
+               if s["address"] <= ptr < s["address"] + s["total_size"])
+    assert tuple(seg["segment_pool_id"]) != tuple(pool)
 
 
 def test_failed_capture_raises(monkeypatch):
     """A trip that reads the card back while it is captured makes the
     capture fail, and the drain raises: it does not fall back to eager
-    trips.  (Last in the file: the failed capture leaves its pool.)"""
+    trips, and no allocation is routed to the failed graph's pool after
+    it.  (Last in the file: the failed capture leaves its pool.)"""
     integ, pos = _graph_integ("headline")
     trip = integ._trip
 
@@ -1458,3 +1498,5 @@ def test_failed_capture_raises(monkeypatch):
     with pytest.raises(RuntimeError):
         integ.run_device(None, len(pos), pos_xy=pos)
     torch.cuda.synchronize()
+    (pool,) = integ._graphs._pools.values()
+    _routing_ended(pool)

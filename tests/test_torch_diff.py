@@ -62,6 +62,28 @@ def test_no_read_replay_matches_jax(monkeypatch, jax_vals, name, sel_mode):
     assert_matches_jax(got, jax_vals(name, sel_mode))
 
 
+@pytest.mark.parametrize("name,sel_mode", [("glass", "balanced"),
+                                           ("path", "balanced")],
+                         ids=["glass-balanced", "path-balanced"])
+def test_skipped_nee_bounce_matches_jax(jax_vals, name, sel_mode):
+    """Batches in which some bounce has no diffusely shaded lane, so its
+    NEE and the NEE's backward are skipped (`Integrator._nee_gated`, the
+    JAX step's lax.cond), against jax.value_and_grad in f64."""
+    from actinon_tpu_torch.render.integrator import Integrator
+    ran = []
+    orig = Integrator._nee_gated
+
+    def spy(self, pos, surf_d, di, gate, *rest):
+        ran.append(bool(gate.any()))
+        return orig(self, pos, surf_d, di, gate, *rest)
+
+    dr, q0 = port_setup(name, sel_mode)
+    dr.integ._nee_gated = spy.__get__(dr.integ)
+    got = dr.value_and_grad(q0)
+    assert True in ran and False in ran
+    assert_matches_jax(got, jax_vals(name, sel_mode))
+
+
 # (scene, group, key, flat index, delta, rtol, sign of the gradient):
 # tests/test_diff.py's TestMaterialGrads, TestRefractionGrads,
 # TestGeometryGrads and TestPathTracing
