@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 
 from actinon_tpu_torch.render import image as aimg
+from actinon_tpu_torch.render import spans
 from actinon_tpu_torch.render.integrator import Integrator
 from actinon_tpu_torch.render.tracer import Tracer
 from actinon_tpu_torch.rng import HostLcg
@@ -92,13 +93,38 @@ def render_scene(scene, out_file: str, force: bool = False,
     """Full render of a host Scene to `out_file` (PNM) on `device`.
     Returns the final float image [H,W,3].  `stats`, when given, receives
     the run's counts: rays_traced (the JAX bench's query accounting),
-    samples, trips, seconds and the last pass's hash."""
+    samples, trips, seconds (the pass loop's, on the spans' clock) and
+    the last pass's hash; and the call's record (render/spans.py):
+    spans ([name, start_s, end_s, parent index], seconds from the call's
+    start; index 0 the root `driver.image`, the whole call), counters
+    (`drain.host_reads`, `graphs.captures`, `graphs.pool_bytes`) and
+    device_spans ([stage batch, seconds], one a CUDA-graph replay).
+    While a torch profiler records, `stats` is also kept in
+    `spans.profiled`."""
+    rec = None if stats is None else spans.Record()
+    with spans.span(rec, "driver.image"):
+        img, counts = _render(scene, out_file, force, recover, dtype, batch,
+                              verbose, max_cycles, device, rec)
+    if stats is not None:
+        stats.update(counts, **rec.result())
+        spans.publish(stats)
+    return img
+
+
+def _render(scene, out_file, force, recover, dtype, batch, verbose,
+            max_cycles, device, rec):
+    """render_scene's body: (the image, its counts), the spans into
+    `rec` (or None)."""
     cfg = scene.cfg
     log = (lambda *a: print(*a, flush=True)) if verbose else (lambda *a: None)
 
-    ir = sir.compile_scene(scene)
-    tracer = Tracer(ir, dtype=dtype, device=device)
-    integ = Integrator(tracer, batch=batch)
+    with spans.span(rec, "driver.compile"):
+        ir = sir.compile_scene(scene)
+    with spans.span(rec, "driver.tracer"):
+        tracer = Tracer(ir, dtype=dtype, device=device)
+    with spans.span(rec, "driver.integrator"):
+        integ = Integrator(tracer, batch=batch)
+    integ.record = rec
 
     tmp_file = out_file + ".tmp.lum_image.npz"
     lum = None
@@ -141,7 +167,7 @@ def render_scene(scene, out_file: str, force: bool = False,
         f"({len(ir.lights)} lights) | {cfg.image_width}x{cfg.image_height}"
         f" depth={cfg.trace_depth} direct={cfg.direct_samples}"
         f" path={cfg.path_samples}")
-    t_start = time.time()
+    t_start = time.perf_counter()
 
     n_samples = trips = 0
     h = None
@@ -150,60 +176,70 @@ def render_scene(scene, out_file: str, force: bool = False,
             lum.gradient_cycle = cycle
             lcg = HostLcg(int(lum.rval))
 
-            if cycle == 0:
-                ys, xs = np.mgrid[0:cfg.image_height, 0:cfg.image_width]
-                pos = np.stack([xs.reshape(-1) + 0.5, ys.reshape(-1) + 0.5],
-                               -1).astype(np.float64)
-                log(f"pass 0: {len(pos)} samples")
-            else:
-                grad = lum.sqr_grad()
-                sel = np.argwhere(grad > sqr_thresh)   # [K, 2] (y, x)
-                # sequential LCG draws, matching the reference's resume
-                # semantics (reference src/scene.c:1130-1135); the chain is
-                # inherently serial -> native C kernel with python fallback
-                try:
-                    from actinon_tpu_torch.native import gen_samples
-                    pos, new_state = gen_samples(
-                        sel[:, 1], sel[:, 0], cfg.gradient_samples,
-                        int(lcg.state))
-                    lcg.state = np.uint64(new_state)
-                except ImportError:
-                    pos_list = []
-                    for y, x in sel:
-                        for _ in range(cfg.gradient_samples):
-                            dx = lcg.rnd1()
-                            dy = lcg.rnd1()
-                            pos_list.append((x + dx, y + dy))
-                    pos = np.array(pos_list, np.float64) if pos_list \
-                        else np.zeros((0, 2))
-                log(f"pass {cycle}: {len(sel)} pixels -> {len(pos)} samples")
+            with spans.span(rec, "driver.positions"):
+                if cycle == 0:
+                    ys, xs = np.mgrid[0:cfg.image_height, 0:cfg.image_width]
+                    pos = np.stack([xs.reshape(-1) + 0.5,
+                                    ys.reshape(-1) + 0.5],
+                                   -1).astype(np.float64)
+                    log(f"pass 0: {len(pos)} samples")
+                else:
+                    grad = lum.sqr_grad()
+                    sel = np.argwhere(grad > sqr_thresh)   # [K, 2] (y, x)
+                    # sequential LCG draws, matching the reference's resume
+                    # semantics (reference src/scene.c:1130-1135); the chain
+                    # is inherently serial -> native C kernel with python
+                    # fallback
+                    try:
+                        from actinon_tpu_torch.native import gen_samples
+                        pos, new_state = gen_samples(
+                            sel[:, 1], sel[:, 0], cfg.gradient_samples,
+                            int(lcg.state))
+                        lcg.state = np.uint64(new_state)
+                    except ImportError:
+                        pos_list = []
+                        for y, x in sel:
+                            for _ in range(cfg.gradient_samples):
+                                dx = lcg.rnd1()
+                                dy = lcg.rnd1()
+                                pos_list.append((x + dx, y + dy))
+                        pos = np.array(pos_list, np.float64) if pos_list \
+                            else np.zeros((0, 2))
+                    log(f"pass {cycle}: {len(sel)} pixels -> "
+                        f"{len(pos)} samples")
 
             if len(pos):
                 acc = integ.run_samples(pos)
                 n_samples += len(pos)
                 trips += integ.last_trips
-                # per-sample gamma saturation (reference src/scene.c:1010)
-                sat = np.clip(np.power(np.maximum(acc, 0.0), cfg.gamma),
-                              0.0, 1.0)
-                # primary misses already contributed background via the
-                # integrator; nothing special needed here
-                if flag.received:
-                    log("SIGINT received; saving checkpoint")
-                    lum.save(tmp_file)
-                    break
-                lum.push_samples(pos, sat)
+                with spans.span(rec, "driver.accumulate"):
+                    # per-sample gamma saturation (reference
+                    # src/scene.c:1010)
+                    sat = np.clip(np.power(np.maximum(acc, 0.0), cfg.gamma),
+                                  0.0, 1.0)
+                    # primary misses already contributed background via
+                    # the integrator; nothing special needed here
+                    if flag.received:
+                        log("SIGINT received; saving checkpoint")
+                        lum.save(tmp_file)
+                        break
+                    lum.push_samples(pos, sat)
 
             lum.rval = lcg.state
-            img = lum.averaged()
-            aimg.write_pnm(out_file, img)
-            h = aimg.image_hash(aimg.pack_cps(img))
+            with spans.span(rec, "driver.output"):
+                img = lum.averaged()
+                aimg.write_pnm(out_file, img)
+                h = aimg.image_hash(aimg.pack_cps(img))
             log(f"pass {cycle} done, hash: {h}")
 
-    seconds = time.time() - t_start
+    seconds = time.perf_counter() - t_start
     log(f"{seconds:.3f} s")
     if os.path.exists(tmp_file) and not flag.received:
         os.remove(tmp_file)
-    if stats is not None:
-        stats.update(rays_traced=integ.rays_traced, samples=n_samples,
-                     trips=trips, seconds=seconds, hash=h)
-    return lum.averaged()
+    counts = dict(rays_traced=integ.rays_traced, samples=n_samples,
+                  trips=trips, seconds=seconds, hash=h)
+    # the integrator's graphs, pools and drain state go here, inside the
+    # call's spans, not at its return
+    with spans.span(rec, "driver.release"):
+        del integ, tracer, ir
+    return lum.averaged(), counts

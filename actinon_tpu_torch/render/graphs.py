@@ -49,14 +49,13 @@ from __future__ import annotations
 
 import gc
 import hashlib
-import time
 import weakref
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from actinon_tpu_torch.render import cond, kernels
+from actinon_tpu_torch.render import cond, kernels, spans
 from actinon_tpu_torch.render.diff import _LANE_FIELDS
 from actinon_tpu_torch.render.tracer import no_host_reads
 
@@ -81,7 +80,7 @@ class _Captures:
         self.pool_bytes = 0
         self.replays = 0
 
-    def _capture_fn(self, pool, fn, warm=None):
+    def _capture_fn(self, pool, fn, warm=None, rec=None):
         """warm() (default fn) once eagerly on a side stream with host
         reads off (the warm-up: it runs the ops that the capture records,
         so it loads every kernel and fills every cache they read), then
@@ -90,33 +89,42 @@ class _Captures:
         fn's captured outputs, the launches the capture counted outside
         conditional bodies: they move to the replays).  A capture that
         fails raises, and so does one where conditional nodes are
-        unavailable."""
-        cond.require()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side), no_host_reads():
-            (warm or fn)()
-        torch.cuda.current_stream().wait_stream(side)
-        before = dict(kernels.LAUNCHES)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        # a graph destroyed during the capture (the cyclic collector
-        # freeing the caller's garbage) would invalidate it
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with cond.capture(graph, pool):
-                # (read here: entering the capture empties the
-                # allocator's cache)
-                reserved = torch.cuda.memory_reserved()
-                out = fn()
-        finally:
-            if collecting:
-                gc.enable()
-        torch.cuda.synchronize()
-        self.capture_s += time.perf_counter() - t0
-        self.pool_bytes += torch.cuda.memory_reserved() - reserved
+        unavailable.  With a record (render/spans.py): the spans
+        graphs.capture, graphs.warmup and graphs.record (whose timer is
+        `capture_s`'s), and the counters graphs.captures and
+        graphs.pool_bytes."""
+        with spans.span(rec, "graphs.capture"):
+            cond.require()
+            with spans.span(rec, "graphs.warmup"):
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side), no_host_reads():
+                    (warm or fn)()
+                torch.cuda.current_stream().wait_stream(side)
+            before = dict(kernels.LAUNCHES)
+            with spans.Span(rec, "graphs.record") as timer:
+                graph = torch.cuda.CUDAGraph()
+                # a graph destroyed during the capture (the cyclic
+                # collector freeing the caller's garbage) would invalidate
+                # it
+                collecting = gc.isenabled()
+                gc.disable()
+                try:
+                    with cond.capture(graph, pool):
+                        # (read here: entering the capture empties the
+                        # allocator's cache)
+                        reserved = torch.cuda.memory_reserved()
+                        out = fn()
+                finally:
+                    if collecting:
+                        gc.enable()
+                torch.cuda.synchronize()
+        pool_bytes = torch.cuda.memory_reserved() - reserved
+        self.capture_s += timer.seconds
+        self.pool_bytes += pool_bytes
         self.captures += 1
+        spans.count(rec, "graphs.captures")
+        spans.count(rec, "graphs.pool_bytes", pool_bytes)
         launches = {k: n - before[k] for k, n in kernels.LAUNCHES.items()
                     if n != before[k]}
         kernels.LAUNCHES.update(before)
@@ -164,13 +172,14 @@ class DrainGraphs(_Captures):
         """Stage Bk's trips on the state `st` while its count exceeds
         `thresh`: the replay of the stage's graph, preceded at the key's
         first call by a warm-up trip (the host has just read that the
-        stage runs) and the capture."""
+        stage runs) and the capture; with the integrator's record, a
+        device span of the replay (render/spans.py)."""
         key = st["key"] + (Bk, thresh)
         got = self._graphs.get(key)
         if got is None:
             got = self._graphs[key] = self._capture(st, Bk, thresh)
         graph, launches = got
-        graph.replay()
+        spans.replay(self.integ.record, graph, Bk)
         self.replays += 1
         for k, n in launches.items():
             kernels.LAUNCHES[k] += n
@@ -187,7 +196,8 @@ class DrainGraphs(_Captures):
 
         with st["gates"].collect():
             graph, _, launches = self._capture_fn(
-                pool, lambda: ig._stage_loop(st, Bk, thresh), warm)
+                pool, lambda: ig._stage_loop(st, Bk, thresh), warm,
+                ig.record)
         return graph, launches
 
 
@@ -276,7 +286,7 @@ class DiffGraphs(_Captures):
                     buf.copy_(params[g][k])
             if weight is not None:
                 got.weight.copy_(weight)
-        got.graph.replay()
+        spans.replay(dr.integ.record, got.graph, key[0])
         self.replays += 1
         for k, n in got.launches.items():
             kernels.LAUNCHES[k] += n
@@ -305,7 +315,8 @@ class DiffGraphs(_Captures):
         with got.gates.collect():
             got.graph, (got.loss, got.grads), got.launches = \
                 self._capture_fn(self._pool, lambda: dr._share(
-                    got.leaves, got.lanes, got.weight, total))
+                    got.leaves, got.lanes, got.weight, total),
+                    rec=dr.integ.record)
         got.held = _held(dr)
         return got
 

@@ -48,7 +48,7 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from actinon_tpu_torch import math3d as m3
 from actinon_tpu_torch import rng as argn
-from actinon_tpu_torch.render import cond, kernels
+from actinon_tpu_torch.render import cond, kernels, spans
 from actinon_tpu_torch.render.tracer import (CHUNK, INF, Tracer, _dot,
                                              _dot_fma32, _norm3, _rows,
                                              _sphere_first_hit,
@@ -184,6 +184,8 @@ class Integrator:
         # (render/graphs.py); False runs the same trips eagerly
         self.drain_graphs = self.device.type == "cuda"
         self._graphs = None
+        # the caller's record of spans and counters (render/spans.py)
+        self.record = None
         # differentiable-path hooks (render/diff.py): `ovr` maps
         # mat_params keys to tensors that replace the tables (autograd
         # reaches them); `edge_aware` adds the NEE silhouette terms
@@ -1360,19 +1362,22 @@ class Integrator:
         # bucket the sample count to a power of two (pad lanes are dead:
         # never popped)
         Np = 1 << int(np.ceil(np.log2(max(N, 64))))
-        if pos_xy is not None:
-            pos = torch.zeros((Np, 2), dtype=self.tdtype, device=self.device)
-            pos[:N] = self._as(np.asarray(pos_xy))
-            rows = self._pos_rows(pos, N)
-        else:
-            if not isinstance(primary, RayQueue):
-                raise TypeError("run_device: a RayQueue or pos_xy needed")
-            rows = self._queue_rows(primary)
+        with spans.span(self.record, "drain.fill"):
+            if pos_xy is not None:
+                pos = torch.zeros((Np, 2), dtype=self.tdtype,
+                                  device=self.device)
+                pos[:N] = self._as(np.asarray(pos_xy))
+                rows = self._pos_rows(pos, N)
+            else:
+                if not isinstance(primary, RayQueue):
+                    raise TypeError("run_device: a RayQueue or pos_xy needed")
+                rows = self._queue_rows(primary)
         acc, dropped, queries, trips = self._drain(rows, N, Np, self.batch)
-        self.rays_traced += int(queries) * self.per_lane_queries
-        self.last_trips = trips
-        self._drain_warnings(dropped, trips)
-        return acc[:N].to(torch.float64).cpu().numpy()
+        with spans.span(self.record, "drain.collect"):
+            self.rays_traced += int(queries) * self.per_lane_queries
+            self.last_trips = trips
+            self._drain_warnings(dropped, trips)
+            return acc[:N].to(torch.float64).cpu().numpy()
 
     def _pos_rows(self, pos, count):
         """Queue rows of the camera samples at subpixel positions `pos`
@@ -1413,31 +1418,36 @@ class Integrator:
         choose the next stage (`last_host_reads`).  Returns (acc [Np, 3]
         on the device, dropped rays, live lanes traced as a device
         tensor, trips)."""
+        rec = self.record
         C, size = self._queue_size(Np, B)
-        if self.drain_graphs:
-            if self._graphs is None:
-                from actinon_tpu_torch.render.graphs import DrainGraphs
-                self._graphs = DrainGraphs(self)
-            st = self._graphs.state(C, size)
-            run = lambda Bk, thresh: self._graphs.run(st, Bk, thresh)
-        else:
-            st = self._drain_state(C, size)
-            run = lambda Bk, thresh: self._stage_loop(st, Bk, thresh)
-        self._fill_state(st, rows, count)
+        with spans.span(rec, "drain.fill"):
+            if self.drain_graphs:
+                if self._graphs is None:
+                    from actinon_tpu_torch.render.graphs import DrainGraphs
+                    self._graphs = DrainGraphs(self)
+                st = self._graphs.state(C, size)
+                run = lambda Bk, thresh: self._graphs.run(st, Bk, thresh)
+            else:
+                st = self._drain_state(C, size)
+                run = lambda Bk, thresh: self._stage_loop(st, Bk, thresh)
+            self._fill_state(st, rows, count)
         stages = self._stages(B)
         k, trips, dropped, reads = 0, 0, 0, 0
         while count > 0 and trips < DRAIN_TRIP_CAP:
             while k + 1 < len(stages) and count <= stages[k + 1]:
                 k += 1
-            run(stages[k], stages[k + 1] if k + 1 < len(stages) else 0)
+            with spans.span(rec, "drain.stage"):
+                run(stages[k], stages[k + 1] if k + 1 < len(stages) else 0)
             # the stage's one host read, with the gated bodies' runs
-            got = torch.cat([torch.stack([st["count"], st["it"],
-                                          st["dropped"]]),
-                             st["gates"].runs]).cpu().numpy()
+            with spans.span(rec, "drain.read"):
+                got = torch.cat([torch.stack([st["count"], st["it"],
+                                              st["dropped"]]),
+                                 st["gates"].runs]).cpu().numpy()
             count, trips, dropped = (int(v) for v in got[:3])
             st["gates"].settle(got[3:])
             reads += 1
         self.last_host_reads = reads
+        spans.count(rec, "drain.host_reads", reads)
         return st["acc"][:Np].clone(), dropped, st["queries"].clone(), trips
 
     def _stages(self, B):

@@ -200,7 +200,9 @@ GLASS_HASH, and no scene or big-scene kernel launches there.  lamp_row
 (K2 and K7 by design), the device's busy share, the host's
 cudaLaunchKernel and cudaGraphLaunch calls a trip (the headline and
 lamp_row also with eager trips); the same for each phase-18 cell's
-drain on a warm integrator, with graphs and eagerly; K1's device time
+drain on a warm integrator, with graphs (its replays' device seconds
+from the integrator's record, render/spans.py, in place of a busy
+share) and eagerly; K1's device time
 over the shipped render's calls, and one diff value_and_grad as a graph
 replay ("profile diff") and eagerly ("profile diff eager"): busy share,
 the host's cudaLaunchKernel and cudaGraphLaunch calls, device time by
@@ -2693,45 +2695,28 @@ def phase_profile():
     profile_diff()
 
 
-@contextlib.contextmanager
-def replay_spans():
-    """Every CUDAGraph.replay within, bracketed by CUDA events: yields the
-    list of (start, end) event pairs.  The profiler misses kernels that
-    run inside conditional nodes (the counts and device time it reported
-    for the same graph drain varied from run to run), so a graph's device
-    time is its replays' spans."""
-    import torch
-    spans, orig = [], torch.cuda.CUDAGraph.replay
-
-    def replay(graph):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        orig(graph)
-        b.record()
-        spans.append((a, b))
-
-    torch.cuda.CUDAGraph.replay = replay
+def recorded(integ, fn):
+    """fn() with a record (render/spans.py) on the integrator: (fn's
+    value, the summed device seconds of the graph replays it made, 0 for
+    eager trips); fn ends in a host read or a synchronise."""
+    from actinon_tpu_torch.render import spans
+    integ.record = spans.Record()
     try:
-        yield spans
+        out = fn()
+        return out, sum(s for _, s in integ.record.result()["device_spans"])
     finally:
-        torch.cuda.CUDAGraph.replay = orig
-
-
-def span_s(spans):
-    """The summed device seconds of replay_spans' pairs (synchronises)."""
-    import torch
-    torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in spans) / 1e3
+        integ.record = None
 
 
 def profile_graph_drains(acts):
     """Each GRAPH_CELLS drain under torch.profiler on an integrator whose
-    stages are captured already (one graph pass before): wall and busy
-    seconds, busy share, the stage loop's host reads, and the host's
-    cudaLaunchKernel and cudaGraphLaunch calls a trip; before it the same
-    pass without the profiler, its wall and its graph replays' device
-    span (replay_spans); then both with eager trips."""
+    stages are captured already (one graph pass before): wall seconds,
+    the stage loop's host reads, and the host's cudaLaunchKernel and
+    cudaGraphLaunch calls a trip; before it the same pass without the
+    profiler, its wall and its graph replays' device seconds (the
+    integrator's record); then both with eager trips, whose busy seconds
+    and share the profiler gives (it misses kernels in the replays'
+    conditional nodes, so it gives none for graph drains)."""
     from torch.autograd import DeviceType
     from torch.profiler import profile
     fractal = load_scene(FRACTAL, *FRACTAL_SHAPE)
@@ -2739,24 +2724,24 @@ def profile_graph_drains(acts):
         integ, pos = graph_integ(path, shape, batch, mode, fractal)
         for graphs in (True, False):
             integ.drain_graphs = graphs
-            drain(integ, lambda: integ.run_device(None, len(pos),
-                                                  pos_xy=pos))
-            with replay_spans() as spans:
-                _, _, _, wall_np = drain(integ, lambda: integ.run_device(
-                    None, len(pos), pos_xy=pos))
-            graph_dev = span_s(spans)
+            run = lambda: drain(integ, lambda: integ.run_device(
+                None, len(pos), pos_xy=pos))
+            run()
+            (_, _, _, wall_np), graph_dev = recorded(integ, run)
             with profile(activities=acts) as prof:
-                _, _, _, wall = drain(integ, lambda: integ.run_device(
-                    None, len(pos), pos_xy=pos))
+                _, _, _, wall = run()
             ev = prof.key_averages()
-            busy = sum(e.self_device_time_total for e in ev
-                       if e.device_type == DeviceType.CUDA) / 1e6
+            busy = {}
+            if not graphs:
+                b = sum(e.self_device_time_total for e in ev
+                        if e.device_type == DeviceType.CUDA) / 1e6
+                busy = dict(device_busy_s=f"{b:.4f}",
+                            busy_share=f"{b / wall:.4f}")
             api = {e.key: e.count for e in ev if e.key in (
                 "cudaLaunchKernel", "cudaGraphLaunch")}
             trips = integ.last_trips
             say(f"profile graph {name}", graphs=graphs, wall_s=f"{wall:.4f}",
-                device_busy_s=f"{busy:.4f}", busy_share=f"{busy / wall:.4f}",
-                unprofiled_wall_s=f"{wall_np:.4f}",
+                **busy, unprofiled_wall_s=f"{wall_np:.4f}",
                 graph_device_s=f"{graph_dev:.4f}",
                 trips=trips, host_reads=integ.last_host_reads,
                 launch_kernel_per_trip=f"{api.get('cudaLaunchKernel', 0) / trips:.2f}",
@@ -2781,12 +2766,10 @@ def profile_diff():
                         ("profile diff eager", False)):
         dr.diff_graphs = graphs
         dr.value_and_grad(q0)
-        with replay_spans() as spans:
-            t0 = time.time()
-            dr.value_and_grad(q0)
-            torch.cuda.synchronize()
-            wall_np = time.time() - t0
-        graph_dev = span_s(spans)
+        t0 = time.time()
+        _, graph_dev = recorded(dr.integ, lambda: (
+            dr.value_and_grad(q0), torch.cuda.synchronize()))
+        wall_np = time.time() - t0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.time()
