@@ -13,24 +13,108 @@ Counterpart of scene_s_create_image_file (reference src/scene.c:1032-1165):
   * SIGINT saves the accumulator to <file>.tmp.lum_image.npz; a restart
     with recover=True resumes from it (restarting from scratch if the
     image dimensions changed, reference src/scene.c:1083-1086)
+
+The renderer (the Tracer and the Integrator, with the integrator's drain
+states, graph pools and captured stages: render/graphs.py) outlives the
+call that built it: `render_scene` keeps the last one, and the next call
+takes it where its scene would build the same renderer (`_key`: all but
+the camera), so that an image of a scene already rendered from another
+camera builds and captures nothing.  The camera reaches the drain only
+through `Integrator._camera_rays_dev`, outside every captured stage.
+Any other call releases the kept renderer, then builds its own.
+`release()` drops it.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import itertools
+import operator
 import os
+import pickle
 import signal
 import sys
 import time
 from typing import Optional
 
 import numpy as np
+import torch
 
+from actinon_tpu_torch.config import resolve_device
 from actinon_tpu_torch.render import image as aimg
 from actinon_tpu_torch.render import spans
 from actinon_tpu_torch.render.integrator import Integrator
-from actinon_tpu_torch.render.tracer import Tracer
+from actinon_tpu_torch.render.tracer import Tracer, numpy_dtype
 from actinon_tpu_torch.rng import HostLcg
 from actinon_tpu_torch.scene import ir as sir
+
+# the renderer the last render_scene call left: (key, tracer, integrator)
+_kept = None
+
+# the RenderConfig fields that reach the renderer only as the IR's
+# camera (cam_pos, cam_rot) and through _camera_rays_dev
+_CAMERA = frozenset({"camera_position", "camera_view_direction",
+                     "camera_top_direction", "camera_focal_length"})
+_DTYPE = operator.attrgetter("dtype")
+_SHAPE = operator.attrgetter("shape")
+
+
+def release():
+    """Drop the renderer that render_scene keeps between calls, and give
+    the device memory of its tables, drain states and graph pools back
+    to the device.  The next call builds anew."""
+    global _kept
+    _kept = None
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+
+
+def _key(ir, dtype, batch, device):
+    """What the Tracer and Integrator constructors read, and nothing of
+    the camera: a blake2b digest of an exact encoding of the IR's
+    objects, lights and background and of every other RenderConfig
+    field, with the float type, batch and device; beside it the two
+    classes the driver builds with."""
+    out = [numpy_dtype(dtype).str, batch, str(resolve_device(device)),
+           ir.lights, ir.background,
+           sorted((k, v) for k, v in vars(ir.cfg).items()
+                  if k not in _CAMERA)]
+    _encode(ir.objects, out)
+    digest = hashlib.blake2b(pickle.dumps(out, protocol=5),
+                             digest_size=32).digest()
+    return digest, Tracer, Integrator
+
+
+def _encode(col, out):
+    """Append to `out` an exact encoding of the list `col`, a column at a
+    time, so that a scene of many objects costs a few passes in C: the
+    instances of one dataclass by field, lists by their lengths and
+    their items, arrays of one dtype and shape (some of them None) as
+    their bytes, floats as float64 bytes; any other column as it is."""
+    kinds = set(map(type, col))
+    if kinds == {np.ndarray, type(None)}:
+        some = list(map(operator.is_not, col, itertools.repeat(None)))
+        out.append(("some", np.array(some).tobytes()))
+        col, kinds = list(itertools.compress(col, some)), {np.ndarray}
+    kind = kinds.pop() if len(kinds) == 1 else None
+    if kind is float:
+        out.append(("float", np.array(col, np.float64).tobytes()))
+    elif kind is list:
+        out.append(("list", list(map(len, col))))
+        _encode(list(itertools.chain.from_iterable(col)), out)
+    elif kind is np.ndarray and col[0].dtype.kind in "biuf" \
+            and len(set(map(_DTYPE, col))) == 1 \
+            and len(set(map(_SHAPE, col))) == 1:
+        out.append(("array", col[0].dtype.str, col[0].shape,
+                    b"".join(map(np.ndarray.tobytes, col))))
+    elif kind is not None and dataclasses.is_dataclass(kind) \
+            and len(names := set(map(tuple, map(vars, col)))) == 1:
+        out.append(("fields", kind, *names))
+        for field in zip(*map(dict.values, map(vars, col))):
+            _encode(list(field), out)
+    else:
+        out.append(col)
 
 
 def camera_rays(ir: sir.SceneIR, sample_pos: np.ndarray, dtype):
@@ -97,10 +181,11 @@ def render_scene(scene, out_file: str, force: bool = False,
     the last pass's hash; and the call's record (render/spans.py):
     spans ([name, start_s, end_s, parent index], seconds from the call's
     start; index 0 the root `driver.image`, the whole call), counters
-    (`drain.host_reads`, `graphs.captures`, `graphs.pool_bytes`) and
-    device_spans ([stage batch, seconds], one a CUDA-graph replay).
-    While a torch profiler records, `stats` is also kept in
-    `spans.profiled`."""
+    (`driver.renderer_kept`, `drain.host_reads`, `graphs.captures`,
+    `graphs.pool_bytes`) and device_spans ([stage batch, seconds], one a
+    CUDA-graph replay).  While a torch profiler records, `stats` is also
+    kept in `spans.profiled`.  The call keeps its renderer for the next
+    (the module's docstring)."""
     rec = None if stats is None else spans.Record()
     with spans.span(rec, "driver.image"):
         img, counts = _render(scene, out_file, force, recover, dtype, batch,
@@ -115,16 +200,52 @@ def _render(scene, out_file, force, recover, dtype, batch, verbose,
             max_cycles, device, rec):
     """render_scene's body: (the image, its counts), the spans into
     `rec` (or None)."""
-    cfg = scene.cfg
-    log = (lambda *a: print(*a, flush=True)) if verbose else (lambda *a: None)
-
+    global _kept
     with spans.span(rec, "driver.compile"):
         ir = sir.compile_scene(scene)
+        key = _key(ir, dtype, batch, device)
+    tracer, integ = _renderer(key, ir, dtype, batch, device, rec)
+    integ.record = rec
+    try:
+        img, counts = _passes(integ, ir, out_file, force, recover, verbose,
+                              max_cycles, rec)
+    finally:
+        integ.record = None
+    # kept only where the call returned: one that raised keeps none
+    _kept = key, tracer, integ
+    return img, counts
+
+
+def _renderer(key, ir, dtype, batch, device, rec):
+    """(tracer, integrator) for the IR: the kept ones where their key is
+    `key` (they take the IR, and with it the camera), else new ones,
+    built after the kept ones are released (span driver.release), so
+    that one renderer at most holds device memory.  Counter
+    driver.renderer_kept: 1 where the call took the kept renderer."""
+    global _kept
+    kept, _kept = _kept, None
+    hit = kept is not None and kept[0] == key
+    spans.count(rec, "driver.renderer_kept", int(hit))
+    if hit:
+        _, tracer, integ = kept
+        tracer.ir = integ.ir = ir
+        integ.cfg = ir.cfg
+        return tracer, integ
+    with spans.span(rec, "driver.release"):
+        del kept
     with spans.span(rec, "driver.tracer"):
         tracer = Tracer(ir, dtype=dtype, device=device)
     with spans.span(rec, "driver.integrator"):
         integ = Integrator(tracer, batch=batch)
-    integ.record = rec
+    return tracer, integ
+
+
+def _passes(integ, ir, out_file, force, recover, verbose, max_cycles, rec):
+    """The pass loop of one image on the renderer `integ`: (the image,
+    its counts)."""
+    cfg = ir.cfg
+    log = (lambda *a: print(*a, flush=True)) if verbose else (lambda *a: None)
+    rays0 = integ.rays_traced
 
     tmp_file = out_file + ".tmp.lum_image.npz"
     lum = None
@@ -236,10 +357,6 @@ def _render(scene, out_file, force, recover, dtype, batch, verbose,
     log(f"{seconds:.3f} s")
     if os.path.exists(tmp_file) and not flag.received:
         os.remove(tmp_file)
-    counts = dict(rays_traced=integ.rays_traced, samples=n_samples,
+    counts = dict(rays_traced=integ.rays_traced - rays0, samples=n_samples,
                   trips=trips, seconds=seconds, hash=h)
-    # the integrator's graphs, pools and drain state go here, inside the
-    # call's spans, not at its return
-    with spans.span(rec, "driver.release"):
-        del integ, tracer, ir
     return lum.averaged(), counts

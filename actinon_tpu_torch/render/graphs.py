@@ -34,6 +34,8 @@ those of the eager drain.  Inside a trip the NEE runs under an IF node
   their state when the tracer's or the integrator's tables change
   (`Tracer.set_geom`, `Integrator.set_mat`: their `_generation`) or when
   a setting that routes the trip does (seed mode, kernels on or off).
+  They live as long as their integrator, which `render_scene` keeps
+  across calls that differ only in the camera (render/driver.py).
 * Launch accounting.  `kernels.LAUNCHES` counts in the wrappers, which
   run only at capture.  Each graph keeps the launches its capture counted
   outside conditional bodies, and every replay adds them; a body's

@@ -11,8 +11,8 @@ what it holds there.  The layers write into it at their boundaries:
   `torch.profiler.record_function` range of the same name, so the
   profiler's trace puts host time (and the device's idle gaps) down to
   them; with no profiler on, no annotation is made.
-* counters: counts by name (`drain.host_reads`, `graphs.captures`,
-  `graphs.pool_bytes`).
+* counters: counts by name (`driver.renderer_kept`, `drain.host_reads`,
+  `graphs.captures`, `graphs.pool_bytes`).
 * device_spans: [stage_batch, seconds] of each CUDA-graph replay, from a
   pair of CUDA events around it.  The events are resolved by `result()`,
   which the caller calls after a host read has synchronised with the

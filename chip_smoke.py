@@ -27,8 +27,9 @@ Phases, each printing one line of numbers:
                and timed in turns ("kernel shadow synthetic");
   4. headline render — the smoke scene at bench.py's headline shape
                (200x150, direct=10, path=0, depth=25, batch 1<<15)
-               through render_scene, twice: equal fold hashes that repeat
-               GLASS_HASH, and the NEE kernel launched; then K1 against
+               through render_scene, twice, the second call on the
+               renderer the first built and kept: equal fold hashes that
+               repeat GLASS_HASH, and the NEE kernel launched; then K1 against
                its plain version on the inputs of the render's largest NEE
                call, with device time, plain time, the bound and K1's
                launch geometry (the synthetic lanes of phase 3 stay beside
@@ -1001,7 +1002,9 @@ def nee_f64(integ, args):
 
 
 def render(tag, sc, batch, reps=1):
-    """render_scene on the card; returns (stats of the last run, img)."""
+    """render_scene on the card; returns the stats of each run.  The runs
+    after the first take the renderer the first kept (render/driver.py),
+    so their equal hashes hold a kept call to the first's."""
     import torch
     from actinon_tpu_torch.render import kernels
     from actinon_tpu_torch.render.driver import render_scene
@@ -1123,7 +1126,9 @@ def phase_counter(w, h):
 def eager_drains():
     """render_scene's drains run their trips eagerly (drain_graphs =
     False), for spies that must see every wrapper call: a captured trip
-    calls the wrappers only at its capture."""
+    calls the wrappers only at its capture.  The swapped class is part of
+    the driver's key, so a render inside builds its own renderer, and
+    the first render after takes none of it."""
     from actinon_tpu_torch.render import driver
     from actinon_tpu_torch.render.integrator import Integrator
 
@@ -1146,7 +1151,11 @@ def spied_render(spies, tag, sc, reps, batch=1 << 15):
     them.  A wrapper's first argument is the tracer or integrator, then
     its tensors.  The renders run the graph drain: the largest call of a
     wrapper comes in the first trip of the first stage, which runs
-    eagerly before its capture."""
+    eagerly before its capture; so the first render builds its renderer
+    (`driver.release()` first), and the later ones, on the renderer it
+    kept, call no wrapper."""
+    from actinon_tpu_torch.render import driver
+    driver.release()
     cap = {}
     orig = {(m, n): getattr(m, n) for m, names in spies for n in names}
 

@@ -12,6 +12,38 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAMP_ROW = os.path.join(ROOT, "actinon_tpu_torch", "scenes", "lamp_row.acn")
 
 
+# a tiny .acn scene (16x16, depth 3, one gradient pass): a sphere lamp, a
+# floor and a ball of `material` at x = `ball_x`
+SMALL = """
+def scene = scene_s;
+scene.image_width = 16; scene.image_height = 16;
+scene.trace_depth = 3; scene.direct_samples = 2; scene.path_samples = 0;
+scene.gradient_cycles = 1; scene.gradient_samples = 2;
+scene.gradient_threshold = 0.05;
+scene.camera_position = vec(0,-7,3);
+scene.camera_view_direction = vec(0,7,-1.6);
+scene.camera_top_direction = vec(0,0,1);
+scene.background_color = color(0.1,0.12,0.2);
+def lamp = create_sphere(0.5) + vec(2,-1,6);
+lamp.set_radiance( 25 );
+scene.push( lamp );
+def floor = create_plane();
+scene.push( floor );
+def ball = create_sphere(1.0) + vec({ball_x},0,1.2);
+ball.set_material( "{material}" );
+scene.push( ball );
+scene.create_image( "x" );
+"""
+
+
+def small_scene(run_source, material="glass", ball_x=-0.8):
+    """SMALL through a front end's run_source (either package's)."""
+    cap = []
+    run_source(SMALL.format(material=material, ball_x=ball_x),
+               render_fn=lambda sc, fn: cap.append(sc.clone()))
+    return cap[0]
+
+
 def mixed_scene(ho):
     """Every shape family of the scene kernels (a copy of
     tests/test_pallas_scene.py:_mixed_scene): singles of all three

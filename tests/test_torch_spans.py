@@ -17,44 +17,26 @@ import torch
 
 from actinon_tpu_torch.acn.interp import run_source
 from actinon_tpu_torch.render import image as aimg
-from actinon_tpu_torch.render import spans
+from actinon_tpu_torch.render import driver, spans
 from actinon_tpu_torch.render.driver import render_scene
 from actinon_tpu_torch.render.integrator import Integrator
 
-SRC = """
-def scene = scene_s;
-scene.image_width = 16; scene.image_height = 16;
-scene.trace_depth = 3; scene.direct_samples = 2; scene.path_samples = 0;
-scene.gradient_cycles = 1; scene.gradient_samples = 2;
-scene.gradient_threshold = 0.05;
-scene.camera_position = vec(0,-7,3);
-scene.camera_view_direction = vec(0,7,-1.6);
-scene.camera_top_direction = vec(0,0,1);
-scene.background_color = color(0.1,0.12,0.2);
-def lamp = create_sphere(0.5) + vec(2,-1,6);
-lamp.set_radiance( 25 );
-scene.push( lamp );
-def floor = create_plane();
-scene.push( floor );
-def ball = create_sphere(1.0) + vec(-0.8,0,1.2);
-ball.set_material( "glass" );
-scene.push( ball );
-scene.create_image( "x" );
-"""
+import _torch_scenes as S
 
-# the spans of every call, and those of the graph drain's captures
+
+# the spans of a call that builds its renderer, of one that takes the
+# renderer the last call kept, and those of the graph drain's captures
 CALL = {"driver.image", "driver.compile", "driver.tracer",
         "driver.integrator", "driver.positions", "driver.accumulate",
         "driver.output", "driver.release", "drain.fill", "drain.stage",
         "drain.read", "drain.collect"}
+KEPT = CALL - {"driver.tracer", "driver.integrator", "driver.release"}
 GRAPHS = {"graphs.capture", "graphs.warmup", "graphs.record"}
 
 
 @pytest.fixture(scope="module")
 def scene():
-    cap = []
-    run_source(SRC, render_fn=lambda sc, fn: cap.append(sc.clone()))
-    return cap[0]
+    return S.small_scene(run_source)
 
 
 def render(scene, path, device, stats):
@@ -110,11 +92,13 @@ def check_spans(st, names):
 
 
 def test_spans_nest_and_cover_the_call(scene, tmp_path, passes):
+    driver.release()
     st = {}
     render(scene, tmp_path / "a.pnm", "cpu", st)
     check_spans(st, CALL)
     assert len(passes) == 2
     assert st["counters"] == {
+        "driver.renderer_kept": 0,
         "drain.host_reads": sum(p["reads"] for p in passes)}
     assert st["counters"]["drain.host_reads"] >= 2
     assert st["device_spans"] == []
@@ -124,7 +108,22 @@ def test_spans_nest_and_cover_the_call(scene, tmp_path, passes):
         == st["counters"]["drain.host_reads"]
 
 
+def test_kept_call_spans(scene, tmp_path, passes):
+    """A call that takes the renderer the last call kept: no build, no
+    release, and the counter says so."""
+    render(scene, tmp_path / "a.pnm", "cpu", None)
+    del passes[:]
+    st = {}
+    render(scene, tmp_path / "b.pnm", "cpu", st)
+    check_spans(st, KEPT)
+    assert len(passes) == 2
+    assert st["counters"] == {
+        "driver.renderer_kept": 1,
+        "drain.host_reads": sum(p["reads"] for p in passes)}
+
+
 def test_record_leaves_the_image_alone(scene, tmp_path):
+    driver.release()
     img0 = render(scene, tmp_path / "a.pnm", "cpu", None)
     st = {}
     img1 = render(scene, tmp_path / "b.pnm", "cpu", st)
@@ -139,6 +138,7 @@ def test_spans_are_profiler_ranges_only_under_a_profiler(
     """Under a profiler each span is a range and the call's stats are
     kept in spans.profiled; without one, neither."""
     from torch.profiler import ProfilerActivity, profile
+    driver.release()
     st = {}
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         render(scene, tmp_path / "a.pnm", "cpu", st)
@@ -175,7 +175,8 @@ def test_without_a_record_spans_are_one_shared_noop():
 def test_device_spans_and_captures_on_card(card, scene, tmp_path, passes):
     """On the card: a device span a replay, the captures counted as the
     call's graphs count them, and the image that a call without a record
-    renders."""
+    renders (on the renderer this call kept)."""
+    driver.release()
     st = {}
     img = render(scene, tmp_path / "a.pnm", "cuda", st)
     check_spans(st, CALL | GRAPHS)
@@ -198,6 +199,35 @@ def test_profiler_ranges_on_card(card, scene, tmp_path):
     """The spans' ranges in a profile of the host (the device collection
     stays off: a profiled graph replay has faulted the card)."""
     from torch.profiler import ProfilerActivity, profile
+    driver.release()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         render(scene, tmp_path / "a.pnm", "cuda", {})
     assert CALL | GRAPHS <= {e.name for e in prof.events()}
+
+
+@pytest.mark.cuda
+def test_kept_renderer_captures_nothing_on_card(card, scene, tmp_path):
+    """A second render of the scene from another camera takes the kept
+    renderer: it captures no graph, replays one graph a stage it reads,
+    and renders bit for bit what a fresh build renders.  (Its spans'
+    nesting and cover are test_kept_call_spans's: on the card this call
+    takes about 20 ms, so the allocator's and the drain's host work
+    between spans passes 5 % of it.)"""
+    other = scene.clone()
+    other.cfg.camera_position = (0.4, -7.2, 3.1)
+    driver.release()
+    render(scene, tmp_path / "a.pnm", "cuda", {})
+    st = {}
+    img = render(other, tmp_path / "b.pnm", "cuda", st)
+    assert {s[0] for s in st["spans"]} == KEPT
+    c = st["counters"]
+    assert c["driver.renderer_kept"] == 1
+    assert c.get("graphs.captures", 0) == 0
+    assert len(st["device_spans"]) == c["drain.host_reads"] > 0
+    driver.release()
+    fresh = {}
+    img0 = render(other, tmp_path / "c.pnm", "cuda", fresh)
+    assert fresh["counters"]["graphs.captures"] > 0
+    np.testing.assert_array_equal(img, img0)
+    for k in ("hash", "rays_traced", "samples", "trips"):
+        assert st[k] == fresh[k], k
