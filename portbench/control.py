@@ -7,8 +7,8 @@
 For each seed, the program is set up and runs `--units` units at the
 cell's own size; the numbers compared (the judge of `kinds.py`) are
 printed for the program and, on the control seeds, for the control: the
-reference computed in bfloat16 in the program's place.  The benchmark's
-own runs never run the control.  One JSON line a seed."""
+configuration's reference computed in bfloat16 in the program's place.
+The benchmark's own runs never run the control.  One JSON line a seed."""
 
 import argparse
 import json
@@ -33,11 +33,9 @@ def main(argv):
     import torch
 
     import harness
-    import kinds
     _, _, config, traffic, _ = harness.resolve(ROOT, a.workload)
     for seed in sorted(set(a.seeds) | set(a.control_seeds)):
-        kind = kinds.KINDS[traffic["kind"]](config, traffic, seed, ROOT,
-                                            a.device)
+        kind = harness.cell_kind(ROOT, config, traffic, seed, a.device)
         kind.setup(tempfile.gettempdir())
         for k in range(a.units):
             kind.run_unit(k)

@@ -2,9 +2,9 @@
 per-layer metrics (traced run only), and the comparison with the plain
 reference that decides `correct`.  Everything that belongs to one
 configuration, traffic mix, metric or cell is found by name under
-`portbench/` of the checkout: the configuration's file,
-`traffic/<traffic>.json`, `metrics/<metric>.py` and
-`limits/<workload>.json`."""
+`portbench/` of the checkout: the configuration's file and its plain
+reference, `traffic/<traffic>.json` and the kind it names,
+`metrics/<metric>.py` and `limits/<workload>.json`."""
 
 from __future__ import annotations
 
@@ -52,15 +52,43 @@ def cell_metrics(bench, workload, trace):
             and m["moves"] in moved]
 
 
+def load(path, name):
+    """The module of the file at path, loaded under name."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def reader(root, name):
     """The reader of a metric: `portbench/metrics/<name>.py`'s
     read(rec)."""
-    path = os.path.join(root, "portbench", "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load(os.path.join(root, "portbench", "metrics", name + ".py"),
+                "portbench_metric_" + name.replace(".", "_")).read
+
+
+REFERENCE = "portbench/reference.py"
+
+
+def reference(root, config):
+    """The configuration's plain reference: the module at its key
+    "reference", a path from the root of the checkout, or
+    `portbench/reference.py` without one (what it provides: kinds.py)."""
+    path = config.get("reference", REFERENCE)
+    name = os.path.splitext(os.path.basename(path))[0]
+    return load(os.path.join(root, path), "portbench_reference_" + name)
+
+
+def cell_kind(root, config, traffic, seed, device):
+    """The traffic kind that the mix names, made for one run: the class
+    in `kinds.KINDS`, else `portbench/traffic/<kind>.py`'s KIND; it
+    judges with the configuration's reference."""
+    import kinds
+    name = traffic["kind"]
+    cls = kinds.KINDS.get(name) or load(
+        os.path.join(root, "portbench", "traffic", name + ".py"),
+        "portbench_kind_" + name).KIND
+    return cls(config, traffic, seed, root, device, reference(root, config))
 
 
 REPLAY = "portbench.replay"
@@ -121,11 +149,10 @@ def run_cell(root, workload, seed, seconds, trace, t_start, device="cuda",
              bench=None):
     """One run; returns (result dict, check lines)."""
     import torch
-    import kinds
     bench, cell, config, traffic, limits = resolve(root, workload, bench)
     cuda = torch.device(device).type == "cuda"
     tmpdir = tempfile.gettempdir()
-    kind = kinds.KINDS[traffic["kind"]](config, traffic, seed, root, device)
+    kind = cell_kind(root, config, traffic, seed, device)
     kind.setup(tmpdir)
     if cuda:
         torch.cuda.synchronize()

@@ -2,7 +2,29 @@
 `portbench/traffic/` names one of these kinds and gives its parameters.
 A kind sets the program up from a configuration, runs one unit of work
 (an image) at a time from the seed, and judges what the timed units
-produced against the plain reference (`reference.py`)."""
+produced against the configuration's plain reference.
+
+A kind is found by name (`harness.cell_kind`): in `KINDS`, else as the
+class `KIND` of `portbench/traffic/<kind>.py`, which may build on the
+classes here.  It is made as cls(config, traffic, seed, root, device,
+reference) and provides setup(tmpdir), run_unit(k), free(),
+judge(device, control=False, diag=False) and close().
+
+The reference is the module at the configuration's optional key
+"reference", a path from the root of the checkout, and
+`portbench/reference.py` without one (`harness.reference`).  A scene
+reference provides
+  * Scene(config, device, dtype=torch.float64), with
+    with_camera(position) (returns the scene) and in_float32() (the
+    scene in float32 at the same camera, which the control runs under
+    Bf16);
+  * Render(scene, seed).radiance(pos): the radiance [N, 3], a numpy
+    array, of the samples at sub-pixel positions pos [N, 2], drawn with
+    the reference's own random numbers from seed.
+The driver's rules belong to the renderer and not to a scene, and stay
+in `reference.py` alone: LCG_START, lcg_positions, sqr_grad, saturated
+and the control's Bf16; a new reference imports what it needs of them
+from there."""
 
 from __future__ import annotations
 
@@ -13,7 +35,8 @@ import time
 import numpy as np
 import torch
 
-import reference
+from reference import (LCG_START, Bf16, lcg_positions, saturated,
+                       sqr_grad)
 
 
 def _seed(seed, *keys):
@@ -44,8 +67,9 @@ class Cell:
     """What every kind shares: the cell's parameters, the seed and where
     the units and the checks go."""
 
-    def __init__(self, config, traffic, seed, root, device):
+    def __init__(self, config, traffic, seed, root, device, reference):
         self.config = config
+        self.reference = reference
         self.batch = config["batch"]
         self.check = config["check"]
         self.scene_path = os.path.join(root, config["scene"])
@@ -136,18 +160,20 @@ class RenderFrames(Cell):
         out = []
         for i in self.picks(len(self.kept), self.check["images"]):
             k, img, passes = self.kept[i]
-            sc = reference.Scene(self.config, ref_device)
+            sc = self.reference.Scene(self.config, ref_device)
             sc.with_camera(self.camera(k))
-            out.append(judge_image(sc, img, passes, self.check["tile"],
+            out.append(judge_image(self.reference, sc, img, passes,
+                                   self.check["tile"],
                                    (self.seed & ((1 << 62) - 1), k),
                                    control, diag))
         return out
 
 
-def judge_image(sc, img, passes, tile, key, control=False, diag=False):
+def judge_image(reference, sc, img, passes, tile, key, control=False,
+                diag=False):
     """One image of the program (img [H, W, 3]; passes: each pass's
     positions [N, 2] and radiance [N, 3]) against the driver's rules and
-    the reference:
+    the scene reference `reference` (the module; sc its Scene):
       positions_off: the positions of the passes that differ from the
         rules (pass 0: every pixel centre in row order; pass c: the LCG's
         sub-samples of the pixels whose squared gradient in the image of
@@ -158,8 +184,9 @@ def judge_image(sc, img, passes, tile, key, control=False, diag=False):
       radiance_z_max, radiance_z2_mean: over tiles of tile x tile pixels
         and the 3 channels, the gap of the mean displayed sample value to
         the reference's at the same positions, over its standard error
-        (reference.Render draws twice, and the two draws' differences
-        give the samples' variance): the largest |z| and the mean z*z.
+        (the reference's Render draws twice, and the two draws'
+        differences give the samples' variance): the largest |z| and the
+        mean z*z.
     With control, the reference in bfloat16 takes the program's place in
     the radiance numbers; with diag, what the worst tile holds is added
     (radiance_z)."""
@@ -171,14 +198,14 @@ def judge_image(sc, img, passes, tile, key, control=False, diag=False):
     clr = np.zeros((H, W, 3))
     weight = np.zeros((H, W))
     off = 0
-    state = reference.LCG_START
+    state = LCG_START
     pos_all, lum_all = [], []
     for c in range(cfg["gradient_cycles"] + 1):
         if c:
             avg = clr / np.where(weight > 0, weight, 1.0)[..., None]
-            sel = np.argwhere(reference.sqr_grad(avg)
+            sel = np.argwhere(sqr_grad(avg)
                               > cfg["gradient_threshold"] ** 2)[:, ::-1]
-            want, state = reference.lcg_positions(sel, per_px, state)
+            want, state = lcg_positions(sel, per_px, state)
         if c >= len(passes):
             off += len(want)
             continue
@@ -187,7 +214,7 @@ def judge_image(sc, img, passes, tile, key, control=False, diag=False):
             off += max(len(pos), len(want))
         else:
             off += int(np.sum(np.any(pos != want, -1)))
-        sat = reference.saturated(lum, gamma)
+        sat = saturated(lum, gamma)
         px = pos.astype(np.int64)
         np.add.at(clr, (px[:, 1], px[:, 0]), sat)
         np.add.at(weight, (px[:, 1], px[:, 0]), 1.0)
@@ -206,13 +233,12 @@ def judge_image(sc, img, passes, tile, key, control=False, diag=False):
             # the scene's numbers in float32, every operation on them in
             # bfloat16
             lo = sc.in_float32()
-            with reference.Bf16():
+            with Bf16():
                 got = reference.Render(lo, seed * 4 + 3).radiance(pos)
         else:
             got = np.concatenate(lum_all)
-    z, worst = radiance_z(pos, reference.saturated(got, gamma),
-                          reference.saturated(r1, gamma),
-                          reference.saturated(r2, gamma), tile)
+    z, worst = radiance_z(pos, saturated(got, gamma), saturated(r1, gamma),
+                          saturated(r2, gamma), tile)
     out = dict(positions_off=float(off), image_off=image_off,
                radiance_z_max=float(np.max(np.abs(z))),
                radiance_z2_mean=float(np.mean(z * z)))

@@ -12,7 +12,6 @@ import pytest
 import torch
 
 import harness
-import kinds
 
 CELL = "cornell_box.frames"
 
@@ -25,8 +24,7 @@ def limits_failed(root, workload, per_unit):
 
 def test_control_fails(small_root):
     _, _, config, traffic, _ = harness.resolve(small_root, CELL)
-    kind = kinds.KINDS[traffic["kind"]](config, traffic, 41, small_root,
-                                        "cpu")
+    kind = harness.cell_kind(small_root, config, traffic, 41, "cpu")
     kind.setup(tempfile.gettempdir())
     kind.run_unit(0)
     kind.free()
