@@ -46,6 +46,7 @@ from actinon_tpu_torch.scene import objects as tho
 import _torch_scenes as S
 from test_torch_scene_kernels import WARP_REDUCE, _assert_tables_equal, \
     _lamp_row_pair, host_library
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

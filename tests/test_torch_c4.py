@@ -35,6 +35,7 @@ from actinon_tpu_torch.render.tracer import Tracer as TTracer
 from actinon_tpu_torch.render.tracer import _tree_eval_mask
 from actinon_tpu_torch.scene import ir as tsir
 from actinon_tpu_torch.scene import objects as tho
+from _torch_threads import one_torch_thread  # noqa: F401
 
 f32 = np.float32
 # rays a jitted call: XLA's CPU code gave the same bits in every process

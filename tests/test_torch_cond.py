@@ -33,6 +33,7 @@ from actinon_tpu_torch.render.tracer import Tracer, no_host_reads
 from actinon_tpu_torch.scene import ir as sir
 from actinon_tpu_torch.scene import objects as tho
 from test_torch_integrator import sample_pos
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _integ(mode, batch, device="cpu", build=make_scene, **kw):

@@ -23,6 +23,7 @@ import torch
 
 from _torch_diff import (assert_matches_jax, fd_check, jax_value_and_grad,
                          port_setup)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 # (scene, sel_mode): the plain, balanced-selection, CSG and path variants
 AGREE = [("plain", "uniform"), ("glass", "balanced"), ("lens", "uniform"),

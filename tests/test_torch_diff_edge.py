@@ -11,6 +11,7 @@ import pytest
 
 from _torch_diff import (assert_matches_jax, edge_fd, jax_value_and_grad,
                          port_setup)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SCENES = ["edge_sphere", "edge_plane", "edge_csg"]
 

@@ -30,6 +30,7 @@ from _torch_diff import port_setup
 from actinon_tpu_torch.render import diff as diff_mod
 from actinon_tpu_torch.render import graphs
 from actinon_tpu_torch.render import tracer as tracer_mod
+from _torch_threads import one_torch_thread  # noqa: F401
 
 AGREE = [("plain", "uniform"), ("glass", "balanced"), ("lens", "uniform"),
          ("path", "balanced")]

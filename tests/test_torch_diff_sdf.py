@@ -8,6 +8,7 @@ import pytest
 
 from _torch_diff import (assert_matches_jax, fd_check, jax_value_and_grad,
                          port_setup)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_torus_grads_match_jax():

@@ -29,6 +29,7 @@ from actinon_tpu_torch.scene import objects as tho
 
 from _torch_capture import _Reads, _Scalars, _Uploads
 from test_torch_integrator import make_scene, sample_pos
+from _torch_threads import one_torch_thread  # noqa: F401
 
 GLASS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "actinon_tpu_torch", "scenes",

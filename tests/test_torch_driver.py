@@ -20,6 +20,7 @@ from actinon_tpu_torch.__main__ import main as tmain
 from actinon_tpu_torch.acn.interp import run_source as trun_source
 from actinon_tpu_torch.render import image as aimg
 from actinon_tpu_torch.render.driver import render_scene as trender
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SRC = """
 def scene = scene_s;

@@ -5,6 +5,8 @@ import os
 import subprocess
 import sys
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = r"""

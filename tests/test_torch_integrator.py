@@ -22,6 +22,7 @@ from actinon_tpu_torch.render.integrator import Integrator as TIntegrator
 from actinon_tpu_torch.render.tracer import Tracer as TTracer
 from actinon_tpu_torch.scene import ir as tsir
 from actinon_tpu_torch.scene import objects as tho
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def make_scene(ho, path_samples=0, direct_samples=4, depth=8):

@@ -14,6 +14,7 @@ from actinon_tpu_torch.render import driver
 from actinon_tpu_torch.render.integrator import Integrator
 
 import _torch_scenes as S
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def render(sc, path, **kw):

@@ -39,6 +39,7 @@ from actinon_tpu_torch.scene import objects as tho
 
 import _torch_scenes as S
 from test_torch_scene_kernels import host_library
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SCENE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "actinon_tpu_torch", "scenes",

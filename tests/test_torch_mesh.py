@@ -12,6 +12,7 @@ import torch
 
 from _torch_mesh import glass_table, launch, pixel_centres, single_diff, \
     single_drain, single_queue
+from _torch_threads import one_torch_thread  # noqa: F401
 
 # glass_table at (w, h, direct, path, depth)
 DRAIN = dict(kind="drain", shape=(16, 12, 3, 0, 6), dtype="float32",

@@ -19,6 +19,7 @@ import torch
 from actinon_tpu.render.tracer import Tracer as JTracer
 from actinon_tpu.render.tracer import _sphere_first_hit as j_first_hit
 from actinon_tpu_torch.render.tracer import Tracer, _sphere_first_hit
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GLASS_TABLE = os.path.join(ROOT, "actinon_tpu_torch", "scenes",

@@ -22,6 +22,7 @@ from actinon_tpu_torch.render.reference_oracle import RecursiveOracle
 from actinon_tpu_torch.render.tracer import Tracer
 from actinon_tpu_torch.scene import ir as sir
 from actinon_tpu_torch.scene import objects as tho
+from _torch_threads import one_torch_thread  # noqa: F401
 
 KINDS = {
     "diffuse_only": dict(glass=False),

@@ -26,6 +26,7 @@ from actinon_tpu_torch.scene import ir as tsir
 from actinon_tpu_torch.scene import objects as tho
 
 import _torch_scenes as S
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-9)
 FIELDS = [f.name for f in dataclasses.fields(TRayQueue)]

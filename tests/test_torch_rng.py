@@ -13,6 +13,7 @@ from actinon_tpu import math3d as jm3
 from actinon_tpu import rng as jrng
 from actinon_tpu_torch import math3d as tm3
 from actinon_tpu_torch import rng as trng
+from _torch_threads import one_torch_thread  # noqa: F401
 
 N = 4096
 

@@ -32,6 +32,7 @@ from actinon_tpu_torch.scene import ir as tsir
 from actinon_tpu_torch.scene import objects as tho
 
 import _torch_scenes as S
+from _torch_threads import one_torch_thread  # noqa: F401
 
 IR = {}
 

@@ -22,6 +22,7 @@ from actinon_tpu_torch.render.driver import render_scene
 from actinon_tpu_torch.render.integrator import Integrator
 
 import _torch_scenes as S
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 # the spans of a call that builds its renderer, of one that takes the

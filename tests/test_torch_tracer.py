@@ -19,6 +19,7 @@ from actinon_tpu.scene import objects as jho
 from actinon_tpu_torch.render.tracer import Tracer as TTracer
 from actinon_tpu_torch.scene import ir as tsir
 from actinon_tpu_torch.scene import objects as tho
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def build(ho):

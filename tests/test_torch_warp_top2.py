@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 from test_torch_scene_kernels import WARP_REDUCE, host_library
+from _torch_threads import one_torch_thread  # noqa: F401
 
 LB = 128
 
